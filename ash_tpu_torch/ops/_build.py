@@ -1,10 +1,11 @@
 """Build the CUDA sources under ash_tpu_torch/csrc/ at first use.
 
 Each library is compiled by `nvcc` into `build/ash_tpu_torch/` at the root of
-the checkout, under a name keyed on a hash of its sources and flags (a
-changed `.cu` rebuilds), and loaded with `ctypes`. The sources have a plain C
-interface and include no PyTorch headers, so a build takes seconds. Nothing
-here runs at import time: the CPU-only test machine has no `nvcc`.
+the checkout, under a name keyed on a hash of the flags and of every file
+under csrc/ (so an edited `.cu` or header rebuilds), and loaded with
+`ctypes`. The sources have a plain C interface and include no PyTorch
+headers, so a build takes seconds. Nothing here runs at import time: a
+machine without CUDA has no `nvcc`.
 """
 
 from __future__ import annotations
@@ -46,10 +47,15 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> pathlib.Path:
     """Where library `name` (built from csrc/<name>.cu) lives for the
-    current sources and flags."""
+    current flags and sources. Every file under csrc/ enters the hash, not
+    only <name>.cu, so a changed header never leaves a stale library."""
+    if not (CSRC / f"{name}.cu").is_file():
+        raise FileNotFoundError(CSRC / f"{name}.cu")
     h = hashlib.sha256()
     h.update(" ".join(NVCC_FLAGS).encode())
-    h.update((CSRC / f"{name}.cu").read_bytes())
+    for path in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        h.update(str(path.relative_to(CSRC)).encode() + b"\0")
+        h.update(path.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 

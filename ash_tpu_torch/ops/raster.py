@@ -1,21 +1,23 @@
 """Tile rasterization into a visibility buffer: the plain PyTorch version.
 
-Port of ash_tpu/ops/raster.py (`rasterize`, layers=1). For every screen tile
-the candidate triangles of its bin list are tested in slot order: three
+Port of ash_tpu/ops/raster.py (`rasterize`, `tile_image`). For every screen
+tile the candidate triangles of its bin list are tested in slot order: three
 homogeneous edge functions at the pixel centres give coverage, their
 z-weighted sum gives depth, and a LESS depth test keeps the nearest
 (earlier id on ties, since slots are in ascending id order). The output is a
 (depth, triangle id) pair per pixel; shading happens later, once per pixel.
+With layers=K it keeps the K nearest surfaces per pixel instead (a K-layer
+depth peel), optionally only those strictly behind a per-pixel floor.
 
-This module is the reference for the hand-written CUDA kernel in
-ops/raster_cuda.py + csrc/raster.cu, which computes the same values with the
+This module is the reference for the hand-written CUDA kernels in
+ops/raster_cuda.py + csrc/raster.cu, which compute the same values with the
 same order of float operations. The CPU tests run this version; on the card
-it serves only as the comparison for the kernel.
+it serves only as the comparison for the kernels.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -26,6 +28,39 @@ from .geometry import TriangleSetup
 class VisibilityBuffer(NamedTuple):
     depth: torch.Tensor  # (H, W) float32, 1.0 = far/clear
     tri_id: torch.Tensor  # (H, W) int32, -1 = background
+    # Second-nearest layer (layers >= 2 only).
+    depth2: Optional[torch.Tensor] = None
+    tri_id2: Optional[torch.Tensor] = None
+    # Layers 3..K stacked (K-2, H, W), nearest first (layers >= 3 only).
+    depth_rest: Optional[torch.Tensor] = None
+    tri_id_rest: Optional[torch.Tensor] = None
+
+    @property
+    def num_layers(self) -> int:
+        n = 1 + (self.depth2 is not None)
+        if self.depth_rest is not None:
+            n += self.depth_rest.shape[0]
+        return n
+
+    def layer(self, i: int):
+        """(depth, tri_id) of peel layer i (0 = nearest)."""
+        if i == 0:
+            return self.depth, self.tri_id
+        if i == 1:
+            return self.depth2, self.tri_id2
+        return self.depth_rest[i - 2], self.tri_id_rest[i - 2]
+
+    @classmethod
+    def from_layers(cls, depth: torch.Tensor, tri_id: torch.Tensor):
+        """Views of (K, H, W) depth and id stacks, nearest layer first."""
+        k = depth.shape[0]
+        return cls(
+            depth=depth[0], tri_id=tri_id[0],
+            depth2=depth[1] if k > 1 else None,
+            tri_id2=tri_id[1] if k > 1 else None,
+            depth_rest=depth[2:] if k > 2 else None,
+            tri_id_rest=tri_id[2:] if k > 2 else None,
+        )
 
 
 def _gather_tile_tris(setup: TriangleSetup, tri_ids: torch.Tensor):
@@ -81,6 +116,18 @@ def untile(buf: torch.Tensor, height: int, width: int, tile_h: int, tile_w: int)
     return img[:height, :width].contiguous()
 
 
+def tile_image(img: torch.Tensor, tile_h: int, tile_w: int) -> torch.Tensor:
+    """(H, W) -> (num_tiles, TH, TW), zero padded."""
+    h, w = img.shape
+    ty, tx = grid_shape(h, w, tile_h, tile_w)
+    img = torch.nn.functional.pad(img, (0, tx * tile_w - w, 0, ty * tile_h - h))
+    return (
+        img.reshape(ty, tile_h, tx, tile_w)
+        .permute(0, 2, 1, 3)
+        .reshape(ty * tx, tile_h, tile_w)
+    )
+
+
 def rasterize(
     setup: TriangleSetup,
     bins: TileBins,
@@ -89,27 +136,52 @@ def rasterize(
     tile_h: int,
     tile_w: int,
     y0: int = 0,
+    layers: int = 1,
+    depth_floor: Optional[torch.Tensor] = None,
 ) -> VisibilityBuffer:
     """Plain rasterizer: a loop over the K bin slots, every tile at once.
 
     `y0`: global framebuffer row of this band's first row; `height` and
     `width` describe the band. Depth LESS keeps the lowest id on ties.
+
+    `layers` > 1 keeps that many nearest surfaces per pixel: each hit
+    bubbles down the pixel's sorted list, displacing a stored surface that
+    is strictly farther (which then moves on as the candidate), so on equal
+    depth the stored surface stays. `depth_floor` ((height, width) f32,
+    layers >= 2 only) rejects candidates at z <= floor: the second and later
+    passes of iterated peeling.
     """
+    if depth_floor is not None and layers < 2:
+        raise ValueError("depth_floor needs layers >= 2")
     ty, tx = grid_shape(height, width, tile_h, tile_w)
     num_tiles = ty * tx
     dev = setup.edge.device
     tile_data = _gather_tile_tris(setup, bins.tri_ids)  # (num_tiles, K, 12)
     px, py = _pixel_centers(num_tiles, tx, tile_h, tile_w, y0, dev)
 
-    zbuf = torch.ones((num_tiles, tile_h, tile_w), dtype=torch.float32, device=dev)
-    tid = torch.full((num_tiles, tile_h, tile_w), -1, dtype=torch.int32, device=dev)
+    floor = (
+        None if depth_floor is None else tile_image(depth_floor, tile_h, tile_w)
+    )
+    zs = [torch.ones((num_tiles, tile_h, tile_w), dtype=torch.float32,
+                     device=dev)] * layers
+    ts = [torch.full((num_tiles, tile_h, tile_w), -1, dtype=torch.int32,
+                     device=dev)] * layers
     for k in range(bins.tri_ids.shape[1]):
         ids = bins.tri_ids[:, k][:, None, None]
         inside, z = coverage_and_depth(tile_data[:, k], px, py)
-        m = inside & (ids >= 0) & (z >= 0.0) & (z <= 1.0) & (z < zbuf)
-        zbuf = torch.where(m, z, zbuf)
-        tid = torch.where(m, ids, tid)
-    return VisibilityBuffer(
-        depth=untile(zbuf, height, width, tile_h, tile_w),
-        tri_id=untile(tid, height, width, tile_h, tile_w),
+        hit = inside & (ids >= 0) & (z >= 0.0) & (z <= 1.0)
+        if floor is not None:
+            hit = hit & (z > floor)
+        cz, ct = z, ids
+        for i in range(layers):
+            swap = hit & (cz < zs[i])
+            kept_z = torch.where(swap, cz, zs[i])
+            kept_t = torch.where(swap, ct, ts[i])
+            if i + 1 < layers:  # the displaced surface moves on
+                cz = torch.where(swap, zs[i], cz)
+                ct = torch.where(swap, ts[i], ct)
+            zs[i], ts[i] = kept_z, kept_t
+    return VisibilityBuffer.from_layers(
+        torch.stack([untile(z, height, width, tile_h, tile_w) for z in zs]),
+        torch.stack([untile(t, height, width, tile_h, tile_w) for t in ts]),
     )

@@ -1,21 +1,25 @@
-"""The rasterizer's entry point: the CUDA kernel csrc/raster.cu on the card.
+"""The rasterizer's entry point: the CUDA kernels of csrc/raster.cu on the card.
 
-Replaces ash_tpu/ops/raster_pallas.py:rasterize_pallas (layers=1). Both
-passes of a frame (shadow and main) call `rasterize` here.
+Replaces ash_tpu/ops/raster_pallas.py:rasterize_pallas. Every raster of a
+frame (the shadow pass, the main pass and the passes of iterated peeling)
+calls `rasterize` here.
 
-- CUDA tensors launch the hand-written kernel (built by ops/_build.py at
-  first use) or raise; nothing falls back.
+- CUDA tensors launch a hand-written kernel (built by ops/_build.py at first
+  use) or raise; nothing falls back. layers=1 launches the one-layer kernel,
+  layers=2..8 the K-layer depth peel.
 - CPU tensors run the plain version, ops/raster.py:rasterize, which is the
-  kernel's reference.
+  kernels' reference.
 
-`rasterize.launches` counts kernel launches (and nothing else), so a run can
-show that its frames went through the kernel.
+`rasterize.launches` counts launches of the one-layer kernel and
+`rasterize.layer_launches` those of the K-layer kernel (and nothing else),
+so a run can show which kernel its frames went through.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -25,14 +29,17 @@ from .geometry import TriangleSetup
 from .raster import VisibilityBuffer
 from .raster import rasterize as rasterize_plain
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+MAX_LAYERS = 8
+_P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load("raster")
-    lib.ash_raster.argtypes = _ARGTYPES
-    lib.ash_raster.restype = ctypes.c_int
+    lib.ash_raster.argtypes = [_P] * 6 + [_I] * 7 + [_P]
+    lib.ash_raster.restype = _I
+    lib.ash_raster_layers.argtypes = [_P] * 7 + [_I] * 8 + [_P]
+    lib.ash_raster_layers.restype = _I
     return lib
 
 
@@ -54,12 +61,20 @@ def rasterize(
     tile_h: int,
     tile_w: int,
     y0: int = 0,
+    layers: int = 1,
+    depth_floor: Optional[torch.Tensor] = None,
 ) -> VisibilityBuffer:
-    """Visibility buffer (depth, tri_id) of shape (height, width) for the
-    band whose first global row is `y0`. See ops/raster.py:rasterize."""
+    """Visibility buffer of shape (height, width), with `layers` peel layers,
+    for the band whose first global row is `y0`; `depth_floor` is
+    band-local. See ops/raster.py:rasterize."""
+    if not 1 <= layers <= MAX_LAYERS:
+        raise ValueError(f"raster: layers {layers} outside [1, {MAX_LAYERS}]")
+    if depth_floor is not None and layers < 2:
+        raise ValueError("depth_floor needs layers >= 2")
     device = setup.edge.device
     if device.type == "cpu":
-        return rasterize_plain(setup, bins, height, width, tile_h, tile_w, y0)
+        return rasterize_plain(setup, bins, height, width, tile_h, tile_w, y0,
+                               layers=layers, depth_floor=depth_floor)
     if device.type != "cuda":
         raise ValueError(f"raster: unsupported device {device}")
     ty, tx = grid_shape(height, width, tile_h, tile_w)
@@ -69,23 +84,37 @@ def rasterize(
     _check("setup.z_clip", setup.z_clip, torch.float32, (t, 3), device)
     _check("bins.tri_ids", bins.tri_ids, torch.int32, (ty * tx, k), device)
     _check("bins.counts", bins.counts, torch.int32, (ty * tx,), device)
-    if height * width >= 2**31 or t >= 2**31 // 9:
+    if depth_floor is not None:
+        _check("depth_floor", depth_floor, torch.float32, (height, width), device)
+    if layers * height * width >= 2**31 or t >= 2**31 // 9:
         raise ValueError("raster kernel: 32-bit index range exceeded")
 
-    depth = torch.empty((height, width), dtype=torch.float32, device=device)
-    tri_id = torch.empty((height, width), dtype=torch.int32, device=device)
+    depth = torch.empty((layers, height, width), dtype=torch.float32, device=device)
+    tri_id = torch.empty((layers, height, width), dtype=torch.int32, device=device)
+    ptrs = (setup.edge.data_ptr(), setup.z_clip.data_ptr(),
+            bins.tri_ids.data_ptr(), bins.counts.data_ptr())
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = _library().ash_raster(
-            setup.edge.data_ptr(), setup.z_clip.data_ptr(),
-            bins.tri_ids.data_ptr(), bins.counts.data_ptr(),
-            depth.data_ptr(), tri_id.data_ptr(),
-            t, height, width, tile_h, tile_w, k, int(y0), stream,
-        )
+        if layers == 1:
+            err = _library().ash_raster(
+                *ptrs, depth.data_ptr(), tri_id.data_ptr(),
+                t, height, width, tile_h, tile_w, k, int(y0), stream,
+            )
+        else:
+            err = _library().ash_raster_layers(
+                *ptrs,
+                depth_floor.data_ptr() if depth_floor is not None else None,
+                depth.data_ptr(), tri_id.data_ptr(),
+                t, height, width, tile_h, tile_w, k, int(y0), layers, stream,
+            )
     if err != 0:
         raise RuntimeError(f"raster kernel launch failed: CUDA error {err}")
-    rasterize.launches += 1
-    return VisibilityBuffer(depth=depth, tri_id=tri_id)
+    if layers == 1:
+        rasterize.launches += 1
+    else:
+        rasterize.layer_launches += 1
+    return VisibilityBuffer.from_layers(depth, tri_id)
 
 
 rasterize.launches = 0
+rasterize.layer_launches = 0

@@ -8,7 +8,9 @@ Cook-Torrance model: GGX distribution, Smith-Schlick geometry with
 k = (r+1)^2/8, Fresnel-Schlick, roughness floored at 0.04, the specular cap
 min(spec, 10/max(0.04, F0)), kD = (1-F)(1-metallic), 16-tap PCF on the
 geometric normal, flat ambient, emissive, and optional in-shader Reinhard.
-Textures, point/spot lights, CSM and IBL are ROADMAP A10, A12 and A14.
+`pixel_alpha` and `composite_over` blend the shaded layers of a depth peel
+(semi-transparent materials). Textures, point/spot lights, CSM and IBL are
+ROADMAP A10, A12 and A14.
 """
 
 from __future__ import annotations
@@ -208,3 +210,34 @@ def shade_flat(gbuf: GBuffer, clear_color=(0.0, 0.0, 0.0)) -> torch.Tensor:
         clear_color, dtype=torch.float32, device=gbuf.color.device
     )
     return torch.where(gbuf.mask[..., None], gbuf.color, clear)
+
+
+def pixel_alpha(
+    gbuf: GBuffer,
+    materials: torch.Tensor,  # (D, 18)
+    pool=None,
+) -> torch.Tensor:
+    """Per-pixel coverage alpha for blending: the base colour factor's
+    alpha (the base texture's alpha is 1 untextured), zeroed by the
+    material's alpha_cutoff and on background pixels. Opaque materials
+    (alpha 1, no cutoff) give exactly 1 on covered pixels."""
+    if pool is not None:
+        raise NotImplementedError(
+            "pixel_alpha with a texture pool is not ported yet (ROADMAP.md A10)"
+        )
+    mat = materials[gbuf.draw_id.long()]
+    alpha = mat[..., 3]
+    cutoff = mat[..., 17]
+    alpha = torch.where((cutoff > 0.0) & (alpha < cutoff), 0.0, alpha)
+    return torch.where(gbuf.mask, alpha, 0.0)
+
+
+def composite_over(
+    front_color: torch.Tensor,  # (H, W, 3)
+    front_alpha: torch.Tensor,  # (H, W)
+    back_color: torch.Tensor,  # (H, W, 3), already composed over the clear
+) -> torch.Tensor:
+    """SRC_ALPHA / ONE_MINUS_SRC_ALPHA blend (the reference pipeline's
+    always-on blend state)."""
+    a = front_alpha[..., None]
+    return front_color * a + back_color * (1.0 - a)

@@ -1,10 +1,12 @@
 """Where a standard frame's time goes, on one CUDA device.
 
     python3 -m ash_tpu_torch.profile_frame [--frames N] [--out DIR]
+        [--glass [--transparency-passes P]]
 
 Renders the bench scene (render/bench_scene.py: 1000 cubes, 1920x1080,
-2048^2 shadow map) and traces N static frames and N frames that re-render
-the shadow map with `torch.profiler`. For each kind it prints the wall time
+2048^2 shadow map), or with --glass the glass standard frame (every fourth
+cube alpha 0.5, a 4-layer depth peel run P times), and traces N static
+frames and N frames that re-render the shadow map with `torch.profiler`. For each kind it prints the wall time
 per frame, the device's busy and idle share of that wall time, device time
 per `pass_*` scope (the kernels its PyTorch ops launched, the span from its
 first to its last kernel on the device, and its host time), and the device
@@ -69,11 +71,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--glass", action="store_true")
+    ap.add_argument("--transparency-passes", type=int, default=1)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_frame: needs a CUDA device", file=sys.stderr)
         return 1
-    r, _, cam, _ = build_bench_renderer(1920, 1080, 1000, "cuda")
+    r, _, cam, _ = build_bench_renderer(
+        1920, 1080, 1000, "cuda", glass=args.glass,
+        transparency_passes=args.transparency_passes,
+    )
     view, proj, pos = cam.view_matrix(), cam.projection_matrix(), cam.position
     for _ in range(3):  # build the kernel, the scene and the shadow map
         r.render_frame(view, proj, pos)

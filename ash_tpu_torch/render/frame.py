@@ -2,10 +2,13 @@
 
 `render_frame_program` is one `render_frame`: vertex stage -> frustum
 culling -> back-cull setup -> binning -> raster -> G-buffer -> shading ->
-sRGB encode and RGBA8 pack. The shadow pass is its own function,
-`shadow_program` (front-cull setup -> binning -> depth-only raster), so the
-renderer can cache the map across frames of a static scene. Both rasters
-go through ops/raster_cuda.py:rasterize: the CUDA kernel on the card.
+sRGB encode and RGBA8 pack. With semi-transparent materials (alpha_blend)
+the main raster is a K-layer depth peel, iterated `transparency_passes`
+times, and every layer is shaded and composited back to front. The shadow
+pass is its own function, `shadow_program` (front-cull setup -> binning ->
+depth-only raster), so the renderer can cache the map across frames of a
+static scene. Every raster goes through ops/raster_cuda.py:rasterize: a
+CUDA kernel on the card.
 
 PyTorch runs eagerly, so there is no program cache: the FrameConfig only
 carries the static shape of the frame. Each stage runs inside a
@@ -23,8 +26,16 @@ from torch.profiler import record_function
 
 from ..ops import binning, geometry
 from ..ops.occlusion import cull_objects
+from ..ops.raster import VisibilityBuffer
 from ..ops.raster_cuda import rasterize
-from ..ops.shade import ShadeUniforms, interpolate_gbuffer, shade_flat, shade_pbr
+from ..ops.shade import (
+    ShadeUniforms,
+    composite_over,
+    interpolate_gbuffer,
+    pixel_alpha,
+    shade_flat,
+    shade_pbr,
+)
 from .scene import SceneBuffers
 
 
@@ -63,6 +74,15 @@ class FrameConfig:
     shading: str = "pbr"  # "pbr" | "flat"
     clear_color: tuple = (0.0, 0.0, 0.0)
     frustum_culling: bool = False
+    # Semi-transparent materials: shade every layer of a K-layer depth peel
+    # (K = transparency_layers, in [2, 8]) and composite them back to front
+    # with SRC_ALPHA blending. The peel sorts per pixel, so the blend is
+    # order-independent and exact up to K-1 transparent surfaces over
+    # anything. Each extra transparency pass rasterizes the next K surfaces
+    # strictly behind the deepest kept one (iterated peeling). pbr only.
+    alpha_blend: bool = False
+    transparency_layers: int = 2
+    transparency_passes: int = 1
 
     @property
     def shadow_rows(self) -> int:
@@ -180,6 +200,15 @@ def main_pass_bins(cfg: FrameConfig, scene: SceneBuffers, uni: FrameUniforms):
     return tv, setup, bins, visible_draws
 
 
+def _concat_vis_layers(a: VisibilityBuffer, b: VisibilityBuffer):
+    """Append b's peel layers after a's (b must be strictly deeper:
+    produced with depth_floor at a's deepest layer)."""
+    layers = [x.layer(i) for x in (a, b) for i in range(x.num_layers)]
+    return VisibilityBuffer.from_layers(
+        torch.stack([z for z, _ in layers]), torch.stack([t for _, t in layers])
+    )
+
+
 def render_band(
     cfg: FrameConfig,
     scene: SceneBuffers,
@@ -189,23 +218,46 @@ def render_band(
     """Vertex stage -> culling -> raster -> shade over the full frame.
     `shadow` is the shadow pass's output; it must be given exactly when
     cfg.shadow_enabled."""
+    if not 2 <= cfg.transparency_layers <= 8:
+        raise ValueError(
+            f"transparency_layers {cfg.transparency_layers} outside [2, 8]"
+        )
     if (shadow is not None) != cfg.shadow_enabled:
         raise ValueError("shadow map given iff cfg.shadow_enabled")
     shadow_map, shadow_overflow = shadow if shadow is not None else (None, None)
     tv, setup, bins, visible_draws = main_pass_bins(cfg, scene, uni)
+    blend = cfg.alpha_blend and cfg.shading == "pbr"
     with record_function("pass_raster"):
+        peel_layers = cfg.transparency_layers if blend else 1
         vis = rasterize(setup, bins, cfg.height, cfg.width, cfg.tile_h,
-                        cfg.tile_w)
-    with record_function("pass_gbuffer"):
-        gbuf = interpolate_gbuffer(
-            vis.tri_id, setup, scene.tri_v, scene.tri_draw, tv, scene.uv,
-            scene.color, vert_uid=scene.vert_uid,
-        )
-    with record_function("pass_shade"):
-        if cfg.shading == "flat":
-            color = shade_flat(gbuf, clear_color=cfg.clear_color)
-        else:
-            color = shade_pbr(
+                        cfg.tile_w, layers=peel_layers)
+        if blend:
+            # Iterated peel: each pass keeps only surfaces strictly behind
+            # the previous pass's deepest kept layer, so appending keeps the
+            # nearest-first order.
+            for _ in range(cfg.transparency_passes - 1):
+                floor, _ = vis.layer(vis.num_layers - 1)
+                vis = _concat_vis_layers(vis, rasterize(
+                    setup, bins, cfg.height, cfg.width, cfg.tile_h,
+                    cfg.tile_w, layers=peel_layers, depth_floor=floor,
+                ))
+
+    def gbuffer(tri_id):
+        with record_function("pass_gbuffer"):
+            return interpolate_gbuffer(
+                tri_id, setup, scene.tri_v, scene.tri_draw, tv, scene.uv,
+                scene.color, vert_uid=scene.vert_uid,
+            )
+
+    # One host-to-device copy per frame, shared by every shaded layer.
+    clear = torch.tensor(cfg.clear_color, dtype=torch.float32,
+                         device=setup.edge.device)
+
+    def shade(gbuf):
+        with record_function("pass_shade"):
+            if cfg.shading == "flat":
+                return shade_flat(gbuf, clear_color=clear)
+            return shade_pbr(
                 gbuf, scene.materials,
                 ShadeUniforms(
                     camera_pos=uni.camera_pos,
@@ -214,9 +266,23 @@ def render_band(
                     ambient_color=uni.ambient_color,
                     light_space_matrix=uni.light_space_matrix,
                 ),
-                shadow_map=shadow_map, clear_color=cfg.clear_color,
+                shadow_map=shadow_map, clear_color=clear,
                 reinhard=True,  # in-shader tonemap; the HDR post chain is A13
             )
+
+    if not blend:
+        color = shade(gbuffer(vis.tri_id))
+    else:
+        # Shade every peeled layer with the same shadow map, then composite
+        # back to front over the clear colour.
+        layers = []
+        for i in range(vis.num_layers):
+            gbuf = gbuffer(vis.layer(i)[1])
+            layers.append((shade(gbuf), pixel_alpha(gbuf, scene.materials)))
+        with record_function("pass_shade"):
+            color = clear.expand_as(layers[0][0])
+            for color_l, alpha_l in reversed(layers):
+                color = composite_over(color_l, alpha_l, color)
     return BandOutputs(
         color=color, depth=vis.depth, shadow_map=shadow_map,
         covered=(vis.tri_id >= 0).sum(dtype=torch.int32),

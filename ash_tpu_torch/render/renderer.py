@@ -55,8 +55,6 @@ def _unported(what: str, item: str):
 # Reference options the port does not run yet: (default, ROADMAP item).
 _UNPORTED_OPTIONS = {
     "csm": (None, "A14, CSM"),
-    "transparency_layers": (2, "A11, K-layer transparency"),
-    "transparency_passes": (1, "A11, K-layer transparency"),
     "render_scale": (1.0, "A13, TAAU"),
     "texture_budget_bytes": (None, "A10, textures"),
     "max_draws_per_chunk": (None, "A16, chunked geometry"),
@@ -87,6 +85,9 @@ class RendererConfig:
     clear_color: tuple = (0.0, 0.0, 0.0)
     frustum_culling: bool = True
     csm: Optional[object] = None
+    # Peel layers per transparency pass, in [2, 8] (checked at render), and
+    # passes of iterated peeling; they act only on scenes with a
+    # semi-transparent material (base colour alpha < 1).
     transparency_layers: int = 2
     transparency_passes: int = 1
     render_scale: float = 1.0
@@ -159,6 +160,9 @@ class Renderer:
         self._scene_dirty = True
         self._scene_epoch = 0
         self._models: Optional[torch.Tensor] = None  # multi-draw, per scene
+        # Whether a multi-draw scene has a semi-transparent material,
+        # scanned once per scene build.
+        self._scene_blend = False
         # (key, shadow_map, shadow_overflow): reused while the scene, the
         # transforms and the light matrix are unchanged.
         self._shadow_cache: Optional[tuple] = None
@@ -292,7 +296,7 @@ class Renderer:
             material=self._material_uniform(material),
         )]
 
-    def _frame_config(self) -> FrameConfig:
+    def _frame_config(self, alpha_blend: bool) -> FrameConfig:
         c = self.config
         return FrameConfig(
             width=self._width,
@@ -309,14 +313,19 @@ class Renderer:
             shading=c.shading,
             clear_color=tuple(c.clear_color),
             frustum_culling=c.frustum_culling,
+            alpha_blend=alpha_blend,
+            transparency_layers=c.transparency_layers,
+            transparency_passes=c.transparency_passes,
         )
 
+    @staticmethod
+    def _blends(items: List[DrawItem]) -> bool:
+        """A semi-transparent material (base colour alpha < 1) switches on
+        K-layer alpha blending (twice or more the shading cost, so only
+        then)."""
+        return any(float(it.material.base_color_factor[3]) < 1.0 for it in items)
+
     def _build_scene(self, items: List[DrawItem]) -> None:
-        # Alpha blending (base alpha < 1) is A11. An alpha cutoff acts only
-        # on textured materials, in the reference too, and textures are
-        # refused at registration (A10).
-        if any(float(it.material.base_color_factor[3]) < 1.0 for it in items):
-            _unported("semi-transparent materials (alpha blending)", "A11")
         scene = build_scene(items, self.mesh_registry, self.device)
         if (self.config.two_level_binning is None
                 and scene.buffers.num_triangles > DENSE_BINNING_MAX_TRIS):
@@ -329,6 +338,7 @@ class Renderer:
         self._scene_dirty = False
         self._scene_epoch += 1
         self._shadow_cache = None
+        self._scene_blend = self._blends(items)
         self._single_mat_row = (
             items[0].packed_material() if self._single_mesh_key else None
         )
@@ -358,8 +368,6 @@ class Renderer:
             # Single-mesh path: material_mut() edits and transform changes
             # land without a scene rebuild.
             row = items[0].packed_material()
-            if row[3] < 1.0:
-                _unported("semi-transparent materials (alpha blending)", "A11")
             if not np.array_equal(row, self._single_mat_row):
                 mats = self._scene.buffers.materials.clone()
                 mats[0] = torch.from_numpy(row).to(self.device)
@@ -392,7 +400,11 @@ class Renderer:
             light_space_matrix=consts[28:44].view(4, 4),
             models=self._models,
         )
-        return FrameInputs(self._frame_config(), self._scene, uni)
+        # The multi-draw scan is cached per scene build; the single mesh is
+        # rescanned every frame, so a material_mut() alpha edit blends on
+        # the next frame without a rebuild.
+        blend = self._scene_blend if self.draw_items else self._blends(items)
+        return FrameInputs(self._frame_config(blend), self._scene, uni)
 
     def _external_shadow(self, inputs: FrameInputs) -> tuple:
         """Render (or reuse) the shadow map. The key covers everything the
@@ -406,7 +418,9 @@ class Renderer:
         lkey = np.ascontiguousarray(
             self.shadow_feature.light_space_matrix(), dtype=np.float32
         ).tobytes()
-        key = (inputs.config, self._scene_epoch, mkey, lkey)
+        # Blending does not shape the shadow pass.
+        cfg = dataclasses.replace(inputs.config, alpha_blend=False)
+        key = (cfg, self._scene_epoch, mkey, lkey)
         cache = self._shadow_cache
         if cache is not None and cache[0] == key:
             return cache[1], cache[2]

@@ -12,7 +12,7 @@ import torch
 import ash_tpu_torch
 from ash_tpu.core.mesh import Mesh
 from ash_tpu.core.texture import TextureData
-from ash_tpu_torch import Material, RenderCommand, Renderer, RendererConfig
+from ash_tpu_torch import RenderCommand, Renderer, RendererConfig
 from ash_tpu_torch.ops import _build, binning, geometry, raster, raster_cuda
 from ash_tpu_torch.render import HeadlessSurface
 
@@ -82,7 +82,16 @@ def test_kernel_build_is_keyed_on_source(monkeypatch, tmp_path):
     assert lib.parent == _build.BUILD_DIR
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     (tmp_path / "raster.cu").write_text("// a different source\n")
-    assert _build.library_path("raster") != lib
+    edited = _build.library_path("raster")
+    assert edited != lib
+    # Any file under csrc/ (a header the source includes) keys the build.
+    (tmp_path / "common.cuh").write_text("// a header\n")
+    with_header = _build.library_path("raster")
+    assert with_header != edited
+    (tmp_path / "common.cuh").write_text("// an edited header\n")
+    assert _build.library_path("raster") != with_header
+    with pytest.raises(FileNotFoundError):
+        _build.library_path("missing")
 
 
 def test_missing_nvcc_raises(monkeypatch):
@@ -95,8 +104,6 @@ def test_missing_nvcc_raises(monkeypatch):
 
 @pytest.mark.parametrize("option,value", [
     ("csm", object()),
-    ("transparency_layers", 4),
-    ("transparency_passes", 2),
     ("render_scale", 0.5),
     ("texture_budget_bytes", 1 << 20),
     ("max_draws_per_chunk", 100),
@@ -137,15 +144,6 @@ def test_lod_chain_raises():
 def _cam_args():
     cam = ash_tpu_torch.Camera.new([3.0, 2.0, 4.0], [0, 0, 0], 1.0)
     return cam.view_matrix(), cam.projection_matrix(), cam.position
-
-
-def test_semi_transparent_material_raises():
-    r = Renderer(HeadlessSurface(32, 32), RendererConfig(shadows_enabled=False),
-                 device="cpu")
-    r.set_mesh(Mesh.create_cube())
-    r.set_material(Material(color=(1.0, 1.0, 1.0, 0.5)))
-    with pytest.raises(NotImplementedError, match="A11"):
-        r.render_frame(*_cam_args())
 
 
 def test_large_scene_needs_two_level_binning():
