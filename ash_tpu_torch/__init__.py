@@ -1,14 +1,15 @@
 """ash_tpu_torch — the PyTorch + CUDA port of ash_tpu for NVIDIA Hopper.
 
 A second package beside `ash_tpu`, which stays the reference it is tested
-against. The scene API (`Mesh`, `Material`, `Transform`, `Camera`,
-`MaterialUniform`, `maths`) and the image helpers are ash_tpu's own numpy
-modules, reused as they are; nothing here imports jax. The renderer runs in
-PyTorch on the device the caller names, and its rasterizer is a CUDA kernel
-written for sm_90a (csrc/raster.cu). See ROADMAP.md for what is ported.
+against. It imports neither jax nor ash_tpu: the scene API (`Mesh`,
+`Material`, `Transform`, `Camera`, `MaterialUniform`, `maths`) is its own
+numpy copy in `core/`, as are `errors` and the image helpers in `utils/`.
+The renderer runs in PyTorch on the device the caller names, and its
+rasterizers are CUDA kernels written for sm_90a (csrc/raster.cu). See
+ROADMAP.md for what is ported.
 """
 
-from ash_tpu.core import (
+from .core import (
     Camera,
     Material,
     MaterialUniform,
@@ -16,8 +17,6 @@ from ash_tpu.core import (
     Transform,
     maths,
 )
-from ash_tpu.utils.image import psnr, read_png, write_png
-
 from .device import resolve_device
 from .render import (
     HeadlessSurface,
@@ -25,6 +24,7 @@ from .render import (
     Renderer,
     RendererConfig,
 )
+from .utils.image import psnr, read_png, write_png
 
 __all__ = [
     "Camera",

@@ -16,8 +16,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ash_tpu.core import Camera, Material, Mesh
-
+from ..core import Camera, Material, Mesh
 from .renderer import RenderCommand, Renderer, RendererConfig
 from .surface import HeadlessSurface
 
@@ -28,8 +27,8 @@ GLASS_LAYERS = 4
 
 def bench_draws(n_objects: int, glass: bool = False):
     """-> ([(model (4, 4) f32, Material)], extent): the cube grid's draws,
-    built from numpy and ash_tpu.core only, so the reference renderer can
-    draw the very same list."""
+    built from numpy and this package's core only; the reference renderer
+    draws the same list rebuilt with ash_tpu.core's classes."""
     rng = np.random.default_rng(7)
     side = int(round(n_objects ** (1 / 3)))
     while side**3 < n_objects:

@@ -10,8 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ash_tpu.core import Camera, Material, Mesh
-
+from ..core import Camera, Material, Mesh
 from .renderer import RenderCommand, Renderer, RendererConfig
 from .surface import HeadlessSurface
 

@@ -20,13 +20,12 @@ from typing import Dict, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ash_tpu.core.material import Material
-from ash_tpu.core.mesh import Mesh
-from ash_tpu.core.transform import Transform
-from ash_tpu.core.uniform import MaterialUniform
-from ash_tpu.errors import InvalidOperation
-
+from ..core.material import Material
+from ..core.mesh import Mesh
+from ..core.transform import Transform
+from ..core.uniform import MaterialUniform
 from ..device import resolve_device
+from ..errors import InvalidOperation
 from .features import FeatureFrameContext, FeatureManager, ShadowFeature
 from .frame import (
     FrameConfig,

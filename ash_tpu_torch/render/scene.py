@@ -17,8 +17,8 @@ from typing import Dict, List, NamedTuple
 import numpy as np
 import torch
 
-from ash_tpu.core.mesh import Mesh, VertexArrays
-from ash_tpu.core.uniform import MaterialUniform
+from ..core.mesh import Mesh, VertexArrays
+from ..core.uniform import MaterialUniform
 
 MAX_LOD_LEVELS = 8
 

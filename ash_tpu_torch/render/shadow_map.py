@@ -18,7 +18,7 @@ import dataclasses
 
 import numpy as np
 
-from ash_tpu.core import maths
+from ..core import maths
 
 
 @dataclasses.dataclass

@@ -53,7 +53,7 @@ class HeadlessSurface:
         return self._frame
 
     def save_png(self, path: str) -> None:
-        from ash_tpu.utils.image import write_png
+        from ..utils.image import write_png
 
         if self._frame is None:
             raise RuntimeError("no frame presented yet")

@@ -8,15 +8,19 @@ fails. Phases, one stdout line each:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compiles ash_tpu_torch/csrc/raster.cu, which holds both kernels
-   (the one-layer raster and the K-layer depth peel), and prints each
-   instantiation's registers and spills;
+   (the one-layer raster and the K-layer depth peel, and the pre-pass that
+   computes their candidate rectangles), and prints each instantiation's
+   registers and spills (none may spill);
 3. kernels against plain: each CUDA kernel and the plain PyTorch raster on
    the same CUDA tensors at the main path's shapes; tri_id and depth of
    every layer must be equal bit for bit. One layer: the 1080p main pass
    (64x128 tiles), the 2048^2 shadow pass (32x128 tiles), K=256, and a
    y0 band. The peel: the 1080p main pass at 2, 4 and 8 layers, 4 layers
    under a floor taken from the first pass's deepest layer, 4 layers in a
-   y0 band, and the 2048^2 shadow shapes at 2 layers;
+   y0 band, and the 2048^2 shadow shapes at 2 layers. Then the small bench
+   and small glass scenes at 192x128 with 16x32 tiles (one layer, 4
+   layers, 4 under a floor), and seeded random triangles at 1080p whose
+   bins hold near-plane crossers and grazing triangles (one layer, 4);
 4. the slice: the standard frame (1000 instanced PBR cubes, bench.py's
    recipe) rendered at 1920x1080 through ash_tpu_torch.Renderer: the
    one-layer kernel runs twice on frame 1 and once per static frame after
@@ -30,7 +34,14 @@ fails. Phases, one stdout line each:
    tests/golden/, and the small bench and small glass scenes on the card
    against the port's CPU render;
 5. times (CUDA events): static frame, frame with a shadow re-render, the
-   glass frames, and each kernel against the plain raster.
+   glass frames; then, at each kernel shape of the main path (1080p one
+   layer, 2048^2 one layer, 1080p K = 2, 4, 8 and K = 4 under a floor): the
+   wrapper-loop time (50 calls of raster_cuda.rasterize, host work
+   included; the `ms` of the kernels line, as in earlier versions), the
+   device time (`graph_ms`: a CUDA graph of bare launches), the device time
+   with every tile's list empty (the clear, the stores, the pre-pass and
+   the launches alone), the plain raster's time, the pairs the kernel
+   evaluates, its bound and its share of the bound (`work`).
 
 Then one JSON line on the kernels and, last, the device JSON line.
 """
@@ -43,6 +54,21 @@ import subprocess
 import sys
 import time
 from unittest import mock
+
+import numpy as np
+
+
+# H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, f32 FLOP/s outside
+# the tensor cores.
+MEM_RATE = 3.35e12
+F32_RATE = 67e12
+# f32 operations of `covers` per (pixel, candidate) pair (csrc/raster.cu).
+OPS_PER_PAIR = 30
+# Bytes of a candidate's record that a kernel reads: 9 edge and 3 z floats.
+RECORD_BYTES = 48
+# (pass, layers, floor): the kernel shapes the main path runs.
+SHAPES = [("main", 1, False), ("shadow", 1, False), ("main", 2, False),
+          ("main", 4, False), ("main", 8, False), ("main", 4, True)]
 
 
 def check(cond, what):
@@ -66,6 +92,107 @@ def cuda_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
+def graph_ms(launch, n=20, reps=10):
+    """Device ms per launch: n launches captured in one CUDA graph, replayed
+    `reps` times between two CUDA events after a warm replay."""
+    import torch
+
+    launch()  # warm: library loaded, caches filled
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            launch()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (n * reps)
+
+
+def pass_inputs(r, cam):
+    """-> {pass: (setup, bins, height, width, tile_h, tile_w, y0)} of
+    renderer r's main pass and shadow pass seen from `cam`, as a frame
+    computes them."""
+    from ash_tpu_torch.render import frame
+
+    cfg, scene, uni = r.prepare_frame(cam.view_matrix(),
+                                      cam.projection_matrix(), cam.position)
+    _, setup, bins, _ = frame.main_pass_bins(cfg, scene.buffers, uni)
+    setup_s, bins_s = frame.shadow_pass_bins(
+        cfg, scene.buffers, frame.shadow_world(scene.buffers, uni.models),
+        uni.light_space_matrix,
+    )
+    s = cfg.shadow_resolution
+    return {
+        "main": (setup, bins, cfg.height, cfg.width, cfg.tile_h, cfg.tile_w, 0),
+        "shadow": (setup_s, bins_s, s, s, cfg.shadow_rows, cfg.shadow_tile, 0),
+    }
+
+
+def work(setup, bins, height, width, tile_h, tile_w, y0=0, layers=1,
+         floor=False):
+    """What a raster launch does and needs, from its inputs: pairs_tested
+    (the kernel's warps: accepted candidates x 128 pixels), pairs_tile
+    (every candidate at every pixel of its tile), pairs_needed (pixel centre
+    in the candidate's bbox), bytes (outputs written once; counts, live bin
+    slots, the records of the binned triangles and the floor read once),
+    ops (pairs_needed x OPS_PER_PAIR), bound_ms and bound_by."""
+    import torch
+
+    from ash_tpu_torch.ops import raster
+
+    rects = raster.candidate_rects(setup, height, width, y0)
+    rh, rw = raster.WARP_RECT
+    wb = raster.warp_bins(bins, rects, height, width, tile_h, tile_w)
+    tx = -(-width // tile_w)
+    ids = bins.tri_ids.long()
+    slot = torch.arange(ids.shape[1], device=ids.device)[None, :]
+    live = (ids >= 0) & (slot < bins.counts.long()[:, None])
+    bb = setup.bbox[ids.clamp_min(0)]  # (tiles, K, 4)
+    tile = torch.arange(ids.shape[0], device=ids.device)[:, None]
+    x0 = ((tile % tx) * tile_w).float()
+    r0 = ((tile // tx) * tile_h).float()
+    first_c = torch.maximum(torch.ceil(bb[..., 0] - 0.5), x0)
+    last_c = torch.minimum(torch.floor(bb[..., 2] - 0.5),
+                           torch.clamp(x0 + tile_w, max=width) - 1)
+    first_r = torch.maximum(torch.ceil(bb[..., 1] - 0.5) - y0, r0)
+    last_r = torch.minimum(torch.floor(bb[..., 3] - 0.5) - y0,
+                           torch.clamp(r0 + tile_h, max=height) - 1)
+    n = ((last_c - first_c + 1).clamp_min(0)
+         * (last_r - first_r + 1).clamp_min(0))
+    needed = int(torch.where(live, n, torch.zeros_like(n)).sum())
+    out_bytes = layers * height * width * 8
+    in_bytes = (bins.counts.numel() * 4 + int(live.sum()) * 4
+                + int(torch.unique(ids[live]).numel()) * RECORD_BYTES
+                + (height * width * 4 if floor else 0))
+    ops = needed * OPS_PER_PAIR
+    mem_ms = (out_bytes + in_bytes) / MEM_RATE * 1e3
+    ops_ms = ops / F32_RATE * 1e3
+    return {
+        "pairs_tested": int(wb.counts.sum()) * rh * rw,
+        "pairs_tile": int(bins.counts.sum()) * tile_h * tile_w,
+        "pairs_needed": needed,
+        "bytes": out_bytes + in_bytes,
+        "ops": ops,
+        "bound_ms": max(mem_ms, ops_ms),
+        "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
+    }
+
+
+def floor_for(passes):
+    """The 1080p floor of the K=4-under-a-floor shape: the deepest layer of
+    a first 4-layer pass, as a frame's second transparency pass gets it."""
+    from ash_tpu_torch.ops import raster
+
+    return raster.rasterize(*passes["main"][:6], layers=4).layer(3)[0]
+
+
 def frame_ms(step, n):
     """Median of n frames, each timed by CUDA events around `step` (a frame
     ends in its image's copy to the host, so the events span all of it)."""
@@ -84,21 +211,81 @@ def frame_ms(step, n):
 
 
 def ptxas_usage(log):
-    """{instantiation: "R registers, S spill bytes"} from nvcc's -Xptxas -v
-    log; raster_kernel<L, HAS_FLOOR> is named by its L and floor."""
+    """{kernel: (registers, spill bytes)} from nvcc's -Xptxas -v log;
+    raster_warp_kernel<L, HAS_FLOOR> is named by its L and floor, the
+    rectangles' pre-pass "rects"."""
     usage, name = {}, None
     for ln in log.splitlines():
-        m = re.search(r"raster_kernelILi(\d+)ELb([01])E", ln)
+        m = re.search(r"raster_warp_kernelILi(\d+)ELb([01])E", ln)
         if "Compiling entry function" in ln and m:
             name = f"L={m.group(1)}{' floor' if m.group(2) == '1' else ''}"
             spill = None
+        elif "Compiling entry function" in ln and "candidate_rects_kernel" in ln:
+            name, spill = "rects", None
         elif name and "spill stores" in ln:
             spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill", ln))
         elif name and "Used" in ln and "registers" in ln:
-            regs = re.search(r"Used (\d+) registers", ln).group(1)
-            usage[name] = f"{regs} registers, {spill} spill bytes"
+            regs = int(re.search(r"Used (\d+) registers", ln).group(1))
+            usage[name] = (regs, spill)
             name = None
     return usage
+
+
+def synthetic_setup(width, height, seed=11):
+    """Seeded random triangles at (width, height): 3000 small ones over the
+    screen, 24 that cross the eye plane (a vertex behind the eye: the
+    full-screen bbox) and 60 grazing ones (an edge just in front of the
+    eye, the third vertex far), all through the port's setup, no culling."""
+    import torch
+
+    from ash_tpu_torch.ops import geometry
+
+    rng = np.random.default_rng(seed)
+    n = 3000
+    w = rng.uniform(0.5, 4.0, (n, 1))
+    centre = rng.uniform(-1.0, 1.0, (n, 1, 2))
+    xy = (centre + rng.uniform(-0.03, 0.03, (n, 3, 2))) * w[..., None]
+    small = np.concatenate([xy, np.broadcast_to(w[..., None] * 0.5, (n, 3, 1)),
+                            np.broadcast_to(w[..., None], (n, 3, 1))], -1)
+    small[..., 2] *= rng.uniform(0.2, 1.8, (n, 3))
+    c = 24
+    cw = np.stack([rng.uniform(-1.0, -0.1, c), rng.uniform(0.5, 3.0, c),
+                   rng.uniform(0.5, 3.0, c)], -1)
+    cxy = rng.uniform(-0.8, 0.8, (c, 3, 2)) * np.abs(cw)[..., None]
+    crossers = np.concatenate([cxy, 0.5 * np.abs(cw)[..., None],
+                               cw[..., None]], -1)
+    g = 60
+    gw = np.stack([rng.uniform(1e-4, 3e-4, g)] * 2
+                  + [rng.uniform(10.0, 50.0, g)], -1)
+    gx = np.stack([rng.uniform(-0.9, -0.1, g), rng.uniform(0.1, 0.9, g),
+                   rng.uniform(-0.5, 0.5, g)], -1)
+    gy = np.stack([rng.uniform(-0.6, 0.2, g)] * 2 + [np.full(g, 0.95)], -1)
+    grazing = np.stack([gx * gw, gy * gw, 0.5 * gw, gw], -1)
+    clip = np.concatenate([small, crossers, grazing]).astype(np.float32)
+    t = clip.shape[0]
+    return geometry.triangle_setup(
+        torch.from_numpy(clip.reshape(-1, 4)).cuda(),
+        torch.arange(3 * t, dtype=torch.int32).reshape(t, 3).cuda(),
+        torch.ones(t, dtype=torch.bool).cuda(), width, height,
+        cull_mode="none",
+    )
+
+
+def compare_layers(got, want, layers):
+    """(tri_id mismatches, depth mismatches, max |depth err|, covered per
+    layer) over every layer of two visibility buffers."""
+    import torch
+
+    tid_bad = depth_bad = 0
+    err, covered = 0.0, []
+    for i in range(layers):
+        (gd, gt), (wd, wt) = got.layer(i), want.layer(i)
+        tid_bad += int((gt != wt).sum())
+        depth_bad += int((gd != wd).sum())
+        err = max(err, float((gd - wd).abs().max()))
+        covered.append(int((gt >= 0).sum()))
+    torch.cuda.synchronize()
+    return tid_bad, depth_bad, err, covered
 
 
 def main() -> int:
@@ -131,34 +318,33 @@ def main() -> int:
     lib = _build.build("raster")
     build_s = time.perf_counter() - t0
     usage = ptxas_usage(lib.with_suffix(".log").read_text())
-    check(len(usage) == 15, f"{len(usage)} kernel instantiations, want 15")
+    check(len(usage) == 16, f"{len(usage)} kernels, want 15 raster "
+          "instantiations and the rectangles' pre-pass")
     print(f"phase2 build: {lib.name} (both kernels) in {build_s:.3f} s; "
-          + "; ".join(f"{k}: {v}" for k, v in sorted(usage.items())),
-          flush=True)
+          + "; ".join(f"{k}: {r} registers, {sp} spill bytes"
+                      for k, (r, sp) in sorted(usage.items())), flush=True)
+    spills = {k: sp for k, (_, sp) in usage.items() if sp}
+    check(not spills, f"instantiations spill: {spills}")
 
     # 3. Kernel against plain at the main path's shapes.
     r, _, cam, _ = build_bench_renderer(1920, 1080, 1000, "cuda")
     view, proj, pos = cam.view_matrix(), cam.projection_matrix(), cam.position
-    cfg, scene, uni = r.prepare_frame(view, proj, pos)
-    _, setup, bins, _ = frame.main_pass_bins(cfg, scene.buffers, uni)
-    setup_s, bins_s = frame.shadow_pass_bins(
-        cfg, scene.buffers, frame.shadow_world(scene.buffers, uni.models),
-        uni.light_space_matrix,
-    )
+    cfg, scene, _ = r.prepare_frame(view, proj, pos)
+    passes = pass_inputs(r, cam)
+    setup = passes["main"][0]
     band_y0, band_h = 512, 512
     bins_band = binning.bin_triangles(
         setup.bbox, setup.valid, band_h, cfg.width, cfg.tile_h, cfg.tile_w,
         cfg.max_tris_per_tile, y0=band_y0,
     )
-    s = cfg.shadow_resolution
-    passes = {
-        "main": (setup, bins, cfg.height, cfg.width, cfg.tile_h, cfg.tile_w, 0),
-        "shadow": (setup_s, bins_s, s, s, cfg.shadow_rows, cfg.shadow_tile, 0),
-        "band": (setup, bins_band, band_h, cfg.width, cfg.tile_h, cfg.tile_w,
-                 band_y0),
-    }
+    passes["band"] = (setup, bins_band, band_h, cfg.width, cfg.tile_h,
+                      cfg.tile_w, band_y0)
     max_err = 0.0
     for name, args in passes.items():
+        h, w, y0 = args[2], args[3], args[6]
+        rects_bad = int((raster_cuda.device_rects(args[0], h, w, y0)
+                         != raster.candidate_rects(args[0], h, w, y0)).sum())
+        check(rects_bad == 0, f"kernel rectangles != candidate_rects on {name}")
         got = raster_cuda.rasterize(*args)
         want = raster.rasterize(*args)
         torch.cuda.synchronize()
@@ -170,13 +356,14 @@ def main() -> int:
         print(f"phase3 {name}: {w}x{h} tiles {th}x{tw} "
               f"K={args[1].tri_ids.shape[1]} y0={args[6]}: tri_id mismatches "
               f"{tid_bad}, depth mismatches {depth_bad}, max |depth err| {err}, "
+              f"rectangles unequal to candidate_rects {rects_bad}, "
               f"covered {int((got.tri_id >= 0).sum())}, max tile count "
               f"{int(args[1].counts.max())}, overflow {int(args[1].overflow)}",
               flush=True)
         check(tid_bad == 0 and depth_bad == 0, f"kernel != plain on {name}")
 
     # The K-layer peel: (pass, layers, floor).
-    floor4 = raster.rasterize(*passes["main"][:6], layers=4).layer(3)[0]
+    floor4 = floor_for(passes)
     peel_cases = [("main", 2, None), ("main", 4, None), ("main", 8, None),
                   ("main", 4, floor4), ("band", 4, None), ("shadow", 2, None)]
     max_err_layers = 0.0
@@ -185,16 +372,7 @@ def main() -> int:
         kw = dict(y0=args[6], layers=layers, depth_floor=floor)
         got = raster_cuda.rasterize(*args[:6], **kw)
         want = raster.rasterize(*args[:6], **kw)
-        torch.cuda.synchronize()
-        tid_bad = depth_bad = 0
-        err = 0.0
-        covered = []
-        for i in range(layers):
-            (gd, gt), (wd, wt) = got.layer(i), want.layer(i)
-            tid_bad += int((gt != wt).sum())
-            depth_bad += int((gd != wd).sum())
-            err = max(err, float((gd - wd).abs().max()))
-            covered.append(int((gt >= 0).sum()))
+        tid_bad, depth_bad, err, covered = compare_layers(got, want, layers)
         max_err_layers = max(max_err_layers, err)
         h, w, th, tw = args[2:6]
         print(f"phase3 peel {name}: {w}x{h} tiles {th}x{tw} y0={args[6]} "
@@ -204,6 +382,55 @@ def main() -> int:
         check(tid_bad == 0 and depth_bad == 0,
               f"peel kernel != plain on {name}, {layers} layers")
         check(covered[1] > 0, f"peel on {name}: empty second layer")
+
+    # Small scenes with 16x32 tiles, where the rectangles cut most
+    # candidates, and seeded random triangles at 1080p whose bins hold
+    # near-plane crossers: (name, setup, bins, height, width, tile_h, tile_w).
+    extra = []
+    for small_glass in (False, True):
+        rs, _, scam, _ = build_bench_renderer(192, 128, 64, "cuda",
+                                              glass=small_glass)
+        ssetup = pass_inputs(rs, scam)["main"][0]
+        sbins = binning.bin_triangles(ssetup.bbox, ssetup.valid, 128, 192,
+                                      16, 32, 256)
+        extra.append(("small glass" if small_glass else "small bench",
+                      ssetup, sbins, 128, 192, 16, 32))
+    syn = synthetic_setup(cfg.width, cfg.height)
+    syn_bins = binning.bin_triangles(syn.bbox, syn.valid, cfg.height,
+                                     cfg.width, cfg.tile_h, cfg.tile_w, 256)
+    behind = (syn.inv_w <= 0).any(-1)
+    in_bins = syn_bins.tri_ids[syn_bins.tri_ids >= 0].long()
+    crossers_binned = int(behind[in_bins].sum())
+    check(crossers_binned > 0, "no near-plane crosser in the synthetic bins")
+    extra.append(("random 1080p", syn, syn_bins, cfg.height, cfg.width,
+                  cfg.tile_h, cfg.tile_w))
+    for name, esetup, ebins, h, w, th, tw in extra:
+        rects_bad = int((raster_cuda.device_rects(esetup, h, w)
+                         != raster.candidate_rects(esetup, h, w)).sum())
+        check(rects_bad == 0, f"kernel rectangles != candidate_rects on {name}")
+        floor_e = raster.rasterize(esetup, ebins, h, w, th, tw,
+                                   layers=2).layer(1)[0]
+        for layers, floor in ((1, None), (4, None), (4, floor_e)):
+            kw = dict(layers=layers, depth_floor=floor)
+            got = raster_cuda.rasterize(esetup, ebins, h, w, th, tw, **kw)
+            want = raster.rasterize(esetup, ebins, h, w, th, tw, **kw)
+            tid_bad, depth_bad, err, covered = compare_layers(got, want,
+                                                              layers)
+            if layers == 1:
+                max_err = max(max_err, err)
+            else:
+                max_err_layers = max(max_err_layers, err)
+            print(f"phase3 {name}: {w}x{h} tiles {th}x{tw} layers={layers} "
+                  f"floor={floor is not None}: tri_id mismatches {tid_bad}, "
+                  f"depth mismatches {depth_bad} (all layers), max |depth "
+                  f"err| {err}, rectangles unequal to candidate_rects "
+                  f"{rects_bad}, covered per layer {covered}, max tile count "
+                  f"{int(ebins.counts.max())}, overflow {int(ebins.overflow)}"
+                  + (f", near-plane crossers in the bins {crossers_binned}"
+                     if name.startswith("random") else ""), flush=True)
+            check(tid_bad == 0 and depth_bad == 0,
+                  f"kernel != plain on {name}, {layers} layers")
+            check(covered[0] > 0, f"{name}: nothing covered")
 
     # 4. The slice, through the renderer; count the kernels' launches on
     # each path from 0.
@@ -324,58 +551,85 @@ def main() -> int:
     glass_ms = {tp: frame_ms(lambda i, rg=g[0]: rg.render_frame(view, proj, pos),
                              10)
                 for tp, g in glass.items()}
-    kernel_ms, plain_ms = {}, {}
-    timed = [("main", 1), ("shadow", 1), ("main", 2), ("main", 4), ("main", 8)]
-    for name, layers in timed:
+    # Each kernel shape of the main path: the wrapper loop, the device time
+    # of bare launches (and with every list empty), the plain raster (plain,
+    # kernel, kernel, plain) and the work from the inputs.
+    timed = {}
+    for name, layers, with_floor in SHAPES:
         args = passes[name]
-        k, p = [], []
+        kw = dict(y0=args[6], layers=layers,
+                  depth_floor=floor4 if with_floor else None)
+        launch, _, _ = raster_cuda.launcher(*args[:6], **kw)
+        empty = args[1]._replace(counts=torch.zeros_like(args[1].counts))
+        launch_empty, _, _ = raster_cuda.launcher(args[0], empty, *args[2:6],
+                                                  **kw)
+        wrap, plain, dev = [], [], []
         for order in ("plain", "kernel", "kernel", "plain"):
             if order == "kernel":
-                k.append(cuda_ms(lambda: raster_cuda.rasterize(
-                    *args[:6], layers=layers), 50))
+                wrap.append(cuda_ms(lambda: raster_cuda.rasterize(
+                    *args[:6], **kw), 50))
+                dev.append(graph_ms(launch))
             else:
-                p.append(cuda_ms(lambda: raster.rasterize(
-                    *args[:6], layers=layers), 3))
-        kernel_ms[name, layers] = statistics.mean(k)
-        plain_ms[name, layers] = statistics.mean(p)
+                plain.append(cuda_ms(lambda: raster.rasterize(
+                    *args[:6], **kw), 3))
+        row = work(*args[:6], args[6], layers, with_floor)
+        row.update(wrapper_ms=statistics.mean(wrap),
+                   device_ms=statistics.mean(dev),
+                   clear_ms=graph_ms(launch_empty),
+                   plain_ms=statistics.mean(plain))
+        row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+        timed[name, layers, with_floor] = row
     print(f"phase5 times on {card}: static frame {static_ms} ms, frame with "
           f"shadow re-render {shadow_frame_ms} ms (medians of 20 and 10); "
           f"glass frame passes=1 {glass_ms[1]} ms, passes=2 {glass_ms[2]} ms "
-          f"(medians of 10); raster main 1080p kernel "
-          f"{kernel_ms['main', 1]} ms vs plain {plain_ms['main', 1]} ms; "
-          f"raster shadow 2048^2 kernel {kernel_ms['shadow', 1]} ms vs plain "
-          f"{plain_ms['shadow', 1]} ms; "
-          + "; ".join(f"peel main 1080p {k} layers kernel "
-                      f"{kernel_ms['main', k]} ms vs plain "
-                      f"{plain_ms['main', k]} ms" for k in (2, 4, 8)),
-          flush=True)
+          f"(medians of 10)", flush=True)
+    for (name, layers, with_floor), row in timed.items():
+        h, w = passes[name][2:4]
+        print(f"phase5 kernel {name} {w}x{h} layers={layers} "
+              f"floor={with_floor}: device {row['device_ms']} ms (every "
+              f"list empty: {row['clear_ms']} ms), wrapper loop "
+              f"{row['wrapper_ms']} ms, plain {row['plain_ms']} ms; "
+              f"pairs evaluated {row['pairs_tested']} (every candidate at "
+              f"every tile pixel: {row['pairs_tile']}, in the bbox: "
+              f"{row['pairs_needed']}); bound {row['bound_ms']} ms by "
+              f"{row['bound_by']}, {100 * row['share_of_bound']:.1f}% of it",
+              flush=True)
 
-    check("jax" not in sys.modules, "jax was imported")
-    print(json.dumps({"kernels": [{
-        "name": "raster",
-        "route": "cuda",
-        "source": "ash_tpu_torch/csrc/raster.cu",
-        "replaces": "ash_tpu/ops/raster_pallas.py:106",
-        "launches": sum(launches.values()),
-        "launches_by_path": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms["main", 1],
-        "plain_ms": plain_ms["main", 1],
-        "shadow_ms": kernel_ms["shadow", 1],
-        "shadow_plain_ms": plain_ms["shadow", 1],
-    }, {
-        "name": "raster_layers",
-        "route": "cuda",
-        "source": "ash_tpu_torch/csrc/raster.cu",
-        "replaces": "ash_tpu/ops/raster_pallas.py:138",
-        "launches": sum(layer_launches.values()),
-        "launches_by_path": layer_launches,
-        "max_abs_err": max_err_layers,
-        "ms": kernel_ms["main", 4],
-        "plain_ms": plain_ms["main", 4],
-        "ms_by_layers": {k: kernel_ms["main", k] for k in (2, 4, 8)},
-        "plain_ms_by_layers": {k: plain_ms["main", k] for k in (2, 4, 8)},
-    }]}))
+    foreign = sorted(m for m in sys.modules if m in ("jax", "ash_tpu")
+                     or m.startswith(("jax.", "ash_tpu.")))
+    check(not foreign, f"the port loaded jax or ash_tpu: {foreign[:5]}")
+
+    def kernel_line(name, replaces, launches_by_path, err, main_shape, shapes):
+        main = timed[main_shape]
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "ash_tpu_torch/csrc/raster.cu",
+            "replaces": replaces,
+            "launches": sum(launches_by_path.values()),
+            "launches_by_path": launches_by_path,
+            "max_abs_err": err,
+            "ms": main["wrapper_ms"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            # No PyTorch call computes a visibility buffer.
+            "library_ms": None,
+            "device_ms": main["device_ms"],
+            "pairs_tested": main["pairs_tested"],
+            "by_shape": {f"{n} layers={k}{' floor' if f else ''}": timed[n, k, f]
+                         for n, k, f in shapes},
+        }
+
+    print(json.dumps({"kernels": [
+        kernel_line("raster", "ash_tpu/ops/raster_pallas.py:106", launches,
+                    max_err, ("main", 1, False),
+                    [("main", 1, False), ("shadow", 1, False)]),
+        kernel_line("raster_layers", "ash_tpu/ops/raster_pallas.py:138",
+                    layer_launches, max_err_layers, ("main", 4, False),
+                    [("main", 2, False), ("main", 4, False),
+                     ("main", 8, False), ("main", 4, True)]),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

@@ -18,6 +18,7 @@ import torch
 
 from ash_tpu.utils.image import psnr, read_png
 from ash_tpu_torch import Camera, Material, Mesh, Renderer, RendererConfig
+from ash_tpu_torch.errors import InvalidOperation
 from ash_tpu_torch.render import HeadlessSurface, frame, golden_scenes
 from ash_tpu_torch.render.bench_scene import build_bench_renderer
 
@@ -125,7 +126,5 @@ def test_surface_resize_applies_next_frame():
 
 def test_empty_renderer_raises():
     r = Renderer(HeadlessSurface(16, 16), device="cpu")
-    from ash_tpu.errors import InvalidOperation
-
     with pytest.raises(InvalidOperation):
         r.render_frame(np.eye(4), np.eye(4), np.zeros(3))

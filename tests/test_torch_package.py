@@ -10,9 +10,9 @@ import pytest
 import torch
 
 import ash_tpu_torch
-from ash_tpu.core.mesh import Mesh
-from ash_tpu.core.texture import TextureData
 from ash_tpu_torch import RenderCommand, Renderer, RendererConfig
+from ash_tpu_torch.core.mesh import Mesh
+from ash_tpu_torch.core.texture import TextureData
 from ash_tpu_torch.ops import _build, binning, geometry, raster, raster_cuda
 from ash_tpu_torch.render import HeadlessSurface
 
@@ -21,21 +21,45 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def _fresh_interpreter(code):
+    """Run `code` in a new interpreter with only the repo on the path (other
+    tests of this process load jax and ash_tpu)."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env=env, cwd=REPO, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    return out.stdout.strip().splitlines()[-1]
+
+
+# Prints the loaded modules that are jax or the reference package.
+_FOREIGN = (
+    "print(sorted(m for m in sys.modules if m == 'jax' or m == 'ash_tpu'"
+    " or m.startswith(('jax.', 'ash_tpu.'))))\n"
+)
+
+
 def test_import_loads_no_jax():
-    """Only a fresh interpreter can show this: other tests load jax."""
     code = (
         "import sys\n"
         "import ash_tpu_torch\n"
         "import ash_tpu_torch.render.bench_scene, ash_tpu_torch.ops.raster_cuda\n"
-        "print('jax' in sys.modules)\n"
+        + _FOREIGN
     )
-    env = dict(os.environ, PYTHONPATH=REPO)
-    out = subprocess.run(
-        [sys.executable, "-c", code], capture_output=True, text=True,
-        env=env, cwd=REPO, timeout=120,
+    assert _fresh_interpreter(code) == "[]"
+
+
+def test_cube_pbr_renders_without_ash_tpu():
+    """A whole frame on the CPU, and still neither jax nor ash_tpu loaded."""
+    code = (
+        "import sys\n"
+        "from ash_tpu_torch.render import golden_scenes\n"
+        "img = golden_scenes.scene_cube_pbr('cpu').read_back()\n"
+        "assert img.shape == (128, 192, 4) and img[..., :3].any()\n"
+        + _FOREIGN
     )
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "False"
+    assert _fresh_interpreter(code) == "[]"
 
 
 def test_cuda_device_never_falls_back(monkeypatch):

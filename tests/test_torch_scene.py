@@ -1,41 +1,41 @@
 """Scene packing: ash_tpu_torch.render.scene against ash_tpu.render.scene.
 
 Both sides run the same numpy packing, so every field must match exactly.
+Each side packs a scene built from its own package's core classes.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from ash_tpu.core.material import Material
-from ash_tpu.core.mesh import Mesh
-from ash_tpu.core.uniform import MaterialUniform
+import ash_tpu.core as ref_core
+import ash_tpu_torch.core as port_core
 from ash_tpu.render import scene as ref_scene
 from ash_tpu_torch.render import scene
 
 torch.set_num_threads(1)
 
 
-def _material_uniform(color):
-    m = Material(color=color, metallic=0.3, roughness=0.6)
-    return MaterialUniform(
+def _material_uniform(core, color):
+    m = core.Material(color=color, metallic=0.3, roughness=0.6)
+    return core.MaterialUniform(
         base_color_factor=np.asarray(m.color, np.float32),
         emissive_factor=np.asarray(m.emissive, np.float32),
         params=np.array([m.metallic, m.roughness, 1.0, 1.0], np.float32),
     )
 
 
-def _single_mesh():
-    cube = Mesh.create_cube()
+def _single_mesh(core):
+    cube = core.Mesh.create_cube()
     items = [dict(mesh_key=cube.name, model=np.eye(4, dtype=np.float32),
-                  material=_material_uniform((0.8, 0.2, 0.2, 1.0)))]
+                  material=_material_uniform(core, (0.8, 0.2, 0.2, 1.0)))]
     return items, {cube.name: cube}
 
 
-def _grid27():
+def _grid27(core):
     """27 instanced draws over two meshes, like bench.py's cube grid."""
-    cube = Mesh.create_cube()
-    plane = Mesh.create_plane("pane", size=1.5)
+    cube = core.Mesh.create_cube()
+    plane = core.Mesh.create_plane("pane", size=1.5)
     rng = np.random.default_rng(11)
     items = []
     for i in range(27):
@@ -47,7 +47,7 @@ def _grid27():
         mesh = plane if i % 5 == 0 else cube
         items.append(dict(
             mesh_key=mesh.name, model=m,
-            material=_material_uniform((*rng.random(3), 1.0)),
+            material=_material_uniform(core, (*rng.random(3), 1.0)),
         ))
     return items, {cube.name: cube, plane.name: plane}
 
@@ -56,15 +56,17 @@ SCENES = {"single_mesh": _single_mesh, "grid27": _grid27}
 
 
 def _both(name):
-    items, meshes = SCENES[name]()
-    ref = ref_scene.build_scene([ref_scene.DrawItem(**d) for d in items], meshes)
+    ref_items, ref_meshes = SCENES[name](ref_core)
+    items, meshes = SCENES[name](port_core)
+    ref = ref_scene.build_scene([ref_scene.DrawItem(**d) for d in ref_items],
+                                ref_meshes)
     got = scene.build_scene([scene.DrawItem(**d) for d in items], meshes, "cpu")
-    return ref, got, items
+    return ref, got, items, ref_items
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_build_scene_matches_reference(name):
-    ref, got, _ = _both(name)
+    ref, got, _, _ = _both(name)
     for field in scene.SceneBuffers._fields:
         want = np.asarray(getattr(ref.buffers, field))
         have = getattr(got.buffers, field).numpy()
@@ -80,16 +82,16 @@ def test_build_scene_matches_reference(name):
 
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_build_models_matches_reference(name):
-    ref, got, items = _both(name)
+    ref, got, items, ref_items = _both(name)
     d = got.buffers.num_draws
     np.testing.assert_array_equal(
         scene.build_models([scene.DrawItem(**i) for i in items], d),
-        ref_scene.build_models([ref_scene.DrawItem(**i) for i in items], d),
+        ref_scene.build_models([ref_scene.DrawItem(**i) for i in ref_items], d),
     )
 
 
 def test_scene_from_numpy_round_trips():
-    ref, _, _ = _both("grid27")
+    ref, _, _, _ = _both("grid27")
     carried = scene.scene_from_numpy(ref.buffers, "cpu")
     for field in scene.SceneBuffers._fields:
         want = np.asarray(getattr(ref.buffers, field))

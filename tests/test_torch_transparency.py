@@ -18,13 +18,16 @@ ash_tpu on the CPU.
   blends on the next frame, and a layer count outside [2, 8] raises.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+import ash_tpu.core as ref_core
 import ash_tpu.render as ref_render
 import ash_tpu_torch
-from ash_tpu.core import Camera, Material, Mesh
+import ash_tpu_torch.core as port_core
 from ash_tpu.ops import shade as ref_shade
 from ash_tpu.utils.image import psnr
 from ash_tpu_torch.ops import shade
@@ -35,6 +38,11 @@ torch.set_num_threads(1)
 PX = (32, 32)  # the probe pixel of the reference's tests
 PROBE_ATOL = 2e-3
 MIN_PSNR = 40.0
+
+
+def _core(port):
+    """Each renderer is handed its own package's scene classes."""
+    return port_core if port else ref_core
 
 
 def _renderer(port, size, **cfg):
@@ -61,15 +69,16 @@ def _panes(port, colors, heights, eye, max_tris=32, size=(64, 64), **cfg):
     r = _renderer(port, size, tile_h=8, tile_w=32, max_tris_per_tile=max_tris,
                   shadows_enabled=False, **cfg)
     cmd = ash_tpu_torch.RenderCommand if port else ref_render.RenderCommand
-    r.register_mesh_handle(0, Mesh.create_plane("quad", size=1.5))
+    core = _core(port)
+    r.register_mesh_handle(0, core.Mesh.create_plane("quad", size=1.5))
     commands = []
     for i, (col, y) in enumerate(zip(colors, heights)):
-        r.register_material_handle(i + 1, Material(color=tuple(col)))
+        r.register_material_handle(i + 1, core.Material(color=tuple(col)))
         m = np.eye(4, dtype=np.float32)
         m[:3, 3] = [0, y, 0]
         commands.append(cmd(mesh=0, transform=m, material=i + 1))
     r.submit_render_commands(commands)
-    return _frame(r, Camera.new(list(eye), [0, 0, 0], size[0] / size[1]))
+    return _frame(r, core.Camera.new(list(eye), [0, 0, 0], size[0] / size[1]))
 
 
 def _blend_scene(port, front_alpha):
@@ -106,9 +115,10 @@ def _deep_scene(port, alphas, layers, passes):
 def _cube_over_background(port):
     r = _renderer(port, (48, 48), tile_h=8, tile_w=32, max_tris_per_tile=32,
                   shadows_enabled=False)
-    r.set_mesh(Mesh.create_cube())
-    r.set_material(Material(color=(0.0, 1.0, 0.0, 0.4)))
-    return _frame(r, Camera.new([0, 0, 5], [0, 0, 0], 1.0))
+    core = _core(port)
+    r.set_mesh(core.Mesh.create_cube())
+    r.set_material(core.Material(color=(0.0, 1.0, 0.0, 0.4)))
+    return _frame(r, core.Camera.new([0, 0, 5], [0, 0, 0], 1.0))
 
 
 SCENES = {
@@ -179,10 +189,14 @@ def _glass_bench(port, passes=1):
     cfg = bench_scene.bench_config(128, glass=True, transparency_passes=passes)
     r = _renderer(port, (192, 128), **cfg)
     cmd = ash_tpu_torch.RenderCommand if port else ref_render.RenderCommand
-    r.register_mesh_handle(0, Mesh.create_cube())
+    core = _core(port)
+    r.register_mesh_handle(0, core.Mesh.create_cube())
     commands = []
     for i, (m, mat) in enumerate(draws):
-        r.register_material_handle(i + 1, mat)
+        # bench_draws builds the port's Materials; the reference gets its
+        # own class with the same fields.
+        r.register_material_handle(
+            i + 1, core.Material(**dataclasses.asdict(mat)))
         commands.append(cmd(mesh=0, transform=m, material=i + 1))
     r.submit_render_commands(commands)
     r.shadow_feature.set_scene_bounds([0, 0, 0], extent)
@@ -255,8 +269,8 @@ def _cube_renderer():
     r = _renderer(True, (64, 48), tile_h=8, tile_w=32, max_tris_per_tile=32,
                   shadow_resolution=128, shadow_tile=64,
                   shadow_max_tris_per_tile=32)
-    r.set_mesh(Mesh.create_cube())
-    return r, Camera.new([3.0, 2.2, 4.0], [0, 0, 0], 64 / 48)
+    r.set_mesh(port_core.Mesh.create_cube())
+    return r, port_core.Camera.new([3.0, 2.2, 4.0], [0, 0, 0], 64 / 48)
 
 
 def test_single_mesh_alpha_edit_blends_next_frame(raster_calls):
@@ -268,7 +282,7 @@ def test_single_mesh_alpha_edit_blends_next_frame(raster_calls):
     # The default two layers, and the shadow map is kept.
     assert raster_calls[2:] == [(48, 2, False)]
     fresh, _ = _cube_renderer()
-    fresh.set_material(Material(color=(0.2, 0.6, 0.9, 0.4)))
+    fresh.set_material(port_core.Material(color=(0.2, 0.6, 0.9, 0.4)))
     assert _frame(fresh, cam)[1].tobytes() == blended.tobytes()
     assert blended.tobytes() != opaque.tobytes()
     r.material_mut().color = (0.2, 0.6, 0.9, 1.0)
@@ -280,8 +294,8 @@ def test_single_mesh_alpha_edit_blends_next_frame(raster_calls):
 def test_transparency_layers_outside_range_raise_at_render(layers):
     r = _renderer(True, (32, 32), shadows_enabled=False,
                   transparency_layers=layers)
-    r.set_mesh(Mesh.create_cube())
-    cam = Camera.new([3.0, 2.0, 4.0], [0, 0, 0], 1.0)
+    r.set_mesh(port_core.Mesh.create_cube())
+    cam = port_core.Camera.new([3.0, 2.0, 4.0], [0, 0, 0], 1.0)
     with pytest.raises(ValueError, match=r"outside \[2, 8\]"):
         _frame(r, cam)
 
