@@ -1,16 +1,19 @@
 """Deferred shading over the visibility buffer (port of ash_tpu/ops/shade.py:
-untextured PBR with one directional light and PCF16 shadows, and flat
-vertex-colour shading).
+PBR with textures, one directional light with PCF16 shadows and Forward+
+point and spot lights, the alpha test, and flat vertex-colour shading).
 
 Attributes are re-interpolated per pixel from the winning triangle id with
 perspective-correct weights, then lit with the reference fragment shader's
 Cook-Torrance model: GGX distribution, Smith-Schlick geometry with
 k = (r+1)^2/8, Fresnel-Schlick, roughness floored at 0.04, the specular cap
 min(spec, 10/max(0.04, F0)), kD = (1-F)(1-metallic), 16-tap PCF on the
-geometric normal, flat ambient, emissive, and optional in-shader Reinhard.
-`pixel_alpha` and `composite_over` blend the shaded layers of a depth peel
-(semi-transparent materials). Textures, point/spot lights, CSM and IBL are
-ROADMAP A10, A12 and A14.
+geometric normal, ambient times occlusion, emissive, and optional in-shader
+Reinhard. With a texture pool the five maps (base colour, normal,
+metallic-roughness, occlusion, emissive) are sampled with anisotropic
+filtering, and the normal map goes through the Gram-Schmidt TBN frame.
+`resolve_alpha_test` lets cut-out pixels fall through to the second peel
+layer; `pixel_alpha` and `composite_over` blend the shaded layers of a depth
+peel. CSM, IBL and bf16 shading are ROADMAP A14.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import shadow as shadow_ops
-from .geometry import TransformedVerts, TriangleSetup, transform_points
+from . import texture_sample
+from .geometry import TransformedVerts, TriangleSetup, _cross, transform_points
 
 PI = 3.14159265359
 
@@ -59,6 +63,10 @@ def fresnel_schlick(cos_theta, f0):
     return f0 + (1.0 - f0) * t5[..., None]
 
 
+def _norm(v):
+    return torch.linalg.vector_norm(v, dim=-1)
+
+
 def _normalize(v, eps=1e-8):
     return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True).clamp_min(eps)
 
@@ -83,7 +91,8 @@ def _pixel_grid(h, w, y0, device):
 
 def _perspective_weights(edge, px, py):
     """Perspective-correct barycentric weights from homogeneous edge rows:
-    lam_i = edge_i . (px, py, 1); w_i = lam_i / sum(lam)."""
+    lam_i = edge_i . (px, py, 1); w_i = lam_i / sum(lam). The one copy of
+    this formula: interpolate_gbuffer and resolve_alpha_test both use it."""
     lam = edge[..., 0] * px[..., None] + edge[..., 1] * py[..., None] + edge[..., 2]
     s = lam.sum(-1, keepdim=True)
     return lam / torch.where(s.abs() < 1e-12, 1.0, s)
@@ -144,33 +153,295 @@ def interpolate_gbuffer(
     )
 
 
+def resolve_alpha_test(
+    vis,  # VisibilityBuffer with 2 layers (depth2 / tri_id2 set)
+    setup: TriangleSetup,
+    tri_v: torch.Tensor,
+    tri_draw: torch.Tensor,
+    materials: torch.Tensor,  # (D, 18)
+    vert_uv: torch.Tensor,  # (Vu, 2) unique-pool attribute
+    pool: texture_sample.TexturePool,
+    cutoff_override: Optional[float] = None,
+    y0: int = 0,
+    vert_uid: Optional[torch.Tensor] = None,  # (Ve,) -> unique vertex
+):
+    """Alpha test (cutout) over a two-layer visibility buffer.
+
+    Samples the nearest surface's base-colour alpha (texture at LOD 0 times
+    the factor) at each pixel; where the material's alpha_cutoff rejects
+    it, the pixel falls through to the second-nearest layer (a cut-out
+    pixel of the second layer would show the background).
+    `cutoff_override` applies one threshold to every material with a base
+    texture, the shadow pass's semantics (alpha < 0.1 casts no shadow).
+    Returns a one-layer VisibilityBuffer.
+    """
+    from .raster import VisibilityBuffer
+
+    tri_id = vis.tri_id
+    h, w = tri_id.shape
+    mask = tri_id >= 0
+    t = tri_id.clamp_min(0).long()
+    vids = tri_v.long()[t]
+    px, py = _pixel_grid(h, w, y0, tri_id.device)
+    pw = _perspective_weights(setup.edge[t], px, py)
+    uids = vert_uid.long()[vids] if vert_uid is not None else vids
+    uv = _interp(pw, vert_uv[uids])
+
+    mat = materials[tri_draw.long()[t]]
+    base_idx = mat[..., 12].to(torch.int32)
+    if cutoff_override is not None:
+        cutoff = torch.where(base_idx >= 0, cutoff_override, 0.0)
+    else:
+        cutoff = mat[..., 17]
+    alpha = texture_sample.sample_trilinear(pool, base_idx, uv, None)[..., 3]
+    alpha = alpha * mat[..., 3]
+    discard = mask & (cutoff > 0.0) & (alpha < cutoff)
+    return VisibilityBuffer(
+        depth=torch.where(discard, vis.depth2, vis.depth),
+        tri_id=torch.where(discard, vis.tri_id2, vis.tri_id),
+    )
+
+
+def pixel_alpha(
+    gbuf: GBuffer,
+    materials: torch.Tensor,  # (D, 18)
+    pool: Optional[texture_sample.TexturePool] = None,
+) -> torch.Tensor:
+    """Per-pixel coverage alpha for blending: the base texture's alpha (at
+    LOD 0; 1 untextured) times the base colour factor's, zeroed by the
+    material's alpha_cutoff and on background pixels. Opaque materials
+    (alpha 1, no cutoff) give exactly 1 on covered pixels."""
+    mat = materials[gbuf.draw_id.long()]
+    alpha = mat[..., 3]
+    if pool is not None:
+        base_idx = mat[..., 12].to(torch.int32)
+        alpha = texture_sample.sample_trilinear(
+            pool, base_idx, gbuf.uv, None)[..., 3] * alpha
+    cutoff = mat[..., 17]
+    alpha = torch.where((cutoff > 0.0) & (alpha < cutoff), 0.0, alpha)
+    return torch.where(gbuf.mask, alpha, 0.0)
+
+
+def composite_over(
+    front_color: torch.Tensor,  # (H, W, 3)
+    front_alpha: torch.Tensor,  # (H, W)
+    back_color: torch.Tensor,  # (H, W, 3), already composed over the clear
+) -> torch.Tensor:
+    """SRC_ALPHA / ONE_MINUS_SRC_ALPHA blend (the reference pipeline's
+    always-on blend state)."""
+    a = front_alpha[..., None]
+    return front_color * a + back_color * (1.0 - a)
+
+
+class Footprint(NamedTuple):
+    """A map's screen footprint at each pixel: its LOD and, with
+    anisotropic filtering, its tap count and major-axis step in uv."""
+
+    lod: torch.Tensor  # (...,)
+    n_taps: Optional[torch.Tensor] = None  # (...,) f32 in [1, max_aniso]
+    major_uv: Optional[torch.Tensor] = None  # (..., 2)
+
+
+def map_footprint(pool, index, ddx, ddy, max_aniso: int = 1) -> Footprint:
+    """The footprint of texture `index` (level 0's size) under the uv
+    derivatives. With max_aniso > 1 it is the footprint assembly of the
+    reference sampler's anisotropic filtering: n_taps = ceil(major /
+    minor) taps, at the mip where n_taps minor footprints cover the major
+    axis."""
+    base = pool.table[index.clamp_min(0).long(), 0]  # (..., 3): offset, w, h
+    tw = base[..., 1].to(torch.float32)
+    th = base[..., 2].to(torch.float32)
+    lu = _norm(torch.stack([ddx[..., 0] * tw, ddx[..., 1] * th], -1))
+    lv = _norm(torch.stack([ddy[..., 0] * tw, ddy[..., 1] * th], -1))
+    rho_max = torch.maximum(lu, lv).clamp_min(1e-8)
+    if max_aniso <= 1:
+        return Footprint(lod=torch.log2(rho_max).clamp_min(0.0))
+    rho_min = torch.minimum(lu, lv).clamp_min(1e-8)
+    n_taps = torch.ceil(rho_max / rho_min).clamp(1.0, float(max_aniso))
+    return Footprint(
+        lod=torch.log2(rho_max / n_taps).clamp_min(0.0),
+        n_taps=n_taps,
+        major_uv=torch.where((lu >= lv)[..., None], ddx, ddy),
+    )
+
+
+def sample_footprint(pool, index, uv, fp: Footprint,
+                     trips: Optional[int] = None) -> torch.Tensor:
+    """Sample texture `index` over its footprint -> (..., 4).
+
+    The anisotropic taps are spread along the major axis and averaged. The
+    loop runs `trips` times, which must be at least the largest n_taps of
+    every pixel whose value is used: a tap beyond a pixel's n_taps adds
+    exactly 0, so any such trip count gives the same bits. None takes the
+    largest n_taps of all pixels (one host sync)."""
+    if fp.n_taps is None:
+        return texture_sample.sample_trilinear(pool, index, uv, fp.lod)
+    if trips is None:
+        trips = int(fp.n_taps.max())
+    acc = torch.zeros(uv.shape[:-1] + (4,), dtype=torch.float32,
+                      device=uv.device)
+    for i in range(trips):
+        live = float(i) < fp.n_taps
+        # Tap position along the major axis; taps beyond a pixel's n_taps
+        # collapse onto the centre and weigh 0.
+        frac = torch.where(live, (float(i) + 0.5) / fp.n_taps - 0.5, 0.0)
+        tap = texture_sample.sample_trilinear(
+            pool, index, uv + fp.major_uv * frac[..., None], fp.lod)
+        acc = acc + tap * torch.where(live, 1.0, 0.0)[..., None]
+    return acc / fp.n_taps[..., None]
+
+
+def _sample_map(pool, index, uv, ddx, ddy, max_aniso: int = 1,
+                trips: Optional[int] = None):
+    """Sample a map with its analytic LOD and anisotropic filtering;
+    index < 0 gives white."""
+    return sample_footprint(pool, index, uv,
+                            map_footprint(pool, index, ddx, ddy, max_aniso),
+                            trips)
+
+
+def _light_slots(lo, gbuf, lights, tile_indices, n_iter, light_tile_size,
+                 normal, view_dir, base_color, metallic, roughness, f0, ndotv):
+    """Add the Forward+ lights to `lo`: each pixel walks the first n_iter
+    slots of its tile's culled light list. Point lights have a
+    radius-windowed inverse-square falloff, spot lights (type 1) a smooth
+    cone between their inner and outer angles, directional entries (type
+    2) a constant direction and no falloff."""
+    h, w = gbuf.mask.shape
+    dev = gbuf.mask.device
+    t_y = (torch.arange(h, device=dev) // light_tile_size).clamp(
+        0, tile_indices.shape[0] - 1)[:, None]
+    t_x = (torch.arange(w, device=dev) // light_tile_size).clamp(
+        0, tile_indices.shape[1] - 1)[None, :]
+    for k in range(n_iter):
+        lid = tile_indices[:, :, k][t_y, t_x]  # (H, W)
+        row = lights[lid.clamp_min(0).long()]  # (H, W, 16)
+        lradius = row[..., 3].clamp_min(1e-3)
+        lcolor = row[..., 4:7] * row[..., 7:8]  # colour * intensity
+        ltype = row[..., 11]  # 0 point, 1 spot, 2 directional
+        to_light = row[..., 0:3] - gbuf.world
+        dist = _norm(to_light)
+        ldir_pos = to_light / dist.clamp_min(1e-6)[..., None]
+        ldir = torch.where((ltype >= 1.5)[..., None],
+                           _normalize(-row[..., 8:11]), ldir_pos)
+        # Windowed inverse-square attenuation; the powers are products, as
+        # the reference's integer powers are.
+        q = dist / lradius
+        q2 = q * q
+        win = (1.0 - q2 * q2).clamp(0.0, 1.0)
+        atten = (win * win) / (dist * dist + 1.0)
+        cos_angle = _dot(_normalize(row[..., 8:11]), -ldir_pos)
+        cos_outer = torch.cos(row[..., 13].clamp_min(1e-3))
+        cos_inner = torch.cos(row[..., 12].clamp_min(5e-4))
+        spot = ((cos_angle - cos_outer)
+                / (cos_inner - cos_outer).clamp_min(1e-4)).clamp(0.0, 1.0)
+        atten = torch.where(
+            ltype >= 1.5, 1.0,
+            torch.where(ltype >= 0.5, atten * spot * spot, atten),
+        )
+        nl = _dot(normal, ldir).clamp_min(0.0)
+        half_l = _normalize(view_dir + ldir)
+        nh = _dot(normal, half_l).clamp_min(0.0)
+        vh = _dot(view_dir, half_l).clamp_min(0.0)
+        dd = distribution_ggx(nh, roughness)
+        gg = geometry_smith(ndotv, nl, roughness)
+        ff = fresnel_schlick(vh, f0)
+        spec_l = (dd * gg)[..., None] * ff / (4.0 * ndotv * nl + 0.001)[..., None]
+        spec_l = torch.minimum(spec_l, 10.0 / f0.clamp_min(0.04))
+        kd_l = (1.0 - ff) * (1.0 - metallic[..., None])
+        contrib = (kd_l * base_color / PI + spec_l) * lcolor * (nl * atten)[..., None]
+        lo = lo + torch.where((lid >= 0)[..., None], contrib, 0.0)
+    return lo
+
+
 def shade_pbr(
     gbuf: GBuffer,
     materials: torch.Tensor,  # (D, 18) packed MaterialUniform rows
     uniforms: ShadeUniforms,
     shadow_map: Optional[torch.Tensor] = None,  # (S, S) or None
+    pool: Optional[texture_sample.TexturePool] = None,
     clear_color=(0.0, 0.0, 0.0),
     reinhard: bool = True,
+    lights: Optional[torch.Tensor] = None,  # (L, 16) packed GpuLight rows
+    tile_light_indices: Optional[torch.Tensor] = None,  # (ty, tx, K) int32
+    tile_light_counts: Optional[torch.Tensor] = None,  # (ty, tx) int32
+    light_tile_size: int = 16,
+    max_anisotropy: int = 1,
 ) -> torch.Tensor:
-    """Shade the visibility buffer -> (H, W, 3) f32 colour (untextured).
-    With reinhard=True the result is the reference main pass's LDR output."""
+    """Shade the visibility buffer -> (H, W, 3) f32 colour. With
+    reinhard=True the result is the reference main pass's LDR output.
+
+    With a pool, all five maps' anisotropic tap counts are taken first and
+    their largest over the covered pixels sets one trip count for every
+    map: one host sync per call. The light loop runs min(largest tile
+    count, K) slots (a host sync), or all K slots when tile_light_counts
+    is None; slots past a tile's count hold -1 and add nothing."""
     mat = materials[gbuf.draw_id.long()]  # (H, W, 18)
     base_factor = mat[..., 0:4]
     emissive_factor = mat[..., 4:8]
-    metallic = mat[..., 8]
-    roughness = mat[..., 9].clamp_min(0.04)
 
     view_dir = _normalize(uniforms.camera_pos - gbuf.world)
     light_dir = _normalize(-uniforms.light_direction).expand_as(gbuf.world)
-    base_color = base_factor[..., :3]  # untextured: the base sample is 1
 
-    # TBN's normal with its backface flip (the tangent frame only matters
-    # for normal maps, which are ROADMAP A10).
-    n = gbuf.normal
+    # The geometric normal with its backface flip; the shadow uses it.
     flip = torch.where(gbuf.front_facing[..., None], 1.0, -1.0)
-    normal = n * flip
-    ndotl = _dot(normal, light_dir).clamp_min(0.0)
+    n = gbuf.normal * flip
+    normal = n
+    metallic = mat[..., 8]
+    roughness = mat[..., 9].clamp_min(0.04)
+    base_color = base_factor[..., :3]  # untextured: the base sample is 1
+    occlusion = None
+    emissive = emissive_factor[..., :3]
+    if pool is not None:
+        idx = {name: mat[..., col].to(torch.int32) for name, col in (
+            ("base", 12), ("normal", 13), ("mr", 14), ("occ", 15),
+            ("emis", 16))}
+        fps = {name: map_footprint(pool, i, gbuf.uv_ddx, gbuf.uv_ddy,
+                                   max_anisotropy) for name, i in idx.items()}
+        trips = None
+        if max_anisotropy > 1:
+            taps = torch.stack([fp.n_taps for fp in fps.values()]).amax(0)
+            trips = int(torch.where(gbuf.mask, taps, 0.0).max())
 
+        def sample(name):
+            return sample_footprint(pool, idx[name], gbuf.uv, fps[name], trips)
+
+        base_color = sample("base")[..., :3] * base_factor[..., :3]
+
+        # TBN with a safe fallback tangent, Gram-Schmidt and the backface
+        # flip, then normal mapping.
+        t_raw = gbuf.tangent[..., :3]
+        t_len = torch.linalg.vector_norm(t_raw, dim=-1, keepdim=True)
+        t = torch.where(
+            t_len > 1e-3, t_raw / t_len.clamp_min(1e-8),
+            torch.tensor([1.0, 0.0, 0.0], device=t_raw.device),
+        )
+        g = gbuf.normal
+        t = _normalize(t - _dot(t, g)[..., None] * g) * flip
+        b = _cross(n, t) * gbuf.tangent[..., 3:4]
+        map_sample = sample("normal")[..., :3]
+        mn = map_sample * 2.0 - 1.0
+        mn = torch.cat([mn[..., :2] * mat[..., 11, None], mn[..., 2:]], -1)
+        mapped = t * mn[..., 0:1] + b * mn[..., 1:2] + n * mn[..., 2:3]
+        ok = ((_norm(map_sample) > 1e-3) & (_norm(mapped) > 1e-3)
+              & (idx["normal"] >= 0))
+        normal = torch.where(ok[..., None], _normalize(mapped), n)
+
+        mr = sample("mr")
+        has_mr = idx["mr"] >= 0
+        metallic = torch.where(has_mr, metallic * mr[..., 2], metallic)
+        roughness = torch.where(
+            has_mr, (roughness * mr[..., 1]).clamp_min(0.04), roughness)
+
+        occ = sample("occ")[..., 0]
+        occlusion = torch.where(idx["occ"] >= 0,
+                                1.0 + (occ - 1.0) * mat[..., 10], 1.0)
+
+        es = sample("emis")[..., :3]
+        emissive = torch.where((idx["emis"] >= 0)[..., None],
+                               emissive * es, emissive)
+
+    ndotl = _dot(normal, light_dir).clamp_min(0.0)
     f0 = (1.0 - metallic[..., None]) * 0.04 + metallic[..., None] * base_color
     half_dir = _normalize(view_dir + light_dir)
     ndotv = _dot(normal, view_dir).clamp_min(0.001)
@@ -186,18 +457,29 @@ def shade_pbr(
     kd = (1.0 - f) * (1.0 - metallic[..., None])
     diffuse = kd * base_color / PI
 
-    # The shadow uses the (flipped) geometric normal.
+    # The shadow uses the (flipped) geometric normal, not the mapped one.
     if shadow_map is not None:
         pos_light = transform_points(uniforms.light_space_matrix, gbuf.world)
-        shadow = shadow_ops.shadow_pcf16(shadow_map, pos_light, normal, light_dir)
+        shadow = shadow_ops.shadow_pcf16(shadow_map, pos_light, n, light_dir)
     else:
         shadow = torch.zeros_like(ndotl)
 
     lo = (diffuse + specular) * (
         uniforms.light_color * (ndotl * (1.0 - shadow))[..., None]
     )
+    if lights is not None and tile_light_indices is not None:
+        k_slots = tile_light_indices.shape[-1]
+        n_iter = k_slots
+        if tile_light_counts is not None:
+            n_iter = min(int(tile_light_counts.max()), k_slots)
+        lo = _light_slots(lo, gbuf, lights, tile_light_indices, n_iter,
+                          light_tile_size, normal, view_dir, base_color,
+                          metallic, roughness, f0, ndotv)
+
     ambient = uniforms.ambient_color * base_color
-    color = ambient + lo + emissive_factor[..., :3]
+    if occlusion is not None:
+        ambient = ambient * occlusion[..., None]
+    color = ambient + lo + emissive
     if reinhard:
         color = color / (color + 1.0)
     clear = torch.as_tensor(clear_color, dtype=torch.float32, device=color.device)
@@ -210,34 +492,3 @@ def shade_flat(gbuf: GBuffer, clear_color=(0.0, 0.0, 0.0)) -> torch.Tensor:
         clear_color, dtype=torch.float32, device=gbuf.color.device
     )
     return torch.where(gbuf.mask[..., None], gbuf.color, clear)
-
-
-def pixel_alpha(
-    gbuf: GBuffer,
-    materials: torch.Tensor,  # (D, 18)
-    pool=None,
-) -> torch.Tensor:
-    """Per-pixel coverage alpha for blending: the base colour factor's
-    alpha (the base texture's alpha is 1 untextured), zeroed by the
-    material's alpha_cutoff and on background pixels. Opaque materials
-    (alpha 1, no cutoff) give exactly 1 on covered pixels."""
-    if pool is not None:
-        raise NotImplementedError(
-            "pixel_alpha with a texture pool is not ported yet (ROADMAP.md A10)"
-        )
-    mat = materials[gbuf.draw_id.long()]
-    alpha = mat[..., 3]
-    cutoff = mat[..., 17]
-    alpha = torch.where((cutoff > 0.0) & (alpha < cutoff), 0.0, alpha)
-    return torch.where(gbuf.mask, alpha, 0.0)
-
-
-def composite_over(
-    front_color: torch.Tensor,  # (H, W, 3)
-    front_alpha: torch.Tensor,  # (H, W)
-    back_color: torch.Tensor,  # (H, W, 3), already composed over the clear
-) -> torch.Tensor:
-    """SRC_ALPHA / ONE_MINUS_SRC_ALPHA blend (the reference pipeline's
-    always-on blend state)."""
-    a = front_alpha[..., None]
-    return front_color * a + back_color * (1.0 - a)

@@ -1,13 +1,18 @@
 """Where a standard frame's time goes, on one CUDA device.
 
     python3 -m ash_tpu_torch.profile_frame [--frames N] [--out DIR]
-        [--glass [--transparency-passes P]]
+        [--glass [--transparency-passes P]] [--textured] [--lights N]
+        [--max-anisotropy A]
 
 Renders the bench scene (render/bench_scene.py: 1000 cubes, 1920x1080,
 2048^2 shadow map), or with --glass the glass standard frame (every fourth
-cube alpha 0.5, a 4-layer depth peel run P times), and traces N static
-frames and N frames that re-render the shadow map with `torch.profiler`. For each kind it prints the wall time
-per frame, the device's busy and idle share of that wall time, device time
+cube alpha 0.5, a 4-layer depth peel run P times), with --textured the
+textured standard frame (four meshes with five 256x256 maps each, every
+fourth cube alpha-tested, anisotropy A, 16 by default), and with --lights N
+bench.py's N point lights added (Forward+). It traces N static frames and N
+frames that re-render the shadow map with `torch.profiler`. For each kind
+it prints the wall time per frame, the peak device memory, the device's
+busy and idle share of that wall time, device time
 per `pass_*` scope (the kernels its PyTorch ops launched, the span from its
 first to its last kernel on the device, and its host time), and the device
 work that takes the most time. The raster kernel is launched through
@@ -73,13 +78,17 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--glass", action="store_true")
     ap.add_argument("--transparency-passes", type=int, default=1)
+    ap.add_argument("--textured", action="store_true")
+    ap.add_argument("--lights", type=int, default=0)
+    ap.add_argument("--max-anisotropy", type=int, default=16)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_frame: needs a CUDA device", file=sys.stderr)
         return 1
     r, _, cam, _ = build_bench_renderer(
         1920, 1080, 1000, "cuda", glass=args.glass,
-        transparency_passes=args.transparency_passes,
+        transparency_passes=args.transparency_passes, textured=args.textured,
+        lights=args.lights, max_anisotropy=args.max_anisotropy,
     )
     view, proj, pos = cam.view_matrix(), cam.projection_matrix(), cam.position
     for _ in range(3):  # build the kernel, the scene and the shadow map
@@ -95,7 +104,10 @@ def main(argv=None) -> int:
 
     print(f"device: {torch.cuda.get_device_name(0)}")
     for name, step in (("static", static), ("shadow_rerender", shadow)):
+        torch.cuda.reset_peak_memory_stats()
         prof, wall_ms = _trace(step, args.frames)
+        print(f"{name}: peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
         table = _report(name, prof, wall_ms, args.frames)
         if args.out:
             os.makedirs(args.out, exist_ok=True)

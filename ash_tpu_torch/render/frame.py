@@ -1,14 +1,17 @@
 """The frame pipeline (port of ash_tpu/render/frame.py, the plain frame).
 
 `render_frame_program` is one `render_frame`: vertex stage -> frustum
-culling -> back-cull setup -> binning -> raster -> G-buffer -> shading ->
-sRGB encode and RGBA8 pack. With semi-transparent materials (alpha_blend)
-the main raster is a K-layer depth peel, iterated `transparency_passes`
-times, and every layer is shaded and composited back to front. The shadow
-pass is its own function, `shadow_program` (front-cull setup -> binning ->
-depth-only raster), so the renderer can cache the map across frames of a
-static scene. Every raster goes through ops/raster_cuda.py:rasterize: a
-CUDA kernel on the card.
+culling -> back-cull setup -> binning -> raster -> G-buffer -> Forward+
+light culling -> shading -> sRGB encode and RGBA8 pack. With
+semi-transparent materials (alpha_blend) the main raster is a K-layer depth
+peel, iterated `transparency_passes` times, and every layer is shaded and
+composited back to front. With alpha-tested materials and a texture pool
+(alpha_test) the raster peels two layers and cut-out pixels fall through to
+the second. The shadow pass is its own function, `shadow_program`
+(front-cull setup -> binning -> depth-only raster, with the alpha test's
+two-layer peel at a 0.1 cutoff), so the renderer can cache the map across
+frames of a static scene. Every raster goes through
+ops/raster_cuda.py:rasterize: a CUDA kernel on the card.
 
 PyTorch runs eagerly, so there is no program cache: the FrameConfig only
 carries the static shape of the frame. Each stage runs inside a
@@ -26,6 +29,7 @@ from torch.profiler import record_function
 
 from ..ops import binning, geometry
 from ..ops.occlusion import cull_objects
+from ..ops.light_cull import cull_lights
 from ..ops.raster import VisibilityBuffer
 from ..ops.raster_cuda import rasterize
 from ..ops.shade import (
@@ -33,9 +37,11 @@ from ..ops.shade import (
     composite_over,
     interpolate_gbuffer,
     pixel_alpha,
+    resolve_alpha_test,
     shade_flat,
     shade_pbr,
 )
+from ..ops.texture_sample import TexturePool
 from .scene import SceneBuffers
 
 
@@ -49,6 +55,8 @@ class FrameUniforms(NamedTuple):
     ambient_color: torch.Tensor  # (3,)
     light_space_matrix: torch.Tensor  # (4, 4)
     models: torch.Tensor  # (D, 4, 4) per-draw model matrices
+    view: torch.Tensor  # (4, 4), for Forward+ light culling
+    projection: torch.Tensor  # (4, 4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +91,22 @@ class FrameConfig:
     alpha_blend: bool = False
     transparency_layers: int = 2
     transparency_passes: int = 1
+    # Texture maps: the pool reaches the shading pass (and the alpha test).
+    textured: bool = False
+    # Anisotropic filtering taps (1 = trilinear only).
+    max_anisotropy: int = 1
+    # Alpha test (cutout): rasterize two layers and let cut-out pixels fall
+    # through (ops/shade.resolve_alpha_test); the shadow pass uses a fixed
+    # 0.1 threshold on textured materials. Needs textured and a pool;
+    # alpha_blend takes precedence in the main pass.
+    alpha_test: bool = False
+    # Forward+ point and spot lights: tiled light culling and a per-pixel
+    # loop over the tile's list, whose trip count is the frame's largest
+    # tile count (at most shaded_lights_per_tile).
+    lights_enabled: bool = False
+    light_tile_size: int = 16
+    max_lights_per_tile: int = 256
+    shaded_lights_per_tile: int = 256
 
     @property
     def shadow_rows(self) -> int:
@@ -156,15 +180,25 @@ def shadow_pass_bins(cfg: FrameConfig, scene: SceneBuffers,
 
 
 def shadow_program(cfg: FrameConfig, scene: SceneBuffers,
-                   models: torch.Tensor, light_matrix: torch.Tensor):
+                   models: torch.Tensor, light_matrix: torch.Tensor,
+                   pool: Optional[TexturePool] = None):
     """The shadow pass: a depth-only raster of the scene from the light.
-    Returns (shadow_map (S, S), shadow_overflow ())."""
+    With the alpha test it peels two layers and a textured surface whose
+    base alpha is below 0.1 casts no shadow. Returns (shadow_map (S, S),
+    shadow_overflow ())."""
+    alpha_shadow = cfg.alpha_test and cfg.textured and pool is not None
     with record_function("pass_shadow"):
         setup, bins = shadow_pass_bins(
             cfg, scene, shadow_world(scene, models), light_matrix
         )
         s = cfg.shadow_resolution
-        vis = rasterize(setup, bins, s, s, cfg.shadow_rows, cfg.shadow_tile)
+        vis = rasterize(setup, bins, s, s, cfg.shadow_rows, cfg.shadow_tile,
+                        layers=2 if alpha_shadow else 1)
+        if alpha_shadow:
+            vis = resolve_alpha_test(
+                vis, setup, scene.tri_v, scene.tri_draw, scene.materials,
+                scene.uv, pool, cutoff_override=0.1, vert_uid=scene.vert_uid,
+            )
         return vis.depth, bins.overflow
 
 
@@ -214,10 +248,13 @@ def render_band(
     scene: SceneBuffers,
     uni: FrameUniforms,
     shadow: Optional[tuple] = None,  # (shadow_map, shadow_overflow)
+    pool: Optional[TexturePool] = None,
+    lights: Optional[torch.Tensor] = None,  # (L, 16) packed GpuLight rows
 ) -> BandOutputs:
     """Vertex stage -> culling -> raster -> shade over the full frame.
     `shadow` is the shadow pass's output; it must be given exactly when
-    cfg.shadow_enabled."""
+    cfg.shadow_enabled. `pool` is sampled when cfg.textured, `lights` lit
+    when cfg.lights_enabled."""
     if not 2 <= cfg.transparency_layers <= 8:
         raise ValueError(
             f"transparency_layers {cfg.transparency_layers} outside [2, 8]"
@@ -227,8 +264,11 @@ def render_band(
     shadow_map, shadow_overflow = shadow if shadow is not None else (None, None)
     tv, setup, bins, visible_draws = main_pass_bins(cfg, scene, uni)
     blend = cfg.alpha_blend and cfg.shading == "pbr"
+    alpha_main = (cfg.alpha_test and cfg.textured and pool is not None
+                  and not blend)
     with record_function("pass_raster"):
-        peel_layers = cfg.transparency_layers if blend else 1
+        peel_layers = (cfg.transparency_layers if blend
+                       else 2 if alpha_main else 1)
         vis = rasterize(setup, bins, cfg.height, cfg.width, cfg.tile_h,
                         cfg.tile_w, layers=peel_layers)
         if blend:
@@ -241,6 +281,11 @@ def render_band(
                     setup, bins, cfg.height, cfg.width, cfg.tile_h,
                     cfg.tile_w, layers=peel_layers, depth_floor=floor,
                 ))
+        if alpha_main:
+            vis = resolve_alpha_test(
+                vis, setup, scene.tri_v, scene.tri_draw, scene.materials,
+                scene.uv, pool, vert_uid=scene.vert_uid,
+            )
 
     def gbuffer(tri_id):
         with record_function("pass_gbuffer"):
@@ -252,6 +297,21 @@ def render_band(
     # One host-to-device copy per frame, shared by every shaded layer.
     clear = torch.tensor(cfg.clear_color, dtype=torch.float32,
                          device=setup.edge.device)
+
+    tile_lights = None
+    if cfg.lights_enabled and lights is not None:
+        with record_function("pass_light_cull"):
+            tl = cull_lights(
+                lights, uni.view, torch.linalg.inv_ex(uni.projection).inverse,
+                vis.depth, cfg.width, cfg.height,
+                max_per_tile=cfg.max_lights_per_tile, tile=cfg.light_tile_size,
+            )
+            # The loop's trip count is the frame's largest tile count: one
+            # host sync per frame, shared by every shaded layer. Slots past
+            # a tile's own count hold -1 and add nothing.
+            n_iter = min(int(tl.counts.max()), cfg.shaded_lights_per_tile)
+            tile_lights = tl.indices[:, :, :n_iter]
+    tex_pool = pool if cfg.textured else None
 
     def shade(gbuf):
         with record_function("pass_shade"):
@@ -266,8 +326,12 @@ def render_band(
                     ambient_color=uni.ambient_color,
                     light_space_matrix=uni.light_space_matrix,
                 ),
-                shadow_map=shadow_map, clear_color=clear,
+                shadow_map=shadow_map, pool=tex_pool, clear_color=clear,
                 reinhard=True,  # in-shader tonemap; the HDR post chain is A13
+                lights=lights if tile_lights is not None else None,
+                tile_light_indices=tile_lights,
+                light_tile_size=cfg.light_tile_size,
+                max_anisotropy=cfg.max_anisotropy,
             )
 
     if not blend:
@@ -278,7 +342,8 @@ def render_band(
         layers = []
         for i in range(vis.num_layers):
             gbuf = gbuffer(vis.layer(i)[1])
-            layers.append((shade(gbuf), pixel_alpha(gbuf, scene.materials)))
+            layers.append((shade(gbuf),
+                           pixel_alpha(gbuf, scene.materials, tex_pool)))
         with record_function("pass_shade"):
             color = clear.expand_as(layers[0][0])
             for color_l, alpha_l in reversed(layers):
@@ -313,6 +378,9 @@ def render_frame_program(
     scene: SceneBuffers,
     uni: FrameUniforms,
     shadow: Optional[tuple] = None,
+    pool: Optional[TexturePool] = None,
+    lights: Optional[torch.Tensor] = None,
 ) -> FrameOutputs:
     """One frame: render_band + finalize_frame."""
-    return finalize_frame(cfg, render_band(cfg, scene, uni, shadow))
+    return finalize_frame(cfg, render_band(cfg, scene, uni, shadow, pool,
+                                           lights))

@@ -3,10 +3,13 @@ main path).
 
 The public surface matches the reference: `set_mesh`, `set_material`,
 `material_mut`, `register_mesh_handle`, `register_material_handle`,
-`submit_render_commands`, `render_frame(view, proj, camera_pos)` and
-`read_back`. State is host registries, the packed scene on the device
-(rebuilt when the scene changes), the shadow feature, and a cached shadow
-map: a static scene under a static light renders its shadow map once.
+`submit_render_commands`, `add_point_light`, `add_spot_light`,
+`request_texture_residency`, `render_frame(view, proj, camera_pos)` and
+`read_back`. State is host registries, the bindless texture manager (a
+mesh's maps get pool indices when it is registered), the packed scene on
+the device (rebuilt when the scene changes), the shadow and lighting
+features, and a cached shadow map: a static scene under a static light
+renders its shadow map once.
 
 Every reference option and feature that this port does not run yet raises
 NotImplementedError naming its ROADMAP.md item; none is silently ignored.
@@ -26,7 +29,17 @@ from ..core.transform import Transform
 from ..core.uniform import MaterialUniform
 from ..device import resolve_device
 from ..errors import InvalidOperation
-from .features import FeatureFrameContext, FeatureManager, ShadowFeature
+from ..ops.texture_sample import TexturePool
+from .bindless import BindlessTextureManager
+from .features import (
+    FeatureFrameContext,
+    FeatureManager,
+    GpuLight,
+    LightingFeature,
+    PointLight,
+    ShadowFeature,
+    SpotLight,
+)
 from .frame import (
     FrameConfig,
     FrameOutputs,
@@ -55,7 +68,6 @@ def _unported(what: str, item: str):
 _UNPORTED_OPTIONS = {
     "csm": (None, "A14, CSM"),
     "render_scale": (1.0, "A13, TAAU"),
-    "texture_budget_bytes": (None, "A10, textures"),
     "max_draws_per_chunk": (None, "A16, chunked geometry"),
     "msaa_resolve": ("ssaa", "A15, MSAA"),
 }
@@ -89,7 +101,12 @@ class RendererConfig:
     # semi-transparent material (base colour alpha < 1).
     transparency_layers: int = 2
     transparency_passes: int = 1
+    # Anisotropic filtering taps of textured draws (the reference sampler's
+    # 16x; 1 = trilinear only).
+    max_anisotropy: int = 16
     render_scale: float = 1.0
+    # A byte budget for the texture pool: mip residency is then fitted to
+    # it (render/bindless.py); None keeps every mip resident.
     texture_budget_bytes: Optional[int] = None
     max_draws_per_chunk: Optional[int] = None
     msaa_resolve: str = "ssaa"
@@ -121,6 +138,8 @@ class FrameInputs(NamedTuple):
     config: FrameConfig
     scene: BuiltScene
     uniforms: FrameUniforms
+    pool: Optional[TexturePool]  # the bindless pool, None without textures
+    lights: Optional[torch.Tensor]  # (L_pad, 16) packed lights, or None
 
 
 class Renderer:
@@ -151,19 +170,29 @@ class Renderer:
         self._single_mesh_key: Optional[str] = None
         self._single_mat_row: Optional[np.ndarray] = None
 
+        self.bindless = BindlessTextureManager(
+            budget_bytes=self.config.texture_budget_bytes, device=self.device
+        )
         self.feature_manager = FeatureManager()
         self.shadow_feature = ShadowFeature()
+        self.lighting_feature = LightingFeature()
         self.feature_manager.add(self.shadow_feature, self)
+        self.feature_manager.add(self.lighting_feature, self)
+        # (lighting_feature.version, packed lights on the device or None).
+        self._lights_cache: Optional[tuple] = None
 
         self._scene: Optional[BuiltScene] = None
         self._scene_dirty = True
         self._scene_epoch = 0
         self._models: Optional[torch.Tensor] = None  # multi-draw, per scene
-        # Whether a multi-draw scene has a semi-transparent material,
-        # scanned once per scene build.
-        self._scene_blend = False
+        # Whether a multi-draw scene has an alpha-cutoff material and a
+        # semi-transparent one, scanned once per scene build.
+        self._material_flags = (False, False)
+        # Bumped when the single mesh's material row changes in place.
+        self._materials_epoch = 0
         # (key, shadow_map, shadow_overflow): reused while the scene, the
-        # transforms and the light matrix are unchanged.
+        # transforms, the materials, the texture pool and the light matrix
+        # are unchanged.
         self._shadow_cache: Optional[tuple] = None
         self._last_outputs: Optional[FrameOutputs] = None
         self._last_image: Optional[np.ndarray] = None
@@ -174,15 +203,23 @@ class Renderer:
     # ------------------------------------------------------------------
 
     def _register_mesh(self, mesh: Mesh) -> str:
-        if any(
-            getattr(mesh, attr) is not None
-            for attr in (
-                "texture_data", "normal_texture_data",
-                "metallic_roughness_texture_data", "occlusion_texture_data",
-                "emissive_texture_data",
-            )
+        """Record the mesh and give each of its texture maps a bindless
+        index, with the map's colour space (base colour and emissive are
+        sRGB). The indices are written into the Mesh: a mesh registered
+        with a second renderer keeps the first one's, so every renderer
+        needs meshes of its own."""
+        for attr, idx_attr, srgb in (
+            ("texture_data", "texture_index", True),
+            ("normal_texture_data", "normal_texture_index", False),
+            ("metallic_roughness_texture_data",
+             "metallic_roughness_texture_index", False),
+            ("occlusion_texture_data", "occlusion_texture_index", False),
+            ("emissive_texture_data", "emissive_texture_index", True),
         ):
-            _unported(f"mesh {mesh.name!r}: texture maps", "A10")
+            data = getattr(mesh, attr)
+            if data is not None and getattr(mesh, idx_attr) is None:
+                data.srgb = srgb
+                setattr(mesh, idx_attr, self.bindless.add_sampled_image(data))
         if mesh.lods and self.config.lod_enabled:
             _unported(f"mesh {mesh.name!r}: LOD chains", "A14")
         self.mesh_registry[mesh.name] = mesh
@@ -226,14 +263,19 @@ class Renderer:
             items.append(DrawItem(
                 mesh_key=key,
                 model=np.asarray(cmd.transform, np.float32),
-                material=self._material_uniform(material),
+                material=self._material_uniform(material,
+                                                self.mesh_registry[key]),
             ))
         self.draw_items = items
         self._scene_dirty = True
 
     @staticmethod
-    def _material_uniform(material: Material) -> MaterialUniform:
-        """Packed material with no texture bindings (textures are A10)."""
+    def _material_uniform(material: Material, mesh: Mesh) -> MaterialUniform:
+        """Packed material with the mesh's bindless texture indices (-1 for
+        a missing map)."""
+        def idx(v):
+            return -1 if v is None else int(v)
+
         return MaterialUniform(
             base_color_factor=np.asarray(material.color, np.float32),
             emissive_factor=np.asarray(material.emissive, np.float32),
@@ -242,20 +284,60 @@ class Renderer:
                  material.occlusion_strength, material.normal_scale],
                 np.float32,
             ),
-            base_color_index=-1,
-            normal_map_index=-1,
-            metallic_roughness_index=-1,
-            occlusion_index=-1,
-            emissive_index=-1,
+            base_color_index=idx(mesh.texture_index),
+            normal_map_index=idx(mesh.normal_texture_index),
+            metallic_roughness_index=idx(mesh.metallic_roughness_texture_index),
+            occlusion_index=idx(mesh.occlusion_texture_index),
+            emissive_index=idx(mesh.emissive_texture_index),
             alpha_cutoff=material.alpha_cutoff,
         )
 
-    # Reference features on later slices.
-    def add_point_light(self, *args, **kwargs):
-        _unported("add_point_light", "A12, Forward+ lights")
+    # ------------------------------------------------------------------
+    # Lights and textures
+    # ------------------------------------------------------------------
 
-    def add_spot_light(self, *args, **kwargs):
-        _unported("add_spot_light", "A12, Forward+ lights")
+    def add_point_light(self, position, color=(1, 1, 1), intensity=1.0,
+                        radius=10.0) -> int:
+        """Add a Forward+ point light; returns its index."""
+        return self.lighting_feature.add_point_light(PointLight(
+            position=np.asarray(position, np.float32),
+            color=np.asarray(color, np.float32),
+            intensity=float(intensity),
+            radius=float(radius),
+        ))
+
+    def add_spot_light(self, position, direction, color=(1, 1, 1),
+                       intensity=1.0, radius=10.0, inner_cone_angle=0.3,
+                       outer_cone_angle=0.5) -> int:
+        """Add a Forward+ spot light (cone angles in radians); returns its
+        index."""
+        return self.lighting_feature.add_spot_light(SpotLight(
+            position=np.asarray(position, np.float32),
+            direction=np.asarray(direction, np.float32),
+            color=np.asarray(color, np.float32),
+            intensity=float(intensity),
+            radius=float(radius),
+            inner_cone_angle=float(inner_cone_angle),
+            outer_cone_angle=float(outer_cone_angle),
+        ))
+
+    def clear_point_lights(self) -> None:
+        self.lighting_feature.clear_point_lights()
+
+    def clear_spot_lights(self) -> None:
+        self.lighting_feature.clear_spot_lights()
+
+    def clear_lights(self) -> None:
+        self.lighting_feature.clear_lights()
+
+    def request_texture_residency(self, index: int, min_level: int) -> None:
+        """Streaming-pool feedback: ask for texture `index`'s mips down to
+        `min_level` to be resident (0 = full size). Under a
+        texture_budget_bytes the fit may demote other textures instead;
+        the restream rewrites the pool's values, not its shapes."""
+        self.bindless.request_residency(index, min_level)
+
+    # Reference features on later slices.
 
     def initialize_hdr(self, *args, **kwargs):
         _unported("initialize_hdr", "A13, post chain")
@@ -292,10 +374,11 @@ class Renderer:
         return [DrawItem(
             mesh_key=self._single_mesh_key,
             model=self.transform.model_matrix(),
-            material=self._material_uniform(material),
+            material=self._material_uniform(material, mesh),
         )]
 
-    def _frame_config(self, alpha_blend: bool) -> FrameConfig:
+    def _frame_config(self, alpha_blend: bool, textured: bool,
+                      alpha_test: bool, lights_enabled: bool) -> FrameConfig:
         c = self.config
         return FrameConfig(
             width=self._width,
@@ -315,14 +398,43 @@ class Renderer:
             alpha_blend=alpha_blend,
             transparency_layers=c.transparency_layers,
             transparency_passes=c.transparency_passes,
+            textured=textured,
+            max_anisotropy=c.max_anisotropy,
+            alpha_test=alpha_test,
+            lights_enabled=lights_enabled,
         )
 
     @staticmethod
-    def _blends(items: List[DrawItem]) -> bool:
-        """A semi-transparent material (base colour alpha < 1) switches on
-        K-layer alpha blending (twice or more the shading cost, so only
-        then)."""
-        return any(float(it.material.base_color_factor[3]) < 1.0 for it in items)
+    def _material_scan(items: List[DrawItem]) -> tuple:
+        """(any alpha cutoff, any semi-transparent material). A cutoff
+        switches on the alpha test when a texture pool exists; base colour
+        alpha < 1 switches on K-layer alpha blending. Each costs a second
+        peel layer or more, so only then."""
+        return (
+            any(it.material.alpha_cutoff > 0.0 for it in items),
+            any(float(it.material.base_color_factor[3]) < 1.0 for it in items),
+        )
+
+    def _device_lights(self) -> Optional[torch.Tensor]:
+        """The lights packed into a power-of-two bucket of at least 8 rows,
+        on the device; repacked only when the lighting feature changes."""
+        version = self.lighting_feature.version
+        if self._lights_cache is None or self._lights_cache[0] != version:
+            gpu = [GpuLight.from_point_light(pl)
+                   for pl in self.lighting_feature.point_lights]
+            gpu += [GpuLight.from_spot_light(sl)
+                    for sl in self.lighting_feature.spot_lights]
+            lights = None
+            if gpu:
+                pad = 8
+                while pad < len(gpu):
+                    pad *= 2
+                rows = np.zeros((pad, 16), np.float32)
+                for i, gl in enumerate(gpu):
+                    rows[i] = gl.flat()
+                lights = torch.from_numpy(rows).to(self.device)
+            self._lights_cache = (version, lights)
+        return self._lights_cache[1]
 
     def _build_scene(self, items: List[DrawItem]) -> None:
         scene = build_scene(items, self.mesh_registry, self.device)
@@ -337,7 +449,7 @@ class Renderer:
         self._scene_dirty = False
         self._scene_epoch += 1
         self._shadow_cache = None
-        self._scene_blend = self._blends(items)
+        self._material_flags = self._material_scan(items)
         self._single_mat_row = (
             items[0].packed_material() if self._single_mesh_key else None
         )
@@ -375,6 +487,7 @@ class Renderer:
                     buffers=self._scene.buffers._replace(materials=mats),
                 )
                 self._single_mat_row = row
+                self._materials_epoch += 1
             self._models = torch.from_numpy(
                 build_models(items, self._scene.buffers.num_draws)
             ).to(self.device)
@@ -388,6 +501,7 @@ class Renderer:
             np.asarray(camera_pos, np.float32).reshape(3),
             light_dir, FRAME_LIGHT_COLOR, FRAME_AMBIENT,
             np.asarray(self.shadow_feature.light_space_matrix(), np.float32).ravel(),
+            view.ravel(), proj.ravel(),
         ]).astype(np.float32)
         consts = torch.from_numpy(host).to(self.device)
         uni = FrameUniforms(
@@ -398,18 +512,29 @@ class Renderer:
             ambient_color=consts[25:28],
             light_space_matrix=consts[28:44].view(4, 4),
             models=self._models,
+            view=consts[44:60].view(4, 4),
+            projection=consts[60:76].view(4, 4),
         )
         # The multi-draw scan is cached per scene build; the single mesh is
-        # rescanned every frame, so a material_mut() alpha edit blends on
-        # the next frame without a rebuild.
-        blend = self._scene_blend if self.draw_items else self._blends(items)
-        return FrameInputs(self._frame_config(blend), self._scene, uni)
+        # rescanned every frame, so a material_mut() alpha edit blends (or
+        # alpha-tests) on the next frame without a rebuild.
+        any_cutoff, blend = (self._material_flags if self.draw_items
+                             else self._material_scan(items))
+        pool = self.bindless.pool()
+        lights = self._device_lights()
+        cfg = self._frame_config(
+            blend, textured=pool is not None,
+            alpha_test=pool is not None and any_cutoff,
+            lights_enabled=lights is not None,
+        )
+        return FrameInputs(cfg, self._scene, uni, pool, lights)
 
     def _external_shadow(self, inputs: FrameInputs) -> tuple:
         """Render (or reuse) the shadow map. The key covers everything the
         shadow pass reads: the shadow-shaping config, the geometry (scene
         epoch), the transforms (fixed per scene epoch on the multi-draw
-        path; the raw matrix on the single-mesh path) and the light
+        path; the raw matrix on the single-mesh path), the materials and
+        the texture pool (the alpha test samples them) and the light
         matrix."""
         mkey = None
         if not self.draw_items:
@@ -417,15 +542,21 @@ class Renderer:
         lkey = np.ascontiguousarray(
             self.shadow_feature.light_space_matrix(), dtype=np.float32
         ).tobytes()
-        # Blending does not shape the shadow pass.
-        cfg = dataclasses.replace(inputs.config, alpha_blend=False)
-        key = (cfg, self._scene_epoch, mkey, lkey)
+        # Blending and lights do not shape the shadow pass. It reads the
+        # materials and the pool only through the alpha test, so only then
+        # do their versions key the map: an untextured material edit keeps
+        # it.
+        cfg = dataclasses.replace(inputs.config, alpha_blend=False,
+                                  lights_enabled=False)
+        sampled = ((self._materials_epoch, self.bindless.version)
+                   if cfg.alpha_test else None)
+        key = (cfg, self._scene_epoch, mkey, lkey, sampled)
         cache = self._shadow_cache
         if cache is not None and cache[0] == key:
             return cache[1], cache[2]
         sm, sof = shadow_program(
             inputs.config, inputs.scene.buffers, inputs.uniforms.models,
-            inputs.uniforms.light_space_matrix,
+            inputs.uniforms.light_space_matrix, inputs.pool,
         )
         self._shadow_cache = (key, sm, sof)
         return sm, sof
@@ -438,7 +569,8 @@ class Renderer:
             if inputs.config.shadow_enabled else None
         )
         outputs = render_frame_program(
-            inputs.config, inputs.scene.buffers, inputs.uniforms, shadow
+            inputs.config, inputs.scene.buffers, inputs.uniforms, shadow,
+            inputs.pool, inputs.lights,
         )
         self._last_image = outputs.image.cpu().numpy()
         self.surface.present(self._last_image)

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's standard frame and glass frame on one NVIDIA GPU.
+"""Drive the PyTorch port's standard, glass, textured and lit frames on one
+NVIDIA GPU.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It needs one CUDA device and `nvcc`; it exits non-zero without a result when
@@ -29,12 +30,24 @@ fails. Phases, one stdout line each:
    transparency passes: the peel runs once per pass per frame and the
    one-layer kernel once, for the shadow map of frame 1. Every frame has
    no binning overflow, finite colour, and equals the same frame rendered
-   with the plain raster; static frames are equal. The golden scenes
-   (cube_pbr, flat_cube, k_layer_stack) reach PSNR >= 40 dB against
-   tests/golden/, and the small bench and small glass scenes on the card
-   against the port's CPU render;
-5. times (CUDA events): static frame, frame with a shadow re-render, the
-   glass frames; then, at each kernel shape of the main path (1080p one
+   with the plain raster; static frames are equal. Then the textured
+   standard frame (four meshes with five 256x256 maps, anisotropy 16, every
+   fourth cube alpha-tested): the peel runs at 2 layers in the shadow pass
+   and the main pass of frame 1 and in the main pass after, the one-layer
+   kernel never; it equals its plain-raster frame, the alpha test takes the
+   second layer at some pixels, the frame differs from the same frame
+   without the cutoff, and a frame with a new light direction re-renders
+   the alpha-tested shadow map. Then the lit standard frame (bench.py's 32
+   point lights): the one-layer kernel runs as on the standard frame, it
+   equals its plain-raster frame, and the lights change it. The golden
+   scenes (cube_pbr, flat_cube, textured, glass_and_lights, k_layer_stack,
+   aniso16) reach PSNR >= 40 dB against tests/golden/, and the small bench,
+   glass, textured and lit scenes on the card against the port's CPU
+   render;
+5. times (CUDA events) and peak device memory: static frame, frame with a
+   shadow re-render, the glass frames, the textured frame (static, with a
+   shadow re-render, and at anisotropy 1 for scale), the lit frame; then,
+   at each kernel shape of the main path (1080p one
    layer, 2048^2 one layer, 1080p K = 2, 4, 8 and K = 4 under a floor): the
    wrapper-loop time (50 calls of raster_cuda.rasterize, host work
    included; the `ms` of the kernels line, as in earlier versions), the
@@ -121,8 +134,8 @@ def pass_inputs(r, cam):
     computes them."""
     from ash_tpu_torch.render import frame
 
-    cfg, scene, uni = r.prepare_frame(cam.view_matrix(),
-                                      cam.projection_matrix(), cam.position)
+    cfg, scene, uni = r.prepare_frame(
+        cam.view_matrix(), cam.projection_matrix(), cam.position)[:3]
     _, setup, bins, _ = frame.main_pass_bins(cfg, scene.buffers, uni)
     setup_s, bins_s = frame.shadow_pass_bins(
         cfg, scene.buffers, frame.shadow_world(scene.buffers, uni.models),
@@ -271,6 +284,66 @@ def synthetic_setup(width, height, seed=11):
     )
 
 
+def frame_ms_mem(step, n):
+    """(frame_ms(step, n), peak device MiB over those frames)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = frame_ms(step, n)
+    return ms, torch.cuda.max_memory_allocated() / 2**20
+
+
+def launches_per_frame(rend, view, proj, pos, frames, step=None):
+    """Render `frames` frames of `rend` (through step(i) if given) -> (one-
+    layer launches per frame, peel launches per frame, outputs)."""
+    from ash_tpu_torch.ops import raster_cuda
+
+    one, peel, outs = [], [], []
+    for i in range(frames):
+        b1 = raster_cuda.rasterize.launches
+        b2 = raster_cuda.rasterize.layer_launches
+        if step is not None:
+            step(i)
+        else:
+            rend.render_frame(view, proj, pos)
+        outs.append(rend.last_outputs())
+        one.append(raster_cuda.rasterize.launches - b1)
+        peel.append(raster_cuda.rasterize.layer_launches - b2)
+    return one, peel, outs
+
+
+def alpha_fallthrough(rend, view, proj, pos):
+    """Pixels of rend's main pass where the alpha test took the second
+    layer, from the plain raster's two layers."""
+    from ash_tpu_torch.ops import raster, shade
+    from ash_tpu_torch.render import frame
+
+    cfg, scene, uni, pool, _ = rend.prepare_frame(view, proj, pos)
+    sb = scene.buffers
+    _, setup, bins, _ = frame.main_pass_bins(cfg, sb, uni)
+    vis = raster.rasterize(setup, bins, cfg.height, cfg.width, cfg.tile_h,
+                           cfg.tile_w, layers=2)
+    res = shade.resolve_alpha_test(vis, setup, sb.tri_v, sb.tri_draw,
+                                   sb.materials, sb.uv, pool,
+                                   vert_uid=sb.vert_uid)
+    return int((res.tri_id != vis.tri_id).sum())
+
+
+def largest_tile_light_count(rend, view, proj, pos):
+    """The largest per-tile light count of rend's last frame."""
+    import torch
+
+    from ash_tpu_torch.ops import light_cull
+
+    cfg, _, uni, _, lights = rend.prepare_frame(view, proj, pos)
+    tl = light_cull.cull_lights(
+        lights, uni.view, torch.linalg.inv(uni.projection),
+        rend.last_outputs().depth, cfg.width, cfg.height,
+        max_per_tile=cfg.max_lights_per_tile, tile=cfg.light_tile_size)
+    return int(tl.counts.max())
+
+
 def compare_layers(got, want, layers):
     """(tri_id mismatches, depth mismatches, max |depth err|, covered per
     layer) over every layer of two visibility buffers."""
@@ -329,7 +402,7 @@ def main() -> int:
     # 3. Kernel against plain at the main path's shapes.
     r, _, cam, _ = build_bench_renderer(1920, 1080, 1000, "cuda")
     view, proj, pos = cam.view_matrix(), cam.projection_matrix(), cam.position
-    cfg, scene, _ = r.prepare_frame(view, proj, pos)
+    cfg, scene, _ = r.prepare_frame(view, proj, pos)[:3]
     passes = pass_inputs(r, cam)
     setup = passes["main"][0]
     band_y0, band_h = 512, 512
@@ -502,6 +575,83 @@ def main() -> int:
         glass[tp] = (rg, peel, one, gout, gequal, opaque_psnr)
         del rg_plain
 
+    # The textured standard frame: the alpha test peels two layers in the
+    # shadow pass and the main pass, so only the peel kernel runs.
+    rt, _, _, _ = build_bench_renderer(1920, 1080, 1000, "cuda", textured=True)
+    raster_cuda.rasterize.launches = 0
+    raster_cuda.rasterize.layer_launches = 0
+    t_one, t_peel, t_outs = launches_per_frame(rt, view, proj, pos, 4)
+    launches["textured"] = raster_cuda.rasterize.launches
+    layer_launches["textured"] = raster_cuda.rasterize.layer_launches
+    timage = rt.read_back().copy()
+    tout = t_outs[0]
+    check(t_peel == [2, 1, 1, 1], f"textured: peel launches per frame {t_peel}")
+    check(t_one == [0, 0, 0, 0], f"textured: one-layer launches {t_one}")
+    check(bool(torch.isfinite(tout.color).all()), "textured: non-finite")
+    check(int(tout.binning_overflow) == 0 and int(tout.shadow_overflow) == 0,
+          "textured: overflow")
+    check(all(o.image.equal(tout.image) for o in t_outs[1:]),
+          "textured: static frames differ")
+    rt_plain, _, _, _ = build_bench_renderer(1920, 1080, 1000, "cuda",
+                                             textured=True)
+    with mock.patch.object(frame, "rasterize", raster.rasterize):
+        rt_plain.render_frame(view, proj, pos)
+    tequal = bool((rt_plain.read_back() == timage).all())
+    check(tequal, "textured: frame with the kernels != plain-raster frame")
+    del rt_plain
+    fell = alpha_fallthrough(rt, view, proj, pos)
+    check(fell > 0, "textured: the alpha test never took the second layer")
+    rt_nocut, _, _, _ = build_bench_renderer(1920, 1080, 1000, "cuda",
+                                             textured=True, cutoff=0.0)
+    rt_nocut.render_frame(view, proj, pos)
+    nocut_psnr = ash_tpu_torch.psnr(timage, rt_nocut.read_back())
+    check(nocut_psnr < 40.0, f"textured: the cutouts do not show "
+          f"({nocut_psnr:.2f} dB against alpha_cutoff=0)")
+    del rt_nocut
+    sun = ([-0.5, -1.0, -0.3], [-0.45, -1.0, -0.35])
+
+    def textured_shadow_frame(i):
+        rt.shadow_feature.set_light_direction(sun[i % 2])
+        rt.render_frame(view, proj, pos)
+
+    # sun[1]: sun[0] is the default light, whose map is cached.
+    ts_one, ts_peel, _ = launches_per_frame(
+        rt, view, proj, pos, 1, lambda i: textured_shadow_frame(i + 1))
+    check(ts_peel == [2] and ts_one == [0],
+          f"textured shadow re-render: peel {ts_peel}, one-layer {ts_one}")
+
+    # The lit standard frame: the Forward+ lights add no raster.
+    rl, _, _, _ = build_bench_renderer(1920, 1080, 1000, "cuda", lights=32)
+    raster_cuda.rasterize.launches = 0
+    raster_cuda.rasterize.layer_launches = 0
+    l_one, l_peel, l_outs = launches_per_frame(rl, view, proj, pos, 6)
+    launches["lit"] = raster_cuda.rasterize.launches
+    layer_launches["lit"] = raster_cuda.rasterize.layer_launches
+    limage = rl.read_back().copy()
+    lout = l_outs[0]
+    check(l_one == [2, 1, 1, 1, 1, 1], f"lit: one-layer launches {l_one}")
+    check(l_peel == [0] * 6, f"lit: peel launches {l_peel}")
+    check(bool(torch.isfinite(lout.color).all()), "lit: non-finite")
+    check(int(lout.binning_overflow) == 0 and int(lout.shadow_overflow) == 0,
+          "lit: overflow")
+    check(all(o.image.equal(lout.image) for o in l_outs[1:]),
+          "lit: static frames differ")
+    rl_plain, _, _, _ = build_bench_renderer(1920, 1080, 1000, "cuda",
+                                             lights=32)
+    with mock.patch.object(frame, "rasterize", raster.rasterize):
+        rl_plain.render_frame(view, proj, pos)
+    lequal = bool((rl_plain.read_back() == limage).all())
+    check(lequal, "lit: frame with the kernel != plain-raster frame")
+    del rl_plain
+    lit_psnr = ash_tpu_torch.psnr(limage, image)
+    lit_changed = float((limage[..., :3] != image[..., :3]).any(-1).mean())
+    lit_most = int(np.abs(limage.astype(int) - image).max())
+    check(lit_changed > 0.01 and lit_most > 20,
+          f"lit: the lights change {lit_changed:.4f} of the pixels, by up "
+          f"to {lit_most} levels")
+    most_lights = largest_tile_light_count(rl, view, proj, pos)
+    check(most_lights > 0, "lit: no tile has a light")
+
     goldens = {}
     for name, scene_fn in golden_scenes.SCENES.items():
         golden = ash_tpu_torch.read_png(
@@ -509,15 +659,14 @@ def main() -> int:
         goldens[name] = ash_tpu_torch.psnr(scene_fn("cuda").read_back(), golden)
         check(goldens[name] >= 40.0, f"{name} PSNR {goldens[name]:.2f} dB < 40")
     small_psnr = {}
-    for small_glass in (False, True):
-        rs, _, scam, _ = build_bench_renderer(192, 128, 64, "cuda",
-                                              glass=small_glass)
-        rc, _, _, _ = build_bench_renderer(192, 128, 64, "cpu",
-                                           glass=small_glass)
+    for name, kw in (("small bench", {}), ("small glass", dict(glass=True)),
+                     ("small textured", dict(textured=True)),
+                     ("small lit", dict(lights=32))):
+        rs, _, scam, _ = build_bench_renderer(192, 128, 64, "cuda", **kw)
+        rc, _, _, _ = build_bench_renderer(192, 128, 64, "cpu", **kw)
         for rr in (rs, rc):
             rr.render_frame(scam.view_matrix(), scam.projection_matrix(),
                             scam.position)
-        name = "small glass" if small_glass else "small bench"
         small_psnr[name] = ash_tpu_torch.psnr(rs.read_back(), rc.read_back())
         check(small_psnr[name] >= 40.0,
               f"{name} card vs CPU {small_psnr[name]:.2f} dB")
@@ -538,19 +687,49 @@ def main() -> int:
               f"{int(gout.covered_pixels)}; equal to the plain-raster frame: "
               f"{gequal}; PSNR against the opaque frame {opaque_psnr:.2f} dB",
               flush=True)
+    print(f"phase4 textured frame: peel launches per frame {t_peel}, "
+          f"one-layer launches per frame {t_one}; shadow re-render frame: "
+          f"peel {ts_peel}, one-layer {ts_one}; overflow main "
+          f"{int(tout.binning_overflow)} shadow {int(tout.shadow_overflow)}; "
+          f"covered {int(tout.covered_pixels)}; equal to the plain-raster "
+          f"frame: {tequal}; pixels where the alpha test took layer 2: "
+          f"{fell}; PSNR against alpha_cutoff=0 {nocut_psnr:.2f} dB",
+          flush=True)
+    print(f"phase4 lit frame: one-layer launches per frame {l_one}, peel "
+          f"{l_peel}; overflow main {int(lout.binning_overflow)} shadow "
+          f"{int(lout.shadow_overflow)}; equal to the plain-raster frame: "
+          f"{lequal}; against the unlit frame: PSNR {lit_psnr:.2f} dB, "
+          f"{100 * lit_changed:.2f}% of pixels changed, by up to {lit_most} "
+          f"levels; largest tile light count {most_lights}", flush=True)
 
     # 5. Times.
-    static_ms = frame_ms(lambda i: r.render_frame(view, proj, pos), 20)
-    lights = ([-0.5, -1.0, -0.3], [-0.45, -1.0, -0.35])
+    mem = {}
+    static_ms, mem["standard"] = frame_ms_mem(
+        lambda i: r.render_frame(view, proj, pos), 20)
 
     def shadow_frame(i):
-        r.shadow_feature.set_light_direction(lights[i % 2])
+        r.shadow_feature.set_light_direction(sun[i % 2])
         r.render_frame(view, proj, pos)
 
-    shadow_frame_ms = frame_ms(shadow_frame, 10)
-    glass_ms = {tp: frame_ms(lambda i, rg=g[0]: rg.render_frame(view, proj, pos),
-                             10)
-                for tp, g in glass.items()}
+    shadow_frame_ms, mem["standard shadow re-render"] = frame_ms_mem(
+        shadow_frame, 10)
+    glass_ms = {}
+    for tp, g in glass.items():
+        glass_ms[tp], mem[f"glass passes={tp}"] = frame_ms_mem(
+            lambda i, rg=g[0]: rg.render_frame(view, proj, pos), 10)
+    rt.render_frame(view, proj, pos)  # the cached shadow map again
+    textured_ms, mem["textured"] = frame_ms_mem(
+        lambda i: rt.render_frame(view, proj, pos), 10)
+    textured_shadow_ms, mem["textured shadow re-render"] = frame_ms_mem(
+        textured_shadow_frame, 10)
+    rt1, _, _, _ = build_bench_renderer(1920, 1080, 1000, "cuda",
+                                        textured=True, max_anisotropy=1)
+    rt1.render_frame(view, proj, pos)
+    textured_aniso1_ms, mem["textured, anisotropy 1"] = frame_ms_mem(
+        lambda i: rt1.render_frame(view, proj, pos), 10)
+    del rt1
+    lit_ms, mem["lit"] = frame_ms_mem(
+        lambda i: rl.render_frame(view, proj, pos), 10)
     # Each kernel shape of the main path: the wrapper loop, the device time
     # of bare launches (and with every list empty), the plain raster (plain,
     # kernel, kernel, plain) and the work from the inputs.
@@ -581,8 +760,12 @@ def main() -> int:
         timed[name, layers, with_floor] = row
     print(f"phase5 times on {card}: static frame {static_ms} ms, frame with "
           f"shadow re-render {shadow_frame_ms} ms (medians of 20 and 10); "
-          f"glass frame passes=1 {glass_ms[1]} ms, passes=2 {glass_ms[2]} ms "
-          f"(medians of 10)", flush=True)
+          f"glass frame passes=1 {glass_ms[1]} ms, passes=2 {glass_ms[2]} ms; "
+          f"textured frame {textured_ms} ms, with shadow re-render "
+          f"{textured_shadow_ms} ms, at anisotropy 1 {textured_aniso1_ms} ms; "
+          f"lit frame {lit_ms} ms (medians of 10)", flush=True)
+    print("phase5 peak device memory (MiB): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in mem.items()), flush=True)
     for (name, layers, with_floor), row in timed.items():
         h, w = passes[name][2:4]
         print(f"phase5 kernel {name} {w}x{h} layers={layers} "

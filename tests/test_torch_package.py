@@ -12,7 +12,6 @@ import torch
 import ash_tpu_torch
 from ash_tpu_torch import RenderCommand, Renderer, RendererConfig
 from ash_tpu_torch.core.mesh import Mesh
-from ash_tpu_torch.core.texture import TextureData
 from ash_tpu_torch.ops import _build, binning, geometry, raster, raster_cuda
 from ash_tpu_torch.render import HeadlessSurface
 
@@ -129,7 +128,6 @@ def test_missing_nvcc_raises(monkeypatch):
 @pytest.mark.parametrize("option,value", [
     ("csm", object()),
     ("render_scale", 0.5),
-    ("texture_budget_bytes", 1 << 20),
     ("max_draws_per_chunk", 100),
     ("msaa_resolve", "edge"),
     ("two_level_binning", True),
@@ -140,22 +138,13 @@ def test_unported_config_raises(option, value):
 
 
 @pytest.mark.parametrize("method", [
-    "add_point_light", "add_spot_light", "initialize_hdr", "set_taa_enabled",
-    "set_msaa_preset", "set_occlusion_culling", "update_transforms",
-    "update_transforms_trs",
+    "initialize_hdr", "set_taa_enabled", "set_msaa_preset",
+    "set_occlusion_culling", "update_transforms", "update_transforms_trs",
 ])
 def test_unported_renderer_method_raises(method):
     r = Renderer(HeadlessSurface(16, 16), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         getattr(r, method)()
-
-
-def test_textured_mesh_raises():
-    mesh = Mesh.create_named_cube("tex")
-    mesh.texture_data = TextureData.checkerboard(size=8, cell=2)
-    r = Renderer(HeadlessSurface(16, 16), device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        r.set_mesh(mesh)
 
 
 def test_lod_chain_raises():

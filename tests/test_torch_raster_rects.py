@@ -359,8 +359,8 @@ def _small_scene_inputs(glass):
     192x128 with 16x32 tiles, where the rectangles cut most candidates."""
     r, _, cam, _ = bench_scene.build_bench_renderer(192, 128, 64, "cuda",
                                                     glass=glass)
-    cfg, scene, uni = r.prepare_frame(cam.view_matrix(),
-                                      cam.projection_matrix(), cam.position)
+    cfg, scene, uni = r.prepare_frame(
+        cam.view_matrix(), cam.projection_matrix(), cam.position)[:3]
     _, setup, _, _ = frame.main_pass_bins(cfg, scene.buffers, uni)
     bins = binning.bin_triangles(setup.bbox, setup.valid, 128, 192, 16, 32,
                                  cfg.max_tris_per_tile)

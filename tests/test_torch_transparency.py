@@ -333,13 +333,6 @@ def test_pixel_alpha_matches_reference():
     assert (a[g["mask"] & (g["draw_id"] == 0)] == 1.0).all()
 
 
-def test_pixel_alpha_with_textures_raises():
-    g = _random_gbuffer(np.random.default_rng(1))
-    gbuf = shade.GBuffer(**{k: torch.from_numpy(v) for k, v in g.items()})
-    with pytest.raises(NotImplementedError, match="A10"):
-        shade.pixel_alpha(gbuf, torch.zeros(6, 18), pool=object())
-
-
 def test_composite_over_matches_reference():
     rng = np.random.default_rng(12)
     front = rng.random((24, 40, 3)).astype(np.float32)
