@@ -1,6 +1,7 @@
 """Deferred shading over the visibility buffer (port of ash_tpu/ops/shade.py:
-PBR with textures, one directional light with PCF16 shadows and Forward+
-point and spot lights, the alpha test, and flat vertex-colour shading).
+PBR with textures, one directional light with PCF16 shadows from a single
+map or cascades, Forward+ point and spot lights, the alpha test, motion
+vectors for TAA, and flat vertex-colour shading).
 
 Attributes are re-interpolated per pixel from the winning triangle id with
 perspective-correct weights, then lit with the reference fragment shader's
@@ -8,12 +9,13 @@ Cook-Torrance model: GGX distribution, Smith-Schlick geometry with
 k = (r+1)^2/8, Fresnel-Schlick, roughness floored at 0.04, the specular cap
 min(spec, 10/max(0.04, F0)), kD = (1-F)(1-metallic), 16-tap PCF on the
 geometric normal, ambient times occlusion, emissive, and optional in-shader
-Reinhard. With a texture pool the five maps (base colour, normal,
-metallic-roughness, occlusion, emissive) are sampled with anisotropic
-filtering, and the normal map goes through the Gram-Schmidt TBN frame.
+Reinhard (off when the HDR post chain follows). With a texture pool the
+five maps (base colour, normal, metallic-roughness, occlusion, emissive)
+are sampled with anisotropic filtering, and the normal map goes through the
+Gram-Schmidt TBN frame.
 `resolve_alpha_test` lets cut-out pixels fall through to the second peel
 layer; `pixel_alpha` and `composite_over` blend the shaded layers of a depth
-peel. CSM, IBL and bf16 shading are ROADMAP A14.
+peel. IBL and bf16 shading are ROADMAP A14.
 """
 
 from __future__ import annotations
@@ -111,6 +113,8 @@ class GBuffer(NamedTuple):
     draw_id: torch.Tensor  # (H, W) int32
     uv_ddx: torch.Tensor  # (H, W, 2) d(uv)/dx, for mip selection
     uv_ddy: torch.Tensor  # (H, W, 2)
+    # (H, W, 2) uv motion since the last frame, for TAA; None without it.
+    velocity: Optional[torch.Tensor] = None
 
 
 def interpolate_gbuffer(
@@ -123,6 +127,9 @@ def interpolate_gbuffer(
     vert_color: torch.Tensor,  # (Vu, 3) unique-pool attribute
     y0: int = 0,  # global framebuffer row of this band
     vert_uid: Optional[torch.Tensor] = None,  # (Ve,) -> unique vertex
+    prev_clip: Optional[torch.Tensor] = None,  # (Ve, 4) last frame's clip pos
+    fb_height: Optional[int] = None,  # the whole framebuffer's size, for
+    fb_width: Optional[int] = None,  # the velocity's uv (bands)
 ) -> GBuffer:
     h, w = tri_id.shape
     mask = tri_id >= 0
@@ -139,6 +146,19 @@ def interpolate_gbuffer(
     # interpolation one pixel right and one pixel down.
     uv_x = _interp(_perspective_weights(edge, px + 1.0, py), uv3)
     uv_y = _interp(_perspective_weights(edge, px, py + 1.0), uv3)
+
+    # Motion vectors: interpolate last frame's clip position of this surface
+    # point, project it, and take the pixel's own uv minus it.
+    velocity = None
+    if prev_clip is not None:
+        pc = _interp(pw, prev_clip[vids])  # (H, W, 4)
+        pc_w = torch.where(pc[..., 3].abs() < 1e-6, 1e-6, pc[..., 3])
+        prev_uv = pc[..., :2] / pc_w[..., None] * 0.5 + 0.5
+        cur_uv = torch.stack([px / (fb_width if fb_width is not None else w),
+                              py / (fb_height if fb_height is not None else h)],
+                             -1)
+        velocity = torch.where((mask & (pc[..., 3] > 0.0))[..., None],
+                               cur_uv - prev_uv, 0.0)
     return GBuffer(
         mask=mask,
         world=_interp(pw, verts.world[vids]),
@@ -150,6 +170,7 @@ def interpolate_gbuffer(
         draw_id=tri_draw[t],
         uv_ddx=uv_x - uv,
         uv_ddy=uv_y - uv,
+        velocity=velocity,
     )
 
 
@@ -367,9 +388,13 @@ def shade_pbr(
     tile_light_counts: Optional[torch.Tensor] = None,  # (ty, tx) int32
     light_tile_size: int = 16,
     max_anisotropy: int = 1,
+    csm: Optional[tuple] = None,  # (matrices (C, 4, 4), splits (4,), view (4, 4))
+    csm_blend_size: float = 0.0,
 ) -> torch.Tensor:
     """Shade the visibility buffer -> (H, W, 3) f32 colour. With
-    reinhard=True the result is the reference main pass's LDR output.
+    reinhard=True the result is the reference main pass's LDR output, with
+    False linear HDR for the post chain. With `csm`, shadow_map is the
+    (C, S, S) cascade array.
 
     With a pool, all five maps' anisotropic tap counts are taken first and
     their largest over the covered pixels sets one trip count for every
@@ -458,7 +483,13 @@ def shade_pbr(
     diffuse = kd * base_color / PI
 
     # The shadow uses the (flipped) geometric normal, not the mapped one.
-    if shadow_map is not None:
+    if shadow_map is not None and csm is not None:
+        matrices, splits, view = csm
+        shadow = shadow_ops.shadow_pcf16_csm(
+            shadow_map, matrices, splits, view, gbuf.world, n, light_dir,
+            blend_size=csm_blend_size,
+        )
+    elif shadow_map is not None:
         pos_light = transform_points(uniforms.light_space_matrix, gbuf.world)
         shadow = shadow_ops.shadow_pcf16(shadow_map, pos_light, n, light_dir)
     else:

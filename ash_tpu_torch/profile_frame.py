@@ -2,17 +2,23 @@
 
     python3 -m ash_tpu_torch.profile_frame [--frames N] [--out DIR]
         [--glass [--transparency-passes P]] [--textured] [--lights N]
-        [--max-anisotropy A]
+        [--max-anisotropy A] [--rich [--render-scale S]]
+        [--max-tris-per-tile K]
 
 Renders the bench scene (render/bench_scene.py: 1000 cubes, 1920x1080,
 2048^2 shadow map), or with --glass the glass standard frame (every fourth
 cube alpha 0.5, a 4-layer depth peel run P times), with --textured the
 textured standard frame (four meshes with five 256x256 maps each, every
-fourth cube alpha-tested, anisotropy A, 16 by default), and with --lights N
-bench.py's N point lights added (Forward+). It traces N static frames and N
-frames that re-render the shadow map with `torch.profiler`. For each kind
-it prints the wall time per frame, the peak device memory, the device's
-busy and idle share of that wall time, device time
+fourth cube alpha-tested, anisotropy A, 16 by default), with --lights N
+bench.py's N point lights added (Forward+), and with --rich bench.py's
+rich frame (HDR post with bloom and ACES, TAA, three 1024^2 shadow
+cascades, 32 lights), rastered and shaded at S times the size with
+--render-scale S (TAA upsampling; a tile then covers more of the scene,
+so raise the main pass's tile cap with --max-tris-per-tile). It traces N
+static frames and N frames that re-render the shadow map with
+`torch.profiler`. For each kind it prints the wall time per frame, the peak
+device memory, the device's busy and idle share of that wall time, the
+kernels and copies the frame launches, device time
 per `pass_*` scope (the kernels its PyTorch ops launched, the span from its
 first to its last kernel on the device, and its host time), and the device
 work that takes the most time. The raster kernel is launched through
@@ -56,7 +62,9 @@ def _report(name, prof, wall_ms, frames):
     busy_ms = sum(e.self_device_time_total for e in work) / 1e3
     print(f"{name}: wall {wall_ms / frames:.3f} ms/frame; device busy "
           f"{busy_ms / frames:.3f} ms/frame ({100 * busy_ms / wall_ms:.1f}% "
-          f"of wall, idle {100 * (1 - busy_ms / wall_ms):.1f}%)")
+          f"of wall, idle {100 * (1 - busy_ms / wall_ms):.1f}%); "
+          f"{sum(e.count for e in work) / frames:g} kernels and copies "
+          f"per frame")
     spans = {e.key: e for e in on_device if e.is_user_annotation}
     for e in sorted((e for e in avgs if e.device_type == DeviceType.CPU
                      and e.key.startswith("pass_")),
@@ -81,6 +89,9 @@ def main(argv=None) -> int:
     ap.add_argument("--textured", action="store_true")
     ap.add_argument("--lights", type=int, default=0)
     ap.add_argument("--max-anisotropy", type=int, default=16)
+    ap.add_argument("--rich", action="store_true")
+    ap.add_argument("--render-scale", type=float, default=1.0)
+    ap.add_argument("--max-tris-per-tile", type=int, default=256)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_frame: needs a CUDA device", file=sys.stderr)
@@ -89,6 +100,8 @@ def main(argv=None) -> int:
         1920, 1080, 1000, "cuda", glass=args.glass,
         transparency_passes=args.transparency_passes, textured=args.textured,
         lights=args.lights, max_anisotropy=args.max_anisotropy,
+        rich=args.rich, render_scale=args.render_scale,
+        max_tris_per_tile=args.max_tris_per_tile,
     )
     view, proj, pos = cam.view_matrix(), cam.projection_matrix(), cam.position
     for _ in range(3):  # build the kernel, the scene and the shadow map
@@ -102,7 +115,10 @@ def main(argv=None) -> int:
         r.shadow_feature.set_light_direction(lights[i % 2])
         r.render_frame(view, proj, pos)
 
-    print(f"device: {torch.cuda.get_device_name(0)}")
+    out = r.last_outputs()
+    print(f"device: {torch.cuda.get_device_name(0)}; overflow main "
+          f"{int(out.binning_overflow)}, shadow {int(out.shadow_overflow)}")
+    del out  # or the peak would count a second frame's outputs
     for name, step in (("static", static), ("shadow_rerender", shadow)):
         torch.cuda.reset_peak_memory_stats()
         prof, wall_ms = _trace(step, args.frames)

@@ -1,6 +1,6 @@
 """The standard frame's scene: 1000 instanced PBR cubes, one directional
-light with a shadow map, frustum culling; and its glass, textured and lit
-variants.
+light with a shadow map, frustum culling; and its glass, textured, lit and
+rich variants.
 
 The same recipe as bench.py:build_bench_renderer (seed 7, the same grid,
 scales, materials, shadow bounds and camera), rebuilt on this package so a
@@ -16,6 +16,10 @@ smoke config (8x32 tiles, 256^2 shadow map).
   Anisotropy stays at the renderer's default of 16.
 - Lit: the standard frame plus bench.py's `--lights N` point lights (seed
   11, positions in [-10, 10)^3, random colours, intensity 2, radius 6).
+- Rich: bench.py's `--rich`, the path a maxed-out application runs: the HDR
+  post chain with bloom and ACES, TAA, a 3-cascade shadow map with a tile
+  cap of 512 in place of the single map, and the 32 point lights. The
+  cascades are 1024^2 (256^2 in the small config).
 
 In every variant the random sequence, and every other material, is the
 standard frame's.
@@ -27,6 +31,7 @@ import numpy as np
 
 from .. import core as port_core
 from ..core import Camera, Material
+from .csm import CsmConfig
 from .renderer import RenderCommand, Renderer, RendererConfig
 from .surface import HeadlessSurface
 
@@ -36,6 +41,7 @@ GLASS_LAYERS = 4
 TEXTURED_MESHES = 4  # draw i uses textured mesh i % TEXTURED_MESHES
 CUTOUT_MESH = 1  # the mesh whose albedo alpha is a 0/255 checker
 CUTOUT_ALPHA = 0.5  # alpha_cutoff of the cutout mesh's draws
+RICH_LIGHTS = 32
 TEXTURE_SIZE = 256
 # (Mesh attribute, sRGB) of the five maps, in bench_texture_maps' order.
 MAPS = (
@@ -157,6 +163,14 @@ def bench_lights(n: int):
     return lights
 
 
+def rich_overrides(height: int) -> dict:
+    """The rich frame's config beyond the standard frame's, less the csm:
+    {"csm": (cascade_count, resolution), ...}. The nearest cascade gathers
+    the scene into fewer texels than the single map does, hence the cap."""
+    return dict(csm=(3, 1024 if height >= 512 else 256),
+                shadow_max_tris_per_tile=512)
+
+
 def bench_config(height: int, glass: bool = False, shadow_resolution=2048,
                  **cfg_overrides) -> dict:
     """RendererConfig keyword arguments of the bench scene (the same names
@@ -187,11 +201,19 @@ def bench_camera(width: int, height: int, extent: float) -> Camera:
 
 def build_bench_renderer(width, height, n_objects, device,
                          shadow_resolution=2048, glass=False, textured=False,
-                         lights=0, cutoff=CUTOUT_ALPHA, **cfg_overrides):
+                         lights=0, cutoff=CUTOUT_ALPHA, rich=False,
+                         **cfg_overrides):
     """-> (renderer, surface, camera, extent) for an n_objects cube grid;
     glass=True draws the glass standard frame, textured=True the textured
-    one (`cutoff` is its cutout draws' alpha_cutoff), and lights=N adds
-    bench.py's N point lights."""
+    one (`cutoff` is its cutout draws' alpha_cutoff), lights=N adds
+    bench.py's N point lights, and rich=True builds the rich frame (HDR
+    post, TAA, cascaded shadow maps, RICH_LIGHTS lights unless given)."""
+    if rich:
+        over = rich_overrides(height)
+        over["csm"] = CsmConfig(cascade_count=over["csm"][0],
+                                resolution=over["csm"][1])
+        cfg_overrides = {**over, **cfg_overrides}
+        lights = lights or RICH_LIGHTS
     surface = HeadlessSurface(width, height)
     cfg = RendererConfig(**bench_config(height, glass, shadow_resolution,
                                         **cfg_overrides))
@@ -207,6 +229,9 @@ def build_bench_renderer(width, height, n_objects, device,
                                       material=i + 1))
     r.submit_render_commands(commands)
     r.shadow_feature.set_scene_bounds([0, 0, 0], extent)
+    if rich:
+        r.initialize_hdr()
+        r.set_taa_enabled(True)
     for pos, color in bench_lights(lights):
         r.add_point_light(pos, color=color, intensity=2.0, radius=6.0)
     return r, surface, bench_camera(width, height, extent), extent

@@ -1,6 +1,8 @@
 """Render features of the port: shadows, lighting, Forward+ light culling
-state and their plugin base."""
+state, the post chain's configs (bloom, tonemapping, post-processing) and
+their plugin base."""
 
+from .bloom import BloomConfig, BloomFeature
 from .feature_trait import FeatureFrameContext, FeatureManager, RenderFeature
 from .light_culling import GpuLight
 from .lighting import (
@@ -10,9 +12,18 @@ from .lighting import (
     PointLight,
     SpotLight,
 )
+from .post_processing import PostProcessingConfig, PostProcessingFeature
 from .shadows import ShadowFeature
+from .tonemapping import TonemapOperator, TonemappingConfig, TonemappingFeature
 
 __all__ = [
+    "BloomConfig",
+    "BloomFeature",
+    "PostProcessingConfig",
+    "PostProcessingFeature",
+    "TonemapOperator",
+    "TonemappingConfig",
+    "TonemappingFeature",
     "FeatureFrameContext",
     "FeatureManager",
     "RenderFeature",

@@ -1,16 +1,22 @@
-"""The frame pipeline (port of ash_tpu/render/frame.py, the plain frame).
+"""The frame pipeline (port of ash_tpu/render/frame.py).
 
 `render_frame_program` is one `render_frame`: vertex stage -> frustum
 culling -> back-cull setup -> binning -> raster -> G-buffer -> Forward+
-light culling -> shading -> sRGB encode and RGBA8 pack. With
+light culling -> shading -> sRGB encode and RGBA8 pack. With the HDR post
+chain (post_enabled) the main pass leaves linear HDR, and `finalize_frame`
+runs TAA (before the tonemap, on motion vectors from the G-buffer), bloom,
+the tonemap with gamma in place of the sRGB encode, and FXAA; with
+render_scale < 1 the raster and the shading run at an internal size and
+the result is upsampled before the TAA blend (TAAU). With
 semi-transparent materials (alpha_blend) the main raster is a K-layer depth
 peel, iterated `transparency_passes` times, and every layer is shaded and
 composited back to front. With alpha-tested materials and a texture pool
 (alpha_test) the raster peels two layers and cut-out pixels fall through to
 the second. The shadow pass is its own function, `shadow_program`
 (front-cull setup -> binning -> depth-only raster, with the alpha test's
-two-layer peel at a 0.1 cutoff), so the renderer can cache the map across
-frames of a static scene. Every raster goes through
+two-layer peel at a 0.1 cutoff; once per cascade with cascaded shadow
+maps), so the renderer can cache the map across frames of a static scene.
+Every raster goes through
 ops/raster_cuda.py:rasterize: a CUDA kernel on the card.
 
 PyTorch runs eagerly, so there is no program cache: the FrameConfig only
@@ -24,10 +30,14 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.profiler import record_function
 
 from ..ops import binning, geometry
+from ..ops.bloom import bloom_pyramid
+from ..ops.fxaa import fxaa
 from ..ops.occlusion import cull_objects
 from ..ops.light_cull import cull_lights
 from ..ops.raster import VisibilityBuffer
@@ -41,7 +51,9 @@ from ..ops.shade import (
     shade_flat,
     shade_pbr,
 )
+from ..ops.taa import TaaParams, taa_resolve
 from ..ops.texture_sample import TexturePool
+from ..ops.tonemap import tonemap_compose
 from .scene import SceneBuffers
 
 
@@ -55,13 +67,20 @@ class FrameUniforms(NamedTuple):
     ambient_color: torch.Tensor  # (3,)
     light_space_matrix: torch.Tensor  # (4, 4)
     models: torch.Tensor  # (D, 4, 4) per-draw model matrices
-    view: torch.Tensor  # (4, 4), for Forward+ light culling
+    view: torch.Tensor  # (4, 4), for Forward+ light culling and CSM
     projection: torch.Tensor  # (4, 4)
+    # CSM (FrameConfig.shadow_cascades > 1): the cascades' light matrices
+    # and far distances (render/csm.py GpuCascadeData).
+    cascade_matrices: Optional[torch.Tensor] = None  # (C, 4, 4)
+    cascade_splits: Optional[torch.Tensor] = None  # (4,)
+    # TAA motion vectors: last frame's unjittered camera and its models.
+    prev_view_proj: Optional[torch.Tensor] = None  # (4, 4)
+    prev_models: Optional[torch.Tensor] = None  # (D, 4, 4)
 
 
 @dataclasses.dataclass(frozen=True)
 class FrameConfig:
-    """Static shape and options of a frame (the main-path subset of the
+    """Static shape and options of a frame (the ported subset of the
     reference FrameConfig)."""
 
     width: int
@@ -76,11 +95,29 @@ class FrameConfig:
     shadow_tile: int = 256
     shadow_tile_h: Optional[int] = None
     shadow_max_tris_per_tile: int = 256
+    # Cascaded shadow maps: 1 = a single map; 2-4 renders one depth map per
+    # cascade and shading selects by view distance (render/csm.py).
+    shadow_cascades: int = 1
+    csm_blend_size: float = 0.0  # > 0 blends neighbouring cascades
     # What an overflowing tile drops: "draw_order" keeps the lowest draw
     # ids, "nearest" keeps the nearest triangles.
     binning_policy: str = "draw_order"
     shading: str = "pbr"  # "pbr" | "flat"
+    reinhard: bool = True  # in-shader tonemap; off under the HDR post chain
     clear_color: tuple = (0.0, 0.0, 0.0)
+    # HDR post chain: the main pass leaves linear HDR, TAA resolves before
+    # the tonemap, and bloom + tonemap + gamma make the LDR image (the gamma
+    # replaces the sRGB encode); FXAA runs on the LDR image.
+    post_enabled: bool = False
+    bloom_enabled: bool = True
+    bloom_mips: int = 5
+    tonemap_operator: str = "aces"
+    taa_enabled: bool = False
+    fxaa_enabled: bool = False
+    # TAA upsampling: raster and shade at render_scale x the presentation
+    # size, upsample bilinearly, and let the jittered TAA history bring the
+    # detail back. In [0.25, 1].
+    render_scale: float = 1.0
     frustum_culling: bool = False
     # Semi-transparent materials: shade every layer of a K-layer depth peel
     # (K = transparency_layers, in [2, 8]) and composite them back to front
@@ -116,24 +153,47 @@ class FrameConfig:
         return min(self.shadow_tile, 32)
 
 
+class PostParams(NamedTuple):
+    """Runtime post-processing knobs, float32 on the host."""
+
+    exposure: np.float32
+    gamma: np.float32
+    bloom_intensity: np.float32
+    bloom_threshold: np.float32
+    bloom_soft_knee: np.float32
+
+    @staticmethod
+    def default() -> "PostParams":
+        return PostParams(
+            exposure=np.float32(1.0),
+            gamma=np.float32(2.2),
+            bloom_intensity=np.float32(0.5),
+            bloom_threshold=np.float32(0.8),
+            bloom_soft_knee=np.float32(0.5),
+        )
+
+
 class FrameOutputs(NamedTuple):
     image: torch.Tensor  # (H, W, 4) uint8
-    color: torch.Tensor  # (H, W, 3) float32
+    color: torch.Tensor  # (H, W, 3) float32 (LDR, or HDR after TAA)
     depth: torch.Tensor  # (H, W) float32
-    shadow_map: Optional[torch.Tensor]  # (S, S) or None
+    shadow_map: Optional[torch.Tensor]  # (S, S), (C, S, S) or None
     covered_pixels: torch.Tensor  # () int32
     binning_overflow: torch.Tensor  # () int32
     visible_draws: Optional[torch.Tensor]  # () int32 after culling
     # Dropped shadow triangles leak light, so they are reported like
     # main-pass drops. None when shadows are disabled.
     shadow_overflow: Optional[torch.Tensor] = None  # () int32
+    history: Optional[torch.Tensor] = None  # (H, W, 3) TAA history out
 
 
 class BandOutputs(NamedTuple):
-    """What the raster + shade stage hands to finalize_frame."""
+    """What the raster + shade stage hands to finalize_frame, at the
+    internal raster size."""
 
-    color: torch.Tensor  # (H, W, 3) linear Reinhard-tonemapped colour
+    color: torch.Tensor  # (H, W, 3) linear colour, Reinhard-mapped or HDR
     depth: torch.Tensor  # (H, W)
+    velocity: Optional[torch.Tensor]  # (H, W, 2) uv motion, with TAA
     shadow_map: Optional[torch.Tensor]
     covered: torch.Tensor  # () int32
     overflow: torch.Tensor  # () int32
@@ -147,6 +207,24 @@ def _srgb_encode(c: torch.Tensor) -> torch.Tensor:
     return torch.where(
         c <= 0.0031308, c * 12.92, 1.055 * torch.pow(c, 1.0 / 2.4) - 0.055
     )
+
+
+def internal_render_size(width: int, height: int, scale: float):
+    """The TAAU internal raster size: even, at least 16 pixels."""
+    if scale == 1.0:
+        return width, height
+    return (
+        max(2 * int(round(width * scale / 2)), 16),
+        max(2 * int(round(height * scale / 2)), 16),
+    )
+
+
+def raster_size(cfg: FrameConfig):
+    """(width, height) of the main pass's raster and shading."""
+    scale = float(cfg.render_scale)
+    if not 0.25 <= scale <= 1.0:
+        raise ValueError(f"render_scale {scale} outside [0.25, 1]")
+    return internal_render_size(cfg.width, cfg.height, scale)
 
 
 def _keep_score(cfg: FrameConfig, setup):
@@ -181,17 +259,19 @@ def shadow_pass_bins(cfg: FrameConfig, scene: SceneBuffers,
 
 def shadow_program(cfg: FrameConfig, scene: SceneBuffers,
                    models: torch.Tensor, light_matrix: torch.Tensor,
-                   pool: Optional[TexturePool] = None):
+                   pool: Optional[TexturePool] = None,
+                   cascade_matrices: Optional[torch.Tensor] = None):
     """The shadow pass: a depth-only raster of the scene from the light.
     With the alpha test it peels two layers and a textured surface whose
     base alpha is below 0.1 casts no shadow. Returns (shadow_map (S, S),
-    shadow_overflow ())."""
+    shadow_overflow ()); with cfg.shadow_cascades > 1 one pass, and one
+    launch of the raster, per cascade matrix: ((C, S, S), the largest
+    overflow)."""
     alpha_shadow = cfg.alpha_test and cfg.textured and pool is not None
-    with record_function("pass_shadow"):
-        setup, bins = shadow_pass_bins(
-            cfg, scene, shadow_world(scene, models), light_matrix
-        )
-        s = cfg.shadow_resolution
+    s = cfg.shadow_resolution
+
+    def depth_only(matrix):
+        setup, bins = shadow_pass_bins(cfg, scene, world, matrix)
         vis = rasterize(setup, bins, s, s, cfg.shadow_rows, cfg.shadow_tile,
                         layers=2 if alpha_shadow else 1)
         if alpha_shadow:
@@ -201,10 +281,20 @@ def shadow_program(cfg: FrameConfig, scene: SceneBuffers,
             )
         return vis.depth, bins.overflow
 
+    with record_function("pass_shadow"):
+        world = shadow_world(scene, models)
+        if cfg.shadow_cascades <= 1:
+            return depth_only(light_matrix)
+        maps, overflows = zip(*(depth_only(cascade_matrices[i])
+                                for i in range(cfg.shadow_cascades)))
+        return torch.stack(maps), torch.stack(overflows).amax()
+
 
 def main_pass_bins(cfg: FrameConfig, scene: SceneBuffers, uni: FrameUniforms):
     """Vertex stage, frustum culling, back-cull setup and binning of the
-    main pass -> (verts, setup, bins, visible_draws or None)."""
+    main pass, at the internal raster size -> (verts, setup, bins,
+    visible_draws or None)."""
+    rw, rh = raster_size(cfg)
     with record_function("pass_vertex"):
         tv = geometry.transform_vertices(
             uni.models, uni.view_proj, scene.position, scene.normal,
@@ -222,12 +312,11 @@ def main_pass_bins(cfg: FrameConfig, scene: SceneBuffers, uni: FrameUniforms):
             visible_draws = cull.visible_count
     with record_function("pass_setup"):
         setup = geometry.triangle_setup(
-            tv.clip, scene.tri_v, tri_valid, cfg.width, cfg.height,
-            cull_mode="back",
+            tv.clip, scene.tri_v, tri_valid, rw, rh, cull_mode="back",
         )
     with record_function("pass_binning"):
         bins = binning.bin_triangles(
-            setup.bbox, setup.valid, cfg.height, cfg.width, cfg.tile_h,
+            setup.bbox, setup.valid, rh, rw, cfg.tile_h,
             cfg.tile_w, cfg.max_tris_per_tile,
             keep_score=_keep_score(cfg, setup),
         )
@@ -262,6 +351,7 @@ def render_band(
     if (shadow is not None) != cfg.shadow_enabled:
         raise ValueError("shadow map given iff cfg.shadow_enabled")
     shadow_map, shadow_overflow = shadow if shadow is not None else (None, None)
+    rw, rh = raster_size(cfg)
     tv, setup, bins, visible_draws = main_pass_bins(cfg, scene, uni)
     blend = cfg.alpha_blend and cfg.shading == "pbr"
     alpha_main = (cfg.alpha_test and cfg.textured and pool is not None
@@ -269,8 +359,8 @@ def render_band(
     with record_function("pass_raster"):
         peel_layers = (cfg.transparency_layers if blend
                        else 2 if alpha_main else 1)
-        vis = rasterize(setup, bins, cfg.height, cfg.width, cfg.tile_h,
-                        cfg.tile_w, layers=peel_layers)
+        vis = rasterize(setup, bins, rh, rw, cfg.tile_h, cfg.tile_w,
+                        layers=peel_layers)
         if blend:
             # Iterated peel: each pass keeps only surfaces strictly behind
             # the previous pass's deepest kept layer, so appending keeps the
@@ -278,8 +368,8 @@ def render_band(
             for _ in range(cfg.transparency_passes - 1):
                 floor, _ = vis.layer(vis.num_layers - 1)
                 vis = _concat_vis_layers(vis, rasterize(
-                    setup, bins, cfg.height, cfg.width, cfg.tile_h,
-                    cfg.tile_w, layers=peel_layers, depth_floor=floor,
+                    setup, bins, rh, rw, cfg.tile_h, cfg.tile_w,
+                    layers=peel_layers, depth_floor=floor,
                 ))
         if alpha_main:
             vis = resolve_alpha_test(
@@ -287,11 +377,21 @@ def render_band(
                 scene.uv, pool, vert_uid=scene.vert_uid,
             )
 
+    # Last frame's clip position of every vertex, for the motion vectors:
+    # the world transform of the vertex stage under last frame's models.
+    prev_clip = None
+    if (cfg.taa_enabled and uni.prev_models is not None
+            and uni.prev_view_proj is not None):
+        with record_function("pass_gbuffer"):
+            prev_clip = geometry.transform_points(
+                uni.prev_view_proj, shadow_world(scene, uni.prev_models))
+
     def gbuffer(tri_id):
         with record_function("pass_gbuffer"):
             return interpolate_gbuffer(
                 tri_id, setup, scene.tri_v, scene.tri_draw, tv, scene.uv,
-                scene.color, vert_uid=scene.vert_uid,
+                scene.color, vert_uid=scene.vert_uid, prev_clip=prev_clip,
+                fb_height=rh, fb_width=rw,
             )
 
     # One host-to-device copy per frame, shared by every shaded layer.
@@ -303,7 +403,7 @@ def render_band(
         with record_function("pass_light_cull"):
             tl = cull_lights(
                 lights, uni.view, torch.linalg.inv_ex(uni.projection).inverse,
-                vis.depth, cfg.width, cfg.height,
+                vis.depth, rw, rh,
                 max_per_tile=cfg.max_lights_per_tile, tile=cfg.light_tile_size,
             )
             # The loop's trip count is the frame's largest tile count: one
@@ -312,6 +412,8 @@ def render_band(
             n_iter = min(int(tl.counts.max()), cfg.shaded_lights_per_tile)
             tile_lights = tl.indices[:, :, :n_iter]
     tex_pool = pool if cfg.textured else None
+    csm = ((uni.cascade_matrices, uni.cascade_splits, uni.view)
+           if cfg.shadow_cascades > 1 else None)
 
     def shade(gbuf):
         with record_function("pass_shade"):
@@ -327,15 +429,17 @@ def render_band(
                     light_space_matrix=uni.light_space_matrix,
                 ),
                 shadow_map=shadow_map, pool=tex_pool, clear_color=clear,
-                reinhard=True,  # in-shader tonemap; the HDR post chain is A13
+                reinhard=cfg.reinhard and not cfg.post_enabled,
                 lights=lights if tile_lights is not None else None,
                 tile_light_indices=tile_lights,
                 light_tile_size=cfg.light_tile_size,
                 max_anisotropy=cfg.max_anisotropy,
+                csm=csm, csm_blend_size=cfg.csm_blend_size,
             )
 
     if not blend:
-        color = shade(gbuffer(vis.tri_id))
+        gbuf = gbuffer(vis.tri_id)
+        color, velocity = shade(gbuf), gbuf.velocity
     else:
         # Shade every peeled layer with the same shadow map, then composite
         # back to front over the clear colour.
@@ -344,22 +448,79 @@ def render_band(
             gbuf = gbuffer(vis.layer(i)[1])
             layers.append((shade(gbuf),
                            pixel_alpha(gbuf, scene.materials, tex_pool)))
+            if i == 0:
+                velocity = gbuf.velocity  # the nearest surface's motion
         with record_function("pass_shade"):
             color = clear.expand_as(layers[0][0])
             for color_l, alpha_l in reversed(layers):
                 color = composite_over(color_l, alpha_l, color)
     return BandOutputs(
-        color=color, depth=vis.depth, shadow_map=shadow_map,
+        color=color, depth=vis.depth, velocity=velocity, shadow_map=shadow_map,
         covered=(vis.tri_id >= 0).sum(dtype=torch.int32),
         overflow=bins.overflow, shadow_overflow=shadow_overflow,
         visible_draws=visible_draws,
     )
 
 
-def finalize_frame(cfg: FrameConfig, bo: BandOutputs) -> FrameOutputs:
-    """sRGB encode and RGBA8 pack. The reference presents through an sRGB
-    swapchain: shaders write linear colour and the u8 image is encoded."""
-    encoded = _srgb_encode(bo.color)
+def _resize(img: torch.Tensor, height: int, width: int, mode: str):
+    """Upsample an (H, W) or (H, W, C) image to (height, width). "bilinear"
+    samples at half-pixel centres with the border clamped; "nearest-exact"
+    takes the texel under each target centre."""
+    x = img[..., None] if img.dim() == 2 else img
+    kw = dict(align_corners=False) if mode == "bilinear" else {}
+    y = F.interpolate(x.permute(2, 0, 1)[None], size=(height, width),
+                      mode=mode, **kw)[0].permute(1, 2, 0)
+    return y[..., 0] if img.dim() == 2 else y.contiguous()
+
+
+def finalize_frame(
+    cfg: FrameConfig,
+    bo: BandOutputs,
+    post: Optional[PostParams] = None,
+    taa_params: Optional[TaaParams] = None,
+    history: Optional[torch.Tensor] = None,  # (H, W, 3) last resolved frame
+) -> FrameOutputs:
+    """The post chain (TAAU upsample -> TAA -> bloom -> tonemap -> FXAA) and
+    the RGBA8 pack. Without the post chain the colour is sRGB-encoded: the
+    reference presents through an sRGB swapchain, shaders write linear
+    colour and the u8 image is encoded."""
+    color, velocity, depth = bo.color, bo.velocity, bo.depth
+    if cfg.render_scale != 1.0 and color.shape[0] != cfg.height:
+        # Upsample before the TAA blend: the jittered projection makes
+        # successive internal frames sample other sub-pixel positions, so
+        # the full-size history gathers real detail.
+        with record_function("pass_taau"):
+            color = _resize(color, cfg.height, cfg.width, "bilinear")
+            if velocity is not None:
+                velocity = _resize(velocity, cfg.height, cfg.width, "bilinear")
+            depth = _resize(depth, cfg.height, cfg.width, "nearest-exact")
+    new_history = None
+    if cfg.post_enabled:
+        if cfg.taa_enabled and taa_params is not None and history is not None:
+            with record_function("pass_taa"):
+                color = taa_resolve(color, history, taa_params,
+                                    velocity=velocity)
+                new_history = color
+        p = post if post is not None else PostParams.default()
+        bloom = None
+        if cfg.bloom_enabled:
+            with record_function("pass_bloom"):
+                bloom = bloom_pyramid(
+                    color, threshold=float(p.bloom_threshold),
+                    soft_knee=float(p.bloom_soft_knee),
+                    mip_count=cfg.bloom_mips,
+                )
+        with record_function("pass_tonemap"):
+            color = tonemap_compose(
+                color, bloom, p.exposure, p.gamma, p.bloom_intensity,
+                operator=cfg.tonemap_operator,
+            )
+        encoded = color  # the tonemap pass applied the gamma
+    else:
+        encoded = _srgb_encode(color)
+    if cfg.fxaa_enabled:
+        with record_function("pass_fxaa"):
+            encoded = fxaa(encoded)
     with record_function("pass_pack"):
         rgb = (encoded * 255.0 + 0.5).clamp(0.0, 255.0).to(torch.uint8)
         alpha = torch.full(
@@ -367,9 +528,10 @@ def finalize_frame(cfg: FrameConfig, bo: BandOutputs) -> FrameOutputs:
         )
         image = torch.cat([rgb, alpha], dim=-1)
     return FrameOutputs(
-        image=image, color=bo.color, depth=bo.depth, shadow_map=bo.shadow_map,
+        image=image, color=color, depth=depth, shadow_map=bo.shadow_map,
         covered_pixels=bo.covered, binning_overflow=bo.overflow,
         visible_draws=bo.visible_draws, shadow_overflow=bo.shadow_overflow,
+        history=new_history,
     )
 
 
@@ -380,7 +542,12 @@ def render_frame_program(
     shadow: Optional[tuple] = None,
     pool: Optional[TexturePool] = None,
     lights: Optional[torch.Tensor] = None,
+    post: Optional[PostParams] = None,
+    taa_params: Optional[TaaParams] = None,
+    history: Optional[torch.Tensor] = None,
 ) -> FrameOutputs:
     """One frame: render_band + finalize_frame."""
-    return finalize_frame(cfg, render_band(cfg, scene, uni, shadow, pool,
-                                           lights))
+    return finalize_frame(
+        cfg, render_band(cfg, scene, uni, shadow, pool, lights),
+        post, taa_params, history,
+    )

@@ -1,10 +1,10 @@
 """The golden scenes of the ported paths, built on this package.
 
-The same recipes as tests/golden_scenes.py's `cube_pbr`, `flat_cube`,
-`textured`, `glass_and_lights`, `k_layer_stack` and `aniso16` (192x128,
-8x64 tiles), whose committed PNGs in tests/golden/ the reference is held to
-at PSNR >= 40 dB; the port is held to the same images. Only `full_frame`
-(the post chain, ROADMAP A13) is missing.
+The same recipes as tests/golden_scenes.py's seven scenes (`cube_pbr`,
+`flat_cube`, `full_frame`, `textured`, `glass_and_lights`, `k_layer_stack`
+and `aniso16`; 192x128, 8x64 tiles), whose committed PNGs in tests/golden/
+the reference is held to at PSNR >= 40 dB; the port is held to the same
+images.
 """
 
 from __future__ import annotations
@@ -48,6 +48,45 @@ def scene_flat_cube(device) -> HeadlessSurface:
     r.set_mesh(Mesh.create_cube())
     cam = Camera.new([2.5, 1.8, 4.0], [0, 0, 0], SIZE[0] / SIZE[1])
     r.render_frame(cam.view_matrix(), cam.projection_matrix(), cam.position)
+    return surface
+
+
+def scene_full_frame(device) -> HeadlessSurface:
+    """The full frame: an instanced grid with an emissive cube, a point
+    light, bloom, ACES and TAA over three frames."""
+    surface = HeadlessSurface(*SIZE)
+    r = Renderer(
+        surface,
+        RendererConfig(tile_h=8, tile_w=64, max_tris_per_tile=64,
+                       shadow_resolution=256, shadow_tile=64,
+                       shadow_max_tris_per_tile=64),
+        device=device,
+    )
+    r.register_mesh_handle(0, Mesh.create_cube())
+    rng = np.random.default_rng(5)
+    commands = []
+    for i in range(27):
+        z, rem = divmod(i, 9)
+        y, x = divmod(rem, 3)
+        m = np.eye(4, dtype=np.float32)
+        m[:3, :3] *= 0.5
+        m[:3, 3] = (np.array([x, y, z], np.float32) - 1.0) * 2.5
+        mat = Material(
+            color=(*(0.3 + 0.7 * rng.random(3)), 1.0),
+            metallic=float(rng.random()),
+            roughness=float(0.2 + 0.8 * rng.random()),
+            emissive=(3.0, 1.5, 0.3, 1.0) if i == 13 else (0, 0, 0, 1),
+        )
+        r.register_material_handle(i + 1, mat)
+        commands.append(RenderCommand(mesh=0, transform=m, material=i + 1))
+    r.submit_render_commands(commands)
+    r.shadow_feature.set_scene_bounds([0, 0, 0], 8.0)
+    r.add_point_light([0, 4, 4], color=(1, 0.9, 0.7), intensity=6, radius=16)
+    r.initialize_hdr()
+    r.set_taa_enabled(True)
+    cam = Camera.new([6.0, 4.5, 7.0], [0, 0, 0], SIZE[0] / SIZE[1])
+    for _ in range(3):
+        r.render_frame(cam.view_matrix(), cam.projection_matrix(), cam.position)
     return surface
 
 
@@ -155,6 +194,7 @@ def scene_aniso16(device) -> HeadlessSurface:
 SCENES = {
     "cube_pbr": scene_cube_pbr,
     "flat_cube": scene_flat_cube,
+    "full_frame": scene_full_frame,
     "textured": scene_textured,
     "glass_and_lights": scene_glass_and_lights,
     "k_layer_stack": scene_k_layer_stack,

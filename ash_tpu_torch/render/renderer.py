@@ -4,12 +4,16 @@ main path).
 The public surface matches the reference: `set_mesh`, `set_material`,
 `material_mut`, `register_mesh_handle`, `register_material_handle`,
 `submit_render_commands`, `add_point_light`, `add_spot_light`,
-`request_texture_residency`, `render_frame(view, proj, camera_pos)` and
-`read_back`. State is host registries, the bindless texture manager (a
-mesh's maps get pool indices when it is registered), the packed scene on
-the device (rebuilt when the scene changes), the shadow and lighting
-features, and a cached shadow map: a static scene under a static light
-renders its shadow map once.
+`request_texture_residency`, the post-processing setters (`initialize_hdr`,
+`set_taa_enabled`, `set_render_scale`, tonemapping, bloom, FXAA),
+`render_frame(view, proj, camera_pos)` and `read_back`. State is host
+registries, the bindless texture manager (a mesh's maps get pool indices
+when it is registered), the packed scene on the device (rebuilt when the
+scene changes), the shadow and lighting features, the cascaded shadow map
+fit (`RendererConfig.csm`), a cached shadow map (a static scene under a
+static light renders its map, or its cascades, once), and the TAA state:
+the jitter sequence, last frame's unjittered matrices and the history
+image, which stays on the device between frames.
 
 Every reference option and feature that this port does not run yet raises
 NotImplementedError naming its ROADMAP.md item; none is silently ignored.
@@ -29,8 +33,10 @@ from ..core.transform import Transform
 from ..core.uniform import MaterialUniform
 from ..device import resolve_device
 from ..errors import InvalidOperation
+from ..ops.taa import TaaParams
 from ..ops.texture_sample import TexturePool
 from .bindless import BindlessTextureManager
+from .csm import CascadedShadowMap, CsmConfig
 from .features import (
     FeatureFrameContext,
     FeatureManager,
@@ -44,11 +50,14 @@ from .frame import (
     FrameConfig,
     FrameOutputs,
     FrameUniforms,
+    PostParams,
+    internal_render_size,
     render_frame_program,
     shadow_program,
 )
 from .scene import BuiltScene, DrawItem, build_models, build_scene
 from .surface import SurfaceProvider
+from .temporal_aa import TaaConfig, TemporalAA
 
 # The reference's hardcoded frame lighting (renderer.rs:1647-1649).
 FRAME_LIGHT_DIR = np.array([-0.35, -1.0, -0.25], np.float32)
@@ -66,8 +75,6 @@ def _unported(what: str, item: str):
 
 # Reference options the port does not run yet: (default, ROADMAP item).
 _UNPORTED_OPTIONS = {
-    "csm": (None, "A14, CSM"),
-    "render_scale": (1.0, "A13, TAAU"),
     "max_draws_per_chunk": (None, "A16, chunked geometry"),
     "msaa_resolve": ("ssaa", "A15, MSAA"),
 }
@@ -95,7 +102,11 @@ class RendererConfig:
     shading: str = "pbr"  # "pbr" | "flat"
     clear_color: tuple = (0.0, 0.0, 0.0)
     frustum_culling: bool = True
-    csm: Optional[object] = None
+    # Cascaded shadow maps: the cascades' count, resolution and blending
+    # (render/csm.py); they replace shadow_resolution's single map while
+    # shadows_enabled. shadow_distance is the farthest cascade's reach.
+    csm: Optional[CsmConfig] = None
+    shadow_distance: float = 50.0
     # Peel layers per transparency pass, in [2, 8] (checked at render), and
     # passes of iterated peeling; they act only on scenes with a
     # semi-transparent material (base colour alpha < 1).
@@ -104,6 +115,9 @@ class RendererConfig:
     # Anisotropic filtering taps of textured draws (the reference sampler's
     # 16x; 1 = trilinear only).
     max_anisotropy: int = 16
+    # TAA upsampling: the internal raster size as a fraction of the
+    # surface's, in [0.25, 1]; it acts only while the HDR post chain and
+    # TAA are on (see Renderer.set_render_scale).
     render_scale: float = 1.0
     # A byte budget for the texture pool: mip residency is then fitted to
     # it (render/bindless.py); None keeps every mip resident.
@@ -140,6 +154,8 @@ class FrameInputs(NamedTuple):
     uniforms: FrameUniforms
     pool: Optional[TexturePool]  # the bindless pool, None without textures
     lights: Optional[torch.Tensor]  # (L_pad, 16) packed lights, or None
+    post: Optional[PostParams] = None  # the post chain's runtime knobs
+    taa_params: Optional[TaaParams] = None  # None while TAA is off
 
 
 class Renderer:
@@ -178,6 +194,27 @@ class Renderer:
         self.lighting_feature = LightingFeature()
         self.feature_manager.add(self.shadow_feature, self)
         self.feature_manager.add(self.lighting_feature, self)
+        self.csm_manager = (CascadedShadowMap(self.config.csm)
+                            if self.config.csm is not None else None)
+
+        # Post-processing state.
+        self.hdr_enabled = False
+        self.bloom_enabled_flag = True
+        self.tonemapping_enabled = True
+        self.tonemapping_operator = "aces"
+        self.tonemapping_exposure = 1.0
+        self.tonemapping_gamma = 2.2
+        self.bloom_intensity = 0.5
+        self.bloom_threshold = 0.8
+        self.fxaa_enabled = False
+        self.temporal_aa = TemporalAA(TaaConfig(enabled=False))
+        self._taa_history: Optional[torch.Tensor] = None  # (H, W, 3), device
+        self._render_scale = float(self.config.render_scale)
+        # Motion-vector state: last frame's unjittered view-projection
+        # (host) and model matrices (device).
+        self._prev_view_proj: Optional[np.ndarray] = None
+        self._prev_models: Optional[torch.Tensor] = None
+        self._unjittered_view_proj: Optional[np.ndarray] = None  # this frame's
         # (lighting_feature.version, packed lights on the device or None).
         self._lights_cache: Optional[tuple] = None
 
@@ -337,19 +374,70 @@ class Renderer:
         the restream rewrites the pool's values, not its shapes."""
         self.bindless.request_residency(index, min_level)
 
+    # ------------------------------------------------------------------
+    # Post-processing
+    # ------------------------------------------------------------------
+
+    def initialize_hdr(self) -> None:
+        """Switch on the HDR post chain: the frame goes through TAA (when
+        enabled), bloom and the tonemap."""
+        self.hdr_enabled = True
+
+    def set_tonemapping_enabled(self, enabled: bool) -> None:
+        self.tonemapping_enabled = bool(enabled)
+
+    def set_tonemapping_operator(self, operator: str) -> None:
+        self.tonemapping_operator = operator
+
+    def set_tonemapping_exposure(self, exposure: float) -> None:
+        self.tonemapping_exposure = max(float(exposure), 0.0)
+
+    def set_tonemapping_gamma(self, gamma: float) -> None:
+        self.tonemapping_gamma = max(float(gamma), 0.1)
+
+    def set_bloom_enabled(self, enabled: bool) -> None:
+        self.bloom_enabled_flag = bool(enabled)
+
+    def set_bloom_intensity(self, intensity: float) -> None:
+        self.bloom_intensity = float(np.clip(intensity, 0.0, 2.0))
+
+    def set_bloom_threshold(self, threshold: float) -> None:
+        self.bloom_threshold = float(threshold)
+
+    def set_fxaa_enabled(self, enabled: bool) -> None:
+        self.fxaa_enabled = bool(enabled)
+
+    def set_taa_enabled(self, enabled: bool) -> None:
+        self.temporal_aa.config.enabled = bool(enabled)
+        if not enabled:
+            self._taa_history = None
+
+    def reset_taa_history(self) -> None:
+        self.temporal_aa.reset_history()
+        self._taa_history = None
+
+    def set_render_scale(self, scale: float) -> None:
+        """TAA upsampling: raster at `scale` x the surface's size and gather
+        the detail back through the jittered TAA history. It acts only
+        while the HDR post chain and TAA are on. 1.0 = native."""
+        if not 0.25 <= scale <= 1.0:
+            raise ValueError(f"render_scale {scale} outside [0.25, 1]")
+        self._render_scale = float(scale)
+        self._taa_history = None  # its detail is the old scale's
+
+    def _taa_active(self) -> bool:
+        return self.hdr_enabled and self.temporal_aa.is_enabled()
+
     # Reference features on later slices.
-
-    def initialize_hdr(self, *args, **kwargs):
-        _unported("initialize_hdr", "A13, post chain")
-
-    def set_taa_enabled(self, *args, **kwargs):
-        _unported("set_taa_enabled", "A13, post chain")
 
     def set_msaa_preset(self, *args, **kwargs):
         _unported("set_msaa_preset", "A15, MSAA")
 
     def set_occlusion_culling(self, *args, **kwargs):
         _unported("set_occlusion_culling", "A14, Hi-Z occlusion")
+
+    def set_environment_map(self, *args, **kwargs):
+        _unported("set_environment_map", "A14, IBL")
 
     def update_transforms(self, *args, **kwargs):
         _unported("update_transforms", "A16, dynamic scenes")
@@ -380,6 +468,14 @@ class Renderer:
     def _frame_config(self, alpha_blend: bool, textured: bool,
                       alpha_test: bool, lights_enabled: bool) -> FrameConfig:
         c = self.config
+        cascades, shadow_res, csm_blend = 1, c.shadow_resolution, 0.0
+        if c.csm is not None and c.shadows_enabled:
+            # With shadows off, csm behaves exactly like no csm: the frame
+            # gets the cascade uniforms under the same condition.
+            cascades = c.csm.cascade_count
+            shadow_res = c.csm.resolution
+            if c.csm.blend_cascades:
+                csm_blend = c.csm.blend_size
         return FrameConfig(
             width=self._width,
             height=self._height,
@@ -387,7 +483,9 @@ class Renderer:
             tile_w=c.tile_w,
             max_tris_per_tile=c.max_tris_per_tile,
             shadow_enabled=c.shadows_enabled,
-            shadow_resolution=c.shadow_resolution,
+            shadow_cascades=cascades,
+            csm_blend_size=csm_blend,
+            shadow_resolution=shadow_res,
             shadow_tile=c.shadow_tile,
             shadow_tile_h=c.shadow_tile_h,
             shadow_max_tris_per_tile=c.shadow_max_tris_per_tile,
@@ -402,6 +500,13 @@ class Renderer:
             max_anisotropy=c.max_anisotropy,
             alpha_test=alpha_test,
             lights_enabled=lights_enabled,
+            render_scale=self._render_scale if self._taa_active() else 1.0,
+            post_enabled=self.hdr_enabled,
+            bloom_enabled=self.bloom_enabled_flag,
+            tonemap_operator=(self.tonemapping_operator
+                              if self.tonemapping_enabled else "none"),
+            taa_enabled=self.temporal_aa.is_enabled(),
+            fxaa_enabled=self.fxaa_enabled,
         )
 
     @staticmethod
@@ -463,8 +568,13 @@ class Renderer:
 
     def prepare_frame(self, view, proj, camera_pos) -> FrameInputs:
         """Bring the device scene up to date and upload the frame's
-        uniforms; everything render_frame's device work reads."""
-        self._width, self._height = self.surface.physical_size()
+        uniforms; everything render_frame's device work reads. With TAA on,
+        each call takes the next jitter of the sequence."""
+        size = self.surface.physical_size()
+        if size != (self._width, self._height):
+            # State shaped like the old surface goes with it.
+            self._width, self._height = size
+            self.reset_taa_history()
         items = self._current_draw_items()
         if not items:
             raise InvalidOperation(
@@ -494,27 +604,70 @@ class Renderer:
 
         view = np.asarray(view, np.float32)
         proj = np.asarray(proj, np.float32)
+        proj_unjittered = proj
+        self._unjittered_view_proj = (proj @ view).astype(np.float32)
+
+        # TAA: advance the jitter and perturb the projection.
+        taa_params = None
+        if self._taa_active():
+            self.temporal_aa.begin_frame()
+            # The jitter is in internal pixels, so TAAU covers the
+            # upscaled grid's sub-pixel positions evenly; the resolve works
+            # in presentation pixels, hence j_scale.
+            jw, jh = internal_render_size(self._width, self._height,
+                                          self._render_scale)
+            proj = self.temporal_aa.jitter_projection(proj, jw, jh)
+            p = self.temporal_aa.params()
+            j_scale = np.array([self._width / jw, self._height / jh],
+                               np.float32)
+            # Without a history the frame passes through unblended.
+            first = self._taa_history is None
+            taa_params = TaaParams(
+                blend_factor=0.0 if first else float(p["blend_factor"]),
+                color_clamp=float(p["color_clamp"]),
+                velocity_rejection=float(p["velocity_rejection"]),
+                jitter=p["jitter"] * j_scale,
+                prev_jitter=p["prev_jitter"] * j_scale,
+            )
+
         light_dir = FRAME_LIGHT_DIR / np.linalg.norm(FRAME_LIGHT_DIR)
+        parts = {
+            "view_proj": proj @ view,
+            "camera_pos": np.asarray(camera_pos, np.float32).reshape(3),
+            "light_direction": light_dir,
+            "light_color": FRAME_LIGHT_COLOR,
+            "ambient_color": FRAME_AMBIENT,
+            "light_space_matrix": self.shadow_feature.light_space_matrix(),
+            "view": view,
+            "projection": proj,
+        }
+        if self.csm_manager is not None and self.config.shadows_enabled:
+            # Fitted from the unjittered projection: the cascades must not
+            # wobble with the TAA jitter, and a static camera then hits the
+            # fit's value cache and the shadow cache.
+            self.csm_manager.update(
+                view, proj_unjittered, self.shadow_feature.light_direction,
+                self.config.shadow_distance,
+            )
+            gpu = self.csm_manager.gpu_data()
+            count = self.csm_manager.config.cascade_count
+            parts["cascade_matrices"] = gpu.light_matrices[:count]
+            parts["cascade_splits"] = gpu.split_distances
+        prev_models = None
+        if taa_params is not None:
+            # On the first TAA frame the current matrices stand in for the
+            # previous ones: zero velocity, right for a fresh history. So
+            # do the current models after a change of the draw count.
+            parts["prev_view_proj"] = (
+                self._prev_view_proj if self._prev_view_proj is not None
+                else self._unjittered_view_proj)
+            prev_models = (
+                self._prev_models if self._prev_models is not None
+                and self._prev_models.shape == self._models.shape
+                else self._models)
         # One host->device copy for all per-frame constants.
-        host = np.concatenate([
-            (proj @ view).astype(np.float32).ravel(),
-            np.asarray(camera_pos, np.float32).reshape(3),
-            light_dir, FRAME_LIGHT_COLOR, FRAME_AMBIENT,
-            np.asarray(self.shadow_feature.light_space_matrix(), np.float32).ravel(),
-            view.ravel(), proj.ravel(),
-        ]).astype(np.float32)
-        consts = torch.from_numpy(host).to(self.device)
-        uni = FrameUniforms(
-            view_proj=consts[0:16].view(4, 4),
-            camera_pos=consts[16:19],
-            light_direction=consts[19:22],
-            light_color=consts[22:25],
-            ambient_color=consts[25:28],
-            light_space_matrix=consts[28:44].view(4, 4),
-            models=self._models,
-            view=consts[44:60].view(4, 4),
-            projection=consts[60:76].view(4, 4),
-        )
+        uni = FrameUniforms(models=self._models, prev_models=prev_models,
+                            **self._upload(parts))
         # The multi-draw scan is cached per scene build; the single mesh is
         # rescanned every frame, so a material_mut() alpha edit blends (or
         # alpha-tests) on the next frame without a rebuild.
@@ -527,7 +680,28 @@ class Renderer:
             alpha_test=pool is not None and any_cutoff,
             lights_enabled=lights is not None,
         )
-        return FrameInputs(cfg, self._scene, uni, pool, lights)
+        post = PostParams(
+            exposure=np.float32(self.tonemapping_exposure),
+            gamma=np.float32(self.tonemapping_gamma),
+            bloom_intensity=np.float32(self.bloom_intensity),
+            bloom_threshold=np.float32(self.bloom_threshold),
+            bloom_soft_knee=np.float32(0.5),
+        )
+        return FrameInputs(cfg, self._scene, uni, pool, lights, post,
+                           taa_params)
+
+    def _upload(self, parts: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """`parts` in one host-to-device copy -> views of it with each
+        part's shape."""
+        arrays = {k: np.asarray(v, np.float32) for k, v in parts.items()}
+        consts = torch.from_numpy(
+            np.concatenate([a.ravel() for a in arrays.values()])
+        ).to(self.device)
+        out, start = {}, 0
+        for name, a in arrays.items():
+            out[name] = consts[start:start + a.size].view(a.shape)
+            start += a.size
+        return out
 
     def _external_shadow(self, inputs: FrameInputs) -> tuple:
         """Render (or reuse) the shadow map. The key covers everything the
@@ -535,28 +709,36 @@ class Renderer:
         epoch), the transforms (fixed per scene epoch on the multi-draw
         path; the raw matrix on the single-mesh path), the materials and
         the texture pool (the alpha test samples them) and the light
-        matrix."""
+        matrix, or with CSM the cascade matrices. Those are fitted to the
+        unjittered camera, so the TAA jitter alone keeps the map."""
         mkey = None
         if not self.draw_items:
             mkey = np.ascontiguousarray(self.transform.model_matrix()).tobytes()
-        lkey = np.ascontiguousarray(
-            self.shadow_feature.light_space_matrix(), dtype=np.float32
-        ).tobytes()
-        # Blending and lights do not shape the shadow pass. It reads the
+        cfg = inputs.config
+        if cfg.shadow_cascades > 1:
+            count = self.csm_manager.config.cascade_count
+            lkey = self.csm_manager.gpu_data().light_matrices[:count].tobytes()
+        else:
+            lkey = np.ascontiguousarray(
+                self.shadow_feature.light_space_matrix(), dtype=np.float32
+            ).tobytes()
+        # The fields of the config that shape the shadow pass. It reads the
         # materials and the pool only through the alpha test, so only then
         # do their versions key the map: an untextured material edit keeps
         # it.
-        cfg = dataclasses.replace(inputs.config, alpha_blend=False,
-                                  lights_enabled=False)
+        shape = (cfg.shadow_resolution, cfg.shadow_cascades, cfg.shadow_tile,
+                 cfg.shadow_rows, cfg.shadow_max_tris_per_tile,
+                 cfg.binning_policy, cfg.textured, cfg.alpha_test)
         sampled = ((self._materials_epoch, self.bindless.version)
                    if cfg.alpha_test else None)
-        key = (cfg, self._scene_epoch, mkey, lkey, sampled)
+        key = (shape, self._scene_epoch, mkey, lkey, sampled)
         cache = self._shadow_cache
         if cache is not None and cache[0] == key:
             return cache[1], cache[2]
         sm, sof = shadow_program(
-            inputs.config, inputs.scene.buffers, inputs.uniforms.models,
+            cfg, inputs.scene.buffers, inputs.uniforms.models,
             inputs.uniforms.light_space_matrix, inputs.pool,
+            inputs.uniforms.cascade_matrices,
         )
         self._shadow_cache = (key, sm, sof)
         return sm, sof
@@ -568,10 +750,22 @@ class Renderer:
             self._external_shadow(inputs)
             if inputs.config.shadow_enabled else None
         )
+        history = None
+        if inputs.taa_params is not None:
+            history = self._taa_history
+            if history is None:  # the first TAA frame blends with weight 0
+                history = torch.zeros(
+                    (self._height, self._width, 3), dtype=torch.float32,
+                    device=self.device)
         outputs = render_frame_program(
             inputs.config, inputs.scene.buffers, inputs.uniforms, shadow,
-            inputs.pool, inputs.lights,
+            inputs.pool, inputs.lights, inputs.post, inputs.taa_params,
+            history,
         )
+        if outputs.history is not None:
+            self._taa_history = outputs.history
+        self._prev_view_proj = self._unjittered_view_proj
+        self._prev_models = inputs.uniforms.models
         self._last_image = outputs.image.cpu().numpy()
         self.surface.present(self._last_image)
         self._last_outputs = outputs

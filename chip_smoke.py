@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's standard, glass, textured and lit frames on one
-NVIDIA GPU.
+"""Drive the PyTorch port's standard, glass, textured, lit and rich frames
+on one NVIDIA GPU.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It needs one CUDA device and `nvcc`; it exits non-zero without a result when
@@ -16,7 +16,8 @@ fails. Phases, one stdout line each:
    the same CUDA tensors at the main path's shapes; tri_id and depth of
    every layer must be equal bit for bit. One layer: the 1080p main pass
    (64x128 tiles), the 2048^2 shadow pass (32x128 tiles), K=256, and a
-   y0 band. The peel: the 1080p main pass at 2, 4 and 8 layers, 4 layers
+   y0 band, and the rich frame's three cascade shadow passes (1024^2, 32x128
+   tiles, K=512). The peel: the 1080p main pass at 2, 4 and 8 layers, 4 layers
    under a floor taken from the first pass's deepest layer, 4 layers in a
    y0 band, and the 2048^2 shadow shapes at 2 layers. Then the small bench
    and small glass scenes at 192x128 with 16x32 tiles (one layer, 4
@@ -39,16 +40,28 @@ fails. Phases, one stdout line each:
    without the cutoff, and a frame with a new light direction re-renders
    the alpha-tested shadow map. Then the lit standard frame (bench.py's 32
    point lights): the one-layer kernel runs as on the standard frame, it
-   equals its plain-raster frame, and the lights change it. The golden
-   scenes (cube_pbr, flat_cube, textured, glass_and_lights, k_layer_stack,
-   aniso16) reach PSNR >= 40 dB against tests/golden/, and the small bench,
-   glass, textured and lit scenes on the card against the port's CPU
-   render;
+   equals its plain-raster frame, and the lights change it. Then the rich
+   standard frame (bench.py's --rich: the HDR post chain with bloom and
+   ACES, TAA, three 1024^2 shadow cascades with a tile cap of 512, the 32
+   lights) for 8 frames: the one-layer kernel runs four times on frame 1
+   (three cascades and the main pass) and once per frame after, the peel
+   never; no overflow, finite colour; TAA gives every frame another jitter,
+   so frame N is held against frame N of a plain-raster renderer (4
+   frames); the history is non-zero after frame 1, the post chain changes
+   the lit frame, a new light direction re-renders all three cascades, and
+   with TAA off two static frames are equal. The same frame at
+   render_scale=0.5 (internal 960x540, TAA upsampling) for 8 frames against
+   the native frame 8: its PSNR and its gain over its own first frame. The
+   seven golden scenes reach PSNR >= 40 dB against tests/golden/, and the
+   small bench, glass, textured, lit and rich scenes on the card against
+   the port's CPU render;
 5. times (CUDA events) and peak device memory: static frame, frame with a
    shadow re-render, the glass frames, the textured frame (static, with a
-   shadow re-render, and at anisotropy 1 for scale), the lit frame; then,
-   at each kernel shape of the main path (1080p one
-   layer, 2048^2 one layer, 1080p K = 2, 4, 8 and K = 4 under a floor): the
+   shadow re-render, and at anisotropy 1 for scale), the lit frame, the
+   rich frame (static, with a shadow re-render, at render_scale=0.5); then,
+   at each kernel shape of the main path (1080p one layer, 2048^2 one
+   layer, the three 1024^2 cascades, 1080p K = 2, 4, 8 and K = 4 under a
+   floor): the
    wrapper-loop time (50 calls of raster_cuda.rasterize, host work
    included; the `ms` of the kernels line, as in earlier versions), the
    device time (`graph_ms`: a CUDA graph of bare launches), the device time
@@ -80,7 +93,12 @@ OPS_PER_PAIR = 30
 # Bytes of a candidate's record that a kernel reads: 9 edge and 3 z floats.
 RECORD_BYTES = 48
 # (pass, layers, floor): the kernel shapes the main path runs.
-SHAPES = [("main", 1, False), ("shadow", 1, False), ("main", 2, False),
+# The main pass's tile cap of the rich frame at render_scale 0.5 (the
+# standard frame's is 256 at the native size).
+HALF_SCALE_TILE_CAP = 1024
+CASCADES = ["cascade0", "cascade1", "cascade2"]
+SHAPES = [("main", 1, False), ("shadow", 1, False),
+          *((c, 1, False) for c in CASCADES), ("main", 2, False),
           ("main", 4, False), ("main", 8, False), ("main", 4, True)]
 
 
@@ -146,6 +164,26 @@ def pass_inputs(r, cam):
         "main": (setup, bins, cfg.height, cfg.width, cfg.tile_h, cfg.tile_w, 0),
         "shadow": (setup_s, bins_s, s, s, cfg.shadow_rows, cfg.shadow_tile, 0),
     }
+
+
+def cascade_inputs(r, cam):
+    """-> {"cascade<i>": (setup, bins, S, S, tile_h, tile_w, 0)}: the shadow
+    pass of each cascade of renderer r seen from `cam`, as a frame computes
+    them. It takes one TAA jitter of r's sequence."""
+    from ash_tpu_torch.render import frame
+
+    inputs = r.prepare_frame(cam.view_matrix(), cam.projection_matrix(),
+                             cam.position)
+    cfg, sb, uni = inputs.config, inputs.scene.buffers, inputs.uniforms
+    world = frame.shadow_world(sb, uni.models)
+    s = cfg.shadow_resolution
+    out = {}
+    for i in range(cfg.shadow_cascades):
+        setup, bins = frame.shadow_pass_bins(cfg, sb, world,
+                                             uni.cascade_matrices[i])
+        out[f"cascade{i}"] = (setup, bins, s, s, cfg.shadow_rows,
+                              cfg.shadow_tile, 0)
+    return out
 
 
 def work(setup, bins, height, width, tile_h, tile_w, y0=0, layers=1,
@@ -319,7 +357,7 @@ def alpha_fallthrough(rend, view, proj, pos):
     from ash_tpu_torch.ops import raster, shade
     from ash_tpu_torch.render import frame
 
-    cfg, scene, uni, pool, _ = rend.prepare_frame(view, proj, pos)
+    cfg, scene, uni, pool = rend.prepare_frame(view, proj, pos)[:4]
     sb = scene.buffers
     _, setup, bins, _ = frame.main_pass_bins(cfg, sb, uni)
     vis = raster.rasterize(setup, bins, cfg.height, cfg.width, cfg.tile_h,
@@ -336,7 +374,7 @@ def largest_tile_light_count(rend, view, proj, pos):
 
     from ash_tpu_torch.ops import light_cull
 
-    cfg, _, uni, _, lights = rend.prepare_frame(view, proj, pos)
+    cfg, _, uni, _, lights = rend.prepare_frame(view, proj, pos)[:5]
     tl = light_cull.cull_lights(
         lights, uni.view, torch.linalg.inv(uni.projection),
         rend.last_outputs().depth, cfg.width, cfg.height,
@@ -412,6 +450,16 @@ def main() -> int:
     )
     passes["band"] = (setup, bins_band, band_h, cfg.width, cfg.tile_h,
                       cfg.tile_w, band_y0)
+    # The rich frame's cascade passes, from a renderer of their own: taking
+    # the inputs advances the TAA jitter.
+    r_casc, _, _, _ = build_bench_renderer(1920, 1080, 1000, "cuda", rich=True)
+    passes.update(cascade_inputs(r_casc, cam))
+    del r_casc
+    check(all(c in passes for c in CASCADES), "the rich frame has 3 cascades")
+    for c in CASCADES:
+        shape = (passes[c][1].tri_ids.shape[1], *passes[c][2:6])
+        check(shape == (512, 1024, 1024, 32, 128),
+              f"{c}: K, size and tiles {shape}")
     max_err = 0.0
     for name, args in passes.items():
         h, w, y0 = args[2], args[3], args[6]
@@ -652,6 +700,90 @@ def main() -> int:
     most_lights = largest_tile_light_count(rl, view, proj, pos)
     check(most_lights > 0, "lit: no tile has a light")
 
+    # The rich standard frame: HDR post, TAA, three shadow cascades, the 32
+    # lights. TAA jitters every frame, so frame N is held against frame N of
+    # a renderer on the plain raster.
+    rr, _, _, _ = build_bench_renderer(1920, 1080, 1000, "cuda", rich=True)
+    raster_cuda.rasterize.launches = 0
+    raster_cuda.rasterize.layer_launches = 0
+    r_one, r_peel, r_outs = launches_per_frame(rr, view, proj, pos, 8)
+    launches["rich"] = raster_cuda.rasterize.launches
+    layer_launches["rich"] = raster_cuda.rasterize.layer_launches
+    rimage = rr.read_back().copy()
+    check(r_one == [4] + [1] * 7, f"rich: one-layer launches {r_one}")
+    check(r_peel == [0] * 8, f"rich: peel launches {r_peel}")
+    rich_over = [(int(o.binning_overflow), int(o.shadow_overflow))
+                 for o in r_outs]
+    check(rich_over == [(0, 0)] * 8, f"rich: overflow per frame {rich_over}")
+    check(all(bool(torch.isfinite(o.color).all()) for o in r_outs),
+          "rich: non-finite colour")
+    check(tuple(r_outs[0].shadow_map.shape) == (3, 1024, 1024),
+          f"rich: shadow map {tuple(r_outs[0].shadow_map.shape)}")
+    check(rimage.shape == (1080, 1920, 4), f"rich: image {rimage.shape}")
+    check(r_outs[0].history is not None
+          and float(r_outs[0].history.abs().max()) > 0,
+          "rich: the TAA history is empty after frame 1")
+    jittered = sum(not o.image.equal(r_outs[0].image) for o in r_outs[1:])
+    check(jittered > 0, "rich: TAA never changed a static frame")
+    rr_plain, _, _, _ = build_bench_renderer(1920, 1080, 1000, "cuda",
+                                             rich=True)
+    with mock.patch.object(frame, "rasterize", raster.rasterize):
+        requal = [bool(rr_plain.render_frame(view, proj, pos).image
+                       .equal(r_outs[i].image)) for i in range(4)]
+    check(all(requal), f"rich: frame N with the kernel != frame N with the "
+          f"plain raster: {requal}")
+    del rr_plain
+    post_psnr = ash_tpu_torch.psnr(rimage, limage)
+    check(post_psnr < 40.0, f"rich: the post chain and the cascades do not "
+          f"show ({post_psnr:.2f} dB against the lit frame)")
+
+    def rich_shadow_frame(i):
+        rr.shadow_feature.set_light_direction(sun[i % 2])
+        rr.render_frame(view, proj, pos)
+
+    rs_one, rs_peel, rs_outs = launches_per_frame(
+        rr, view, proj, pos, 2, lambda i: rich_shadow_frame(i + 1))
+    check(rs_one == [4, 4] and rs_peel == [0, 0],
+          f"rich shadow re-render: one-layer {rs_one}, peel {rs_peel}")
+    check(all(int(o.shadow_overflow) == 0 for o in rs_outs),
+          "rich shadow re-render: overflow")
+    rr.shadow_feature.set_light_direction(sun[0])
+    rr.set_taa_enabled(False)
+    _, _, off_outs = launches_per_frame(rr, view, proj, pos, 3)
+    check(off_outs[1].image.equal(off_outs[2].image),
+          "rich with TAA off: static frames differ")
+    check(off_outs[2].history is None, "rich with TAA off: a history")
+    rr.set_taa_enabled(True)
+
+    # TAA upsampling: the internal raster is 960x540, where a 64x128 tile
+    # holds four times the scene, so the tile cap is raised with it.
+    r_half, _, _, _ = build_bench_renderer(
+        1920, 1080, 1000, "cuda", rich=True, render_scale=0.5,
+        max_tris_per_tile=HALF_SCALE_TILE_CAP)
+    h_one, h_peel, h_outs = launches_per_frame(r_half, view, proj, pos, 8)
+    check(h_one == [4] + [1] * 7 and h_peel == [0] * 8,
+          f"rich at render_scale 0.5: one-layer {h_one}, peel {h_peel}")
+    check(tuple(h_outs[-1].color.shape) == (1080, 1920, 3)
+          and tuple(h_outs[-1].depth.shape) == (1080, 1920)
+          and r_half.read_back().shape == (1080, 1920, 4),
+          "rich at render_scale 0.5: presentation size")
+    half_covered = int(h_outs[-1].covered_pixels)
+    check(0.2 * covered < half_covered < 0.3 * covered,
+          f"rich at render_scale 0.5: {half_covered} internal pixels covered "
+          f"against {covered} at the native size")
+    half_over = [(int(o.binning_overflow), int(o.shadow_overflow))
+                 for o in h_outs]
+    check(half_over == [(0, 0)] * 8,
+          f"rich at render_scale 0.5: overflow per frame {half_over}")
+    native_color = r_outs[7].color.cpu().numpy()
+    taau_psnr = ash_tpu_torch.psnr(h_outs[7].color.cpu().numpy(), native_color)
+    taau_first = ash_tpu_torch.psnr(h_outs[0].color.cpu().numpy(), native_color)
+    check(taau_psnr > taau_first + 0.5,
+          f"TAA upsampling gathers no detail: {taau_psnr:.2f} dB after 8 "
+          f"frames, {taau_first:.2f} dB after 1")
+    check(taau_psnr >= 26.0, f"TAA upsampling at {taau_psnr:.2f} dB against "
+          "the native frame after 8 frames, want 26")
+
     goldens = {}
     for name, scene_fn in golden_scenes.SCENES.items():
         golden = ash_tpu_torch.read_png(
@@ -659,14 +791,18 @@ def main() -> int:
         goldens[name] = ash_tpu_torch.psnr(scene_fn("cuda").read_back(), golden)
         check(goldens[name] >= 40.0, f"{name} PSNR {goldens[name]:.2f} dB < 40")
     small_psnr = {}
-    for name, kw in (("small bench", {}), ("small glass", dict(glass=True)),
-                     ("small textured", dict(textured=True)),
-                     ("small lit", dict(lights=32))):
+    # (name, options, frames): the rich scene compares its third TAA frame.
+    for name, kw, frames in (("small bench", {}, 1),
+                             ("small glass", dict(glass=True), 1),
+                             ("small textured", dict(textured=True), 1),
+                             ("small lit", dict(lights=32), 1),
+                             ("small rich", dict(rich=True), 3)):
         rs, _, scam, _ = build_bench_renderer(192, 128, 64, "cuda", **kw)
         rc, _, _, _ = build_bench_renderer(192, 128, 64, "cpu", **kw)
-        for rr in (rs, rc):
-            rr.render_frame(scam.view_matrix(), scam.projection_matrix(),
-                            scam.position)
+        for small in (rs, rc):
+            for _ in range(frames):
+                small.render_frame(scam.view_matrix(),
+                                   scam.projection_matrix(), scam.position)
         small_psnr[name] = ash_tpu_torch.psnr(rs.read_back(), rc.read_back())
         check(small_psnr[name] >= 40.0,
               f"{name} card vs CPU {small_psnr[name]:.2f} dB")
@@ -702,6 +838,21 @@ def main() -> int:
           f"{100 * lit_changed:.2f}% of pixels changed, by up to {lit_most} "
           f"levels; largest tile light count {most_lights}", flush=True)
 
+    print(f"phase4 rich frame: one-layer launches per frame {r_one}, peel "
+          f"{r_peel}; shadow re-render frames: one-layer {rs_one}, peel "
+          f"{rs_peel}; overflow (main, shadow) per frame {rich_over}; shadow "
+          f"map {tuple(r_outs[0].shadow_map.shape)}; covered "
+          f"{int(r_outs[0].covered_pixels)}; frame N equal to the "
+          f"plain-raster frame N: {requal}; static frames that differ from "
+          f"frame 1 under TAA: {jittered} of 7; equal with TAA off: True; "
+          f"PSNR against the lit frame {post_psnr:.2f} dB", flush=True)
+    print(f"phase4 rich frame at render_scale 0.5: one-layer launches per "
+          f"frame {h_one}; tile cap {HALF_SCALE_TILE_CAP}, overflow 0; "
+          f"internal pixels covered {half_covered} (native "
+          f"{covered}); HDR colour against the native frame 8: "
+          f"{taau_psnr:.2f} dB after 8 frames, {taau_first:.2f} dB after 1",
+          flush=True)
+
     # 5. Times.
     mem = {}
     static_ms, mem["standard"] = frame_ms_mem(
@@ -730,6 +881,13 @@ def main() -> int:
     del rt1
     lit_ms, mem["lit"] = frame_ms_mem(
         lambda i: rl.render_frame(view, proj, pos), 10)
+    rr.render_frame(view, proj, pos)  # a history and the cached cascades
+    rich_ms, mem["rich"] = frame_ms_mem(
+        lambda i: rr.render_frame(view, proj, pos), 10)
+    rich_shadow_ms, mem["rich shadow re-render"] = frame_ms_mem(
+        rich_shadow_frame, 6)
+    rich_half_ms, mem["rich, render_scale 0.5"] = frame_ms_mem(
+        lambda i: r_half.render_frame(view, proj, pos), 10)
     # Each kernel shape of the main path: the wrapper loop, the device time
     # of bare launches (and with every list empty), the plain raster (plain,
     # kernel, kernel, plain) and the work from the inputs.
@@ -763,7 +921,9 @@ def main() -> int:
           f"glass frame passes=1 {glass_ms[1]} ms, passes=2 {glass_ms[2]} ms; "
           f"textured frame {textured_ms} ms, with shadow re-render "
           f"{textured_shadow_ms} ms, at anisotropy 1 {textured_aniso1_ms} ms; "
-          f"lit frame {lit_ms} ms (medians of 10)", flush=True)
+          f"lit frame {lit_ms} ms (medians of 10); rich frame {rich_ms} ms, "
+          f"with shadow re-render {rich_shadow_ms} ms (median of 6), at "
+          f"render_scale 0.5 {rich_half_ms} ms", flush=True)
     print("phase5 peak device memory (MiB): " + ", ".join(
         f"{k} {v:.1f}" for k, v in mem.items()), flush=True)
     for (name, layers, with_floor), row in timed.items():
@@ -807,7 +967,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         kernel_line("raster", "ash_tpu/ops/raster_pallas.py:106", launches,
                     max_err, ("main", 1, False),
-                    [("main", 1, False), ("shadow", 1, False)]),
+                    [("main", 1, False), ("shadow", 1, False),
+                     *((c, 1, False) for c in CASCADES)]),
         kernel_line("raster_layers", "ash_tpu/ops/raster_pallas.py:138",
                     layer_launches, max_err_layers, ("main", 4, False),
                     [("main", 2, False), ("main", 4, False),

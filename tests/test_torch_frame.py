@@ -1,6 +1,6 @@
 """The slice end to end: ash_tpu_torch.Renderer on the CPU.
 
-- The golden scenes cube_pbr and flat_cube reach PSNR >= 40 dB against the
+- The seven golden scenes reach PSNR >= 40 dB against the
   committed PNGs, the bar the reference is held to (tests/test_golden.py).
 - The small bench scene (bench.py's smoke config: 192x128, 64 cubes)
   reaches >= 40 dB against ash_tpu's CPU render of the same scene, with
@@ -86,6 +86,43 @@ def test_static_scene_renders_its_shadow_map_once(raster_calls):
     moved = _render(r, cam)
     assert raster_calls[3:] == [(256, 256), (128, 192)]
     assert not np.array_equal(first, moved)
+
+
+def test_taa_jitter_keeps_the_shadow_map(raster_calls):
+    """The single map's key is the light matrix, so a new jitter alone
+    renders only the main pass; every frame has another jitter."""
+    r, _, cam, _ = build_bench_renderer(192, 128, 27, "cpu")
+    r.initialize_hdr()
+    r.set_taa_enabled(True)
+    frames = [_render(r, cam) for _ in range(3)]
+    assert raster_calls == [(256, 256), (128, 192), (128, 192), (128, 192)]
+    assert not np.array_equal(frames[0], frames[1])
+    r.set_taa_enabled(False)
+    assert np.array_equal(_render(r, cam), _render(r, cam))
+
+
+@pytest.mark.parametrize("scale,size", [(0.5, (64, 96)), (0.7, (90, 134))])
+def test_taau_rasters_at_the_internal_size(raster_calls, scale, size):
+    r, _, cam, _ = build_bench_renderer(192, 128, 27, "cpu",
+                                        render_scale=scale)
+    r.initialize_hdr()
+    r.set_taa_enabled(True)
+    out = r.render_frame(cam.view_matrix(), cam.projection_matrix(),
+                         cam.position)
+    assert raster_calls == [(256, 256), size]
+    assert out.image.shape == (128, 192, 4) and out.depth.shape == (128, 192)
+    assert out.history.shape == (128, 192, 3)
+
+
+def test_resize_under_taa_starts_a_new_history():
+    r, _, cam, _ = build_bench_renderer(192, 128, 27, "cpu")
+    r.initialize_hdr()
+    r.set_taa_enabled(True)
+    _render(r, cam)
+    r.surface.resize(96, 64)
+    resized = _render(r, cam)
+    assert resized.shape == (64, 96, 4)
+    assert r.last_outputs().history.shape == (64, 96, 3)
 
 
 def _cube_renderer():

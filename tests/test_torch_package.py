@@ -14,6 +14,7 @@ from ash_tpu_torch import RenderCommand, Renderer, RendererConfig
 from ash_tpu_torch.core.mesh import Mesh
 from ash_tpu_torch.ops import _build, binning, geometry, raster, raster_cuda
 from ash_tpu_torch.render import HeadlessSurface
+from ash_tpu_torch.render.csm import CsmConfig
 
 torch.set_num_threads(1)
 
@@ -126,8 +127,6 @@ def test_missing_nvcc_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("csm", object()),
-    ("render_scale", 0.5),
     ("max_draws_per_chunk", 100),
     ("msaa_resolve", "edge"),
     ("two_level_binning", True),
@@ -138,13 +137,51 @@ def test_unported_config_raises(option, value):
 
 
 @pytest.mark.parametrize("method", [
-    "initialize_hdr", "set_taa_enabled", "set_msaa_preset",
-    "set_occlusion_culling", "update_transforms", "update_transforms_trs",
+    "set_msaa_preset", "set_occlusion_culling", "set_environment_map",
+    "update_transforms", "update_transforms_trs",
 ])
 def test_unported_renderer_method_raises(method):
     r = Renderer(HeadlessSurface(16, 16), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         getattr(r, method)()
+
+
+@pytest.mark.parametrize("option,value", [
+    ("csm", CsmConfig(cascade_count=3, resolution=64)),
+    ("render_scale", 0.5),
+])
+def test_ported_config_is_accepted(option, value):
+    """Options that raised before their slice landed now reach the frame."""
+    r = Renderer(HeadlessSurface(32, 32), RendererConfig(**{option: value}),
+                 device="cpu")
+    assert getattr(r.config, option) == value
+
+
+@pytest.mark.parametrize("method,args", [
+    ("initialize_hdr", ()), ("set_taa_enabled", (True,)),
+    ("reset_taa_history", ()), ("set_render_scale", (0.5,)),
+    ("set_tonemapping_enabled", (False,)),
+    ("set_tonemapping_operator", ("reinhard",)),
+    ("set_tonemapping_exposure", (1.5,)), ("set_tonemapping_gamma", (2.0,)),
+    ("set_bloom_enabled", (False,)), ("set_bloom_intensity", (0.3,)),
+    ("set_bloom_threshold", (1.0,)), ("set_fxaa_enabled", (True,)),
+])
+def test_post_setter_is_ported(method, args):
+    r = Renderer(HeadlessSurface(16, 16), device="cpu")
+    assert getattr(r, method)(*args) is None
+
+
+def test_full_frame_renders_without_ash_tpu():
+    """The post chain, TAA over three frames and the point light on the
+    CPU, and still neither jax nor ash_tpu loaded."""
+    code = (
+        "import sys\n"
+        "from ash_tpu_torch.render import golden_scenes\n"
+        "img = golden_scenes.scene_full_frame('cpu').read_back()\n"
+        "assert img.shape == (128, 192, 4) and img[..., :3].any()\n"
+        + _FOREIGN
+    )
+    assert _fresh_interpreter(code) == "[]"
 
 
 def test_lod_chain_raises():

@@ -97,8 +97,23 @@ def _ref_gbuffer(f):
 
 def _port_gbuffer(ref_g):
     return shade.GBuffer(*(
-        _t(getattr(ref_g, f)) for f in shade.GBuffer._fields
+        None if getattr(ref_g, f) is None else _t(getattr(ref_g, f))
+        for f in shade.GBuffer._fields
     ))
+
+
+def _assert_gbuffers_match(got, ref):
+    for field in shade.GBuffer._fields:
+        if getattr(ref, field) is None:
+            assert getattr(got, field) is None, field
+            continue
+        want = np.asarray(getattr(ref, field))
+        have = getattr(got, field).numpy()
+        if want.dtype == bool or want.dtype == np.int32:
+            np.testing.assert_array_equal(have, want, err_msg=field)
+        else:
+            np.testing.assert_allclose(have, want, atol=ATOL, rtol=0,
+                                       err_msg=field)
 
 
 def test_interpolate_gbuffer_matches_reference(ref_frame):
@@ -111,14 +126,48 @@ def test_interpolate_gbuffer_matches_reference(ref_frame):
         vert_uid=_t(f["vert_uid"]),
     )
     assert int(got.mask.sum()) > 500
-    for field in shade.GBuffer._fields:
-        want = np.asarray(getattr(ref, field))
-        have = getattr(got, field).numpy()
-        if want.dtype == bool or want.dtype == np.int32:
-            np.testing.assert_array_equal(have, want, err_msg=field)
-        else:
-            np.testing.assert_allclose(have, want, atol=ATOL, rtol=0,
-                                       err_msg=field)
+    assert got.velocity is None
+    _assert_gbuffers_match(got, ref)
+
+
+def test_interpolate_gbuffer_velocity_matches_reference(ref_frame):
+    """Motion vectors: last frame's clip positions come from a moved camera
+    and one moved draw; the framebuffer size is that of a larger frame, as
+    for a band."""
+    f = ref_frame
+    cube = Mesh.create_cube()
+    rng = np.random.default_rng(22)
+    prev_models = np.tile(np.eye(4, dtype=np.float32), (N, 1, 1))
+    prev_models[:, :3, 3] = rng.uniform(-1.5, 1.5, (N, 3))
+    prev_cam = Camera.new([2.8, 2.1, 4.2], [0.1, 0, 0], W / H)
+    prev_vp = (prev_cam.projection_matrix()
+               @ prev_cam.view_matrix()).astype(np.float32)
+    pos = np.tile(cube.vertices.position, (N, 1))
+    world = np.einsum("vij,vj->vi", np.repeat(prev_models, 24, 0)[:, :3, :3],
+                      pos) + np.repeat(prev_models, 24, 0)[:, :3, 3]
+    prev_clip = (np.concatenate([world, np.ones((24 * N, 1))], -1)
+                 @ prev_vp.T).astype(np.float32)
+    # A few vertices behind last frame's eye: their pixels get velocity 0
+    # where the interpolated w is not positive.
+    prev_clip[:24, 3] = -0.5
+    ref = ref_shade.interpolate_gbuffer(
+        f["vis"].tri_id, f["setup"], jnp.asarray(f["tri_v"]),
+        jnp.asarray(f["tri_draw"]), f["tv"], jnp.asarray(f["uv"]),
+        jnp.asarray(f["color"]), vert_uid=jnp.asarray(f["vert_uid"]),
+        prev_clip=jnp.asarray(prev_clip), fb_height=H + 8, fb_width=W + 4,
+    )
+    got = shade.interpolate_gbuffer(
+        _t(f["vis"].tri_id), _nt(geometry.TriangleSetup, f["setup"]),
+        _t(f["tri_v"]), _t(f["tri_draw"]),
+        _nt(geometry.TransformedVerts, f["tv"]), _t(f["uv"]), _t(f["color"]),
+        vert_uid=_t(f["vert_uid"]), prev_clip=_t(prev_clip),
+        fb_height=H + 8, fb_width=W + 4,
+    )
+    velocity = got.velocity.numpy()
+    assert velocity.shape == (H, W, 2)
+    assert float(np.abs(velocity).max()) > 0.01
+    assert (velocity[~got.mask.numpy()] == 0).all()
+    _assert_gbuffers_match(got, ref)
 
 
 def _uniforms(cls, f):
