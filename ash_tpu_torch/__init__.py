@@ -10,28 +10,50 @@ ROADMAP.md for what is ported.
 """
 
 from .core import (
+    MVP,
     Camera,
     Material,
+    MaterialDescriptor,
+    MaterialProperties,
     MaterialUniform,
     Mesh,
+    MeshDescriptor,
+    MvpMatrices,
+    TextureData,
     Transform,
+    VertexArrays,
     maths,
 )
 from .device import resolve_device
+from .errors import AshError, SwapchainOutOfDate
 from .render import (
+    UNPORTED_NAMES,
     HeadlessSurface,
     RenderCommand,
     Renderer,
     RendererConfig,
+    SurfaceProvider,
 )
 from .utils.image import psnr, read_png, write_png
 
+__version__ = "0.1.0"
+
 __all__ = [
+    "MVP",
     "Camera",
     "Material",
+    "MaterialDescriptor",
+    "MaterialProperties",
     "MaterialUniform",
     "Mesh",
+    "MeshDescriptor",
+    "MvpMatrices",
+    "TextureData",
     "Transform",
+    "VertexArrays",
+    "AshError",
+    "SwapchainOutOfDate",
+    "__version__",
     "maths",
     "psnr",
     "read_png",
@@ -41,4 +63,14 @@ __all__ = [
     "RenderCommand",
     "Renderer",
     "RendererConfig",
+    "SurfaceProvider",
 ]
+
+
+def __getattr__(name):
+    # The reference's lazily exported surfaces that are not ported yet.
+    if name in UNPORTED_NAMES:
+        from . import render
+
+        return getattr(render, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

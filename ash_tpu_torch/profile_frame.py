@@ -3,7 +3,7 @@
     python3 -m ash_tpu_torch.profile_frame [--frames N] [--out DIR]
         [--glass [--transparency-passes P]] [--textured] [--lights N]
         [--max-anisotropy A] [--rich [--render-scale S]]
-        [--max-tris-per-tile K]
+        [--max-tris-per-tile K] [--animate] [--mega [--escalate]]
 
 Renders the bench scene (render/bench_scene.py: 1000 cubes, 1920x1080,
 2048^2 shadow map), or with --glass the glass standard frame (every fourth
@@ -14,9 +14,14 @@ bench.py's N point lights added (Forward+), and with --rich bench.py's
 rich frame (HDR post with bloom and ACES, TAA, three 1024^2 shadow
 cascades, 32 lights), rastered and shaded at S times the size with
 --render-scale S (TAA upsampling; a tile then covers more of the scene,
-so raise the main pass's tile cap with --max-tris-per-tile). It traces N
-static frames and N frames that re-render the shadow map with
-`torch.profiler`. For each kind it prints the wall time per frame, the peak
+so raise the main pass's tile cap with --max-tris-per-tile). With
+--animate it renders bench.py's animated frame instead: each frame takes
+the next pose (t += 1/60) through `update_transforms_trs` and the orbiting
+camera, so the shadow map re-renders every frame. With --mega it renders
+bench.py's 1,002,528-triangle frame (two-level binning, caps of 8192), and
+with --escalate first grows the caps (`escalate_tile_capacities`) until no
+triangle drops. It traces N static frames and N frames that re-render the
+shadow map (N animated frames with --animate) with `torch.profiler`. For each kind it prints the wall time per frame, the peak
 device memory, the device's busy and idle share of that wall time, the
 kernels and copies the frame launches, device time
 per `pass_*` scope (the kernels its PyTorch ops launched, the span from its
@@ -38,7 +43,12 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from .render.bench_scene import build_bench_renderer
+from .render.bench_scene import (
+    animated_models_trs,
+    build_bench_renderer,
+    build_mega_renderer,
+    orbit_camera,
+)
 
 
 def _trace(step, frames):
@@ -92,21 +102,43 @@ def main(argv=None) -> int:
     ap.add_argument("--rich", action="store_true")
     ap.add_argument("--render-scale", type=float, default=1.0)
     ap.add_argument("--max-tris-per-tile", type=int, default=256)
+    ap.add_argument("--animate", action="store_true")
+    ap.add_argument("--mega", action="store_true")
+    ap.add_argument("--escalate", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_frame: needs a CUDA device", file=sys.stderr)
         return 1
-    r, _, cam, _ = build_bench_renderer(
-        1920, 1080, 1000, "cuda", glass=args.glass,
-        transparency_passes=args.transparency_passes, textured=args.textured,
-        lights=args.lights, max_anisotropy=args.max_anisotropy,
-        rich=args.rich, render_scale=args.render_scale,
-        max_tris_per_tile=args.max_tris_per_tile,
-    )
+    if args.mega:
+        r, _, cam, _ = build_mega_renderer(1920, 1080, "cuda")
+    else:
+        r, _, cam, anim = build_bench_renderer(
+            1920, 1080, 1000, "cuda", glass=args.glass,
+            transparency_passes=args.transparency_passes,
+            textured=args.textured, lights=args.lights,
+            max_anisotropy=args.max_anisotropy, rich=args.rich,
+            render_scale=args.render_scale,
+            max_tris_per_tile=args.max_tris_per_tile, animate=args.animate,
+        )
     view, proj, pos = cam.view_matrix(), cam.projection_matrix(), cam.position
     for _ in range(3):  # build the kernel, the scene and the shadow map
         r.render_frame(view, proj, pos)
+    for _ in range(4 if args.escalate else 0):
+        out = r.last_outputs()
+        changed = r.escalate_tile_capacities(int(out.binning_overflow),
+                                             int(out.shadow_overflow))
+        if not changed:
+            break
+        print(f"escalated: {changed}")
+        r.render_frame(view, proj, pos)
     lights = ([-0.5, -1.0, -0.3], [-0.45, -1.0, -0.35])
+    clock = [0.0]
+
+    def animated(i):
+        clock[0] += 1.0 / 60.0
+        r.update_transforms_trs(*animated_models_trs(anim, clock[0]))
+        r.render_frame(orbit_camera(cam, anim["extent"], clock[0]), proj,
+                       cam.position)
 
     def static(i):
         r.render_frame(view, proj, pos)
@@ -119,7 +151,9 @@ def main(argv=None) -> int:
     print(f"device: {torch.cuda.get_device_name(0)}; overflow main "
           f"{int(out.binning_overflow)}, shadow {int(out.shadow_overflow)}")
     del out  # or the peak would count a second frame's outputs
-    for name, step in (("static", static), ("shadow_rerender", shadow)):
+    kinds = ((("animated", animated),) if args.animate
+             else (("static", static), ("shadow_rerender", shadow)))
+    for name, step in kinds:
         torch.cuda.reset_peak_memory_stats()
         prof, wall_ms = _trace(step, args.frames)
         print(f"{name}: peak device memory "

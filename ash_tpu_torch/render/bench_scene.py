@@ -20,9 +20,20 @@ smoke config (8x32 tiles, 256^2 shadow map).
   post chain with bloom and ACES, TAA, a 3-cascade shadow map with a tile
   cap of 512 in place of the single map, and the 32 point lights. The
   cascades are 1024^2 (256^2 in the small config).
+- Animated: bench.py's `--animate`, the standard frame with every cube
+  spinning about Y at its own phase (`animated_models`, or its TRS form
+  `animated_models_trs` for `update_transforms_trs`) under an orbiting
+  camera (`orbit_camera`); `animate=True` returns bench.py's `anim` dict in
+  place of the extent. The shadow map re-renders every frame.
 
 In every variant the random sequence, and every other material, is the
 standard frame's.
+
+The mega frame (`build_mega_renderer`) is bench.py's `--mega`: a
+1,002,528-triangle displaced sphere (`build_sphere_grid(709)`, a copy of
+examples/08_million_tris.py's) drawn through `set_mesh` with 32x128 tiles,
+tile caps of 8192 and the "nearest" drop policy; above 32768 padded
+triangles the frame bins in two levels.
 """
 
 from __future__ import annotations
@@ -60,16 +71,26 @@ def bench_draws(n_objects: int, glass: bool = False, textured: bool = False,
     draws the same list rebuilt with ash_tpu.core's classes. With
     `textured`, draw i uses mesh i % TEXTURED_MESHES, and the cutout mesh's
     draws get alpha_cutoff `cutoff` (0 = no alpha test)."""
+    draws, anim = _bench_grid(n_objects, glass, textured, cutoff)
+    return draws, anim["extent"]
+
+
+def _bench_grid(n_objects, glass=False, textured=False, cutoff=CUTOUT_ALPHA):
+    """-> (bench_draws' draws, bench.py's anim dict: the cubes' positions
+    and scales, a spin phase each from the same generator, the extent)."""
     rng = np.random.default_rng(7)
     side = int(round(n_objects ** (1 / 3)))
     while side**3 < n_objects:
         side += 1
     draws = []
+    positions = np.zeros((n_objects, 3), np.float32)
+    scales = np.zeros(n_objects, np.float32)
     for i in range(n_objects):
         z, rem = divmod(i, side * side)
         y, x = divmod(rem, side)
         pos = (np.array([x, y, z], np.float32) - (side - 1) / 2) * 3.0
         scale = 0.4 + 0.4 * rng.random()
+        positions[i], scales[i] = pos, scale
         m = np.eye(4, dtype=np.float32)
         m[:3, :3] *= scale
         m[:3, 3] = pos
@@ -84,7 +105,54 @@ def bench_draws(n_objects: int, glass: bool = False, textured: bool = False,
             alpha_cutoff=cutoff if cutout else 0.0,
         )
         draws.append((m, mat))
-    return draws, side * 3.0
+    extent = side * 3.0
+    anim = {"positions": positions, "scales": scales,
+            "phases": rng.random(n_objects).astype(np.float32) * 6.2832,
+            "extent": extent}
+    return draws, anim
+
+
+def animated_models(anim, t):
+    """(N, 4, 4) model matrices at time t: every cube spins about Y at its
+    own phase (bench.py:animated_models)."""
+    n = anim["positions"].shape[0]
+    a = anim["phases"] + np.float32(t)
+    c, s = np.cos(a), np.sin(a)
+    sc = anim["scales"]
+    m = np.zeros((n, 4, 4), np.float32)
+    m[:, 0, 0] = c * sc
+    m[:, 0, 2] = s * sc
+    m[:, 1, 1] = sc
+    m[:, 2, 0] = -s * sc
+    m[:, 2, 2] = c * sc
+    m[:, 3, 3] = 1.0
+    m[:, :3, 3] = anim["positions"]
+    return m
+
+
+def animated_models_trs(anim, t):
+    """The same animation as translations, xyzw quaternions and uniform
+    scales for update_transforms_trs: a spin by a about Y is the quaternion
+    (0, sin(a/2), 0, cos(a/2)) (bench.py:animated_models_trs)."""
+    a = (anim["phases"] + np.float32(t)) * np.float32(0.5)
+    n = anim["positions"].shape[0]
+    q = np.zeros((n, 4), np.float32)
+    q[:, 1] = np.sin(a)
+    q[:, 3] = np.cos(a)
+    return anim["positions"], q, anim["scales"]
+
+
+def orbit_camera(cam, extent, t):
+    """Move `cam` on its orbit to time t; -> its view matrix
+    (bench.py:orbit_camera)."""
+    ang = 0.02 * t
+    cam.position = np.array(
+        [extent * 1.1 * np.cos(ang) - extent * 1.3 * np.sin(ang),
+         extent * 0.8,
+         extent * 1.1 * np.sin(ang) + extent * 1.3 * np.cos(ang)],
+        np.float32,
+    )
+    return cam.view_matrix()
 
 
 def bench_texture_maps(size: int = TEXTURE_SIZE):
@@ -202,12 +270,15 @@ def bench_camera(width: int, height: int, extent: float) -> Camera:
 def build_bench_renderer(width, height, n_objects, device,
                          shadow_resolution=2048, glass=False, textured=False,
                          lights=0, cutoff=CUTOUT_ALPHA, rich=False,
-                         **cfg_overrides):
+                         animate=False, **cfg_overrides):
     """-> (renderer, surface, camera, extent) for an n_objects cube grid;
     glass=True draws the glass standard frame, textured=True the textured
     one (`cutoff` is its cutout draws' alpha_cutoff), lights=N adds
     bench.py's N point lights, and rich=True builds the rich frame (HDR
-    post, TAA, cascaded shadow maps, RICH_LIGHTS lights unless given)."""
+    post, TAA, cascaded shadow maps, RICH_LIGHTS lights unless given).
+    animate=True returns bench.py's anim dict (positions, scales, phases,
+    extent) in place of the extent, for animated_models[_trs] and
+    orbit_camera."""
     if rich:
         over = rich_overrides(height)
         over["csm"] = CsmConfig(cascade_count=over["csm"][0],
@@ -221,7 +292,8 @@ def build_bench_renderer(width, height, n_objects, device,
     meshes = bench_meshes() if textured else [port_core.Mesh.create_cube()]
     for handle, mesh in enumerate(meshes):
         r.register_mesh_handle(handle, mesh)
-    draws, extent = bench_draws(n_objects, glass, textured, cutoff)
+    draws, anim = _bench_grid(n_objects, glass, textured, cutoff)
+    extent = anim["extent"]
     commands = []
     for i, (m, mat) in enumerate(draws):
         r.register_material_handle(i + 1, mat)
@@ -234,4 +306,74 @@ def build_bench_renderer(width, height, n_objects, device,
         r.set_taa_enabled(True)
     for pos, color in bench_lights(lights):
         r.add_point_light(pos, color=color, intensity=2.0, radius=6.0)
-    return r, surface, bench_camera(width, height, extent), extent
+    return (r, surface, bench_camera(width, height, extent),
+            anim if animate else extent)
+
+
+MEGA_GRID = 709  # build_sphere_grid(709): 1,002,528 triangles
+
+
+def build_sphere_grid(n: int, core=port_core):
+    """An n x n displaced sphere grid, 2 (n - 1)^2 triangles, built with
+    `core`'s Mesh and VertexArrays (a copy of
+    examples/08_million_tris.py:build_sphere_grid; seed 1)."""
+    rng = np.random.default_rng(1)
+    theta = np.linspace(0.25, np.pi - 0.25, n, dtype=np.float32)
+    phi = np.linspace(0.0, 2 * np.pi, n, dtype=np.float32)
+    tt, pp = np.meshgrid(theta, phi, indexing="ij")
+    r = 1.0 + 0.05 * rng.standard_normal((n, n)).astype(np.float32)
+    pos = np.stack(
+        [r * np.sin(tt) * np.cos(pp), r * np.cos(tt),
+         r * np.sin(tt) * np.sin(pp)], axis=-1,
+    ).reshape(-1, 3)
+    ii, jj = np.meshgrid(np.arange(n - 1), np.arange(n - 1), indexing="ij")
+    v00 = (ii * n + jj).reshape(-1)
+    v01, v10 = v00 + 1, v00 + n
+    v11 = v10 + 1
+    idx = np.stack(
+        [np.stack([v00, v10, v01], 1), np.stack([v01, v10, v11], 1)], axis=1
+    ).reshape(-1, 3).astype(np.uint32)
+    nrm = pos / np.linalg.norm(pos, axis=1, keepdims=True)
+    nv = pos.shape[0]
+    return core.Mesh(
+        name="mega",
+        vertices=core.VertexArrays(
+            position=pos, normal=nrm,
+            uv=np.zeros((nv, 2), np.float32),
+            color=np.ones((nv, 3), np.float32),
+            tangent=np.tile(np.array([1, 0, 0, 1], np.float32), (nv, 1)),
+        ),
+        indices=idx.reshape(-1),
+    )
+
+
+def mega_config(**cfg_overrides) -> dict:
+    """RendererConfig keyword arguments of the mega frame (bench.py:162-167):
+    at about one triangle a pixel the silhouette stacks thousands of
+    sub-pixel triangles into one tile, so 32x128 tiles with caps of 8192,
+    and an overflowing tile drops its farthest triangles."""
+    cfg = dict(max_tris_per_tile=8192, shadow_max_tris_per_tile=8192,
+               binning_policy="nearest", tile_h=32, tile_w=128)
+    cfg.update(cfg_overrides)
+    return cfg
+
+
+def mega_material(core=port_core):
+    return core.Material(color=(0.7, 0.6, 0.5, 1.0), roughness=0.35)
+
+
+def mega_camera(width: int, height: int, core=port_core):
+    return core.Camera.new([0, 0.4, 2.9], [0, 0, 0], width / height)
+
+
+def build_mega_renderer(width, height, device, grid=MEGA_GRID,
+                        **cfg_overrides):
+    """-> (renderer, surface, camera, triangle count) of bench.py's mega
+    frame (build_mega_renderer): the sphere grid through set_mesh."""
+    mesh = build_sphere_grid(grid)
+    surface = HeadlessSurface(width, height)
+    r = Renderer(surface, RendererConfig(**mega_config(**cfg_overrides)),
+                 device=device)
+    r.set_mesh(mesh)
+    r.set_material(mega_material())
+    return r, surface, mega_camera(width, height), mesh.num_triangles

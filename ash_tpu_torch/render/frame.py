@@ -28,6 +28,7 @@ carries the static shape of the frame. Each stage runs inside a
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -95,6 +96,11 @@ class FrameConfig:
     shadow_tile: int = 256
     shadow_tile_h: Optional[int] = None
     shadow_max_tris_per_tile: int = 256
+    # Binning: None = two-level above DENSE_BINNING_MAX_TRIS padded
+    # triangles, dense below; True / False force one. The two-level binner's
+    # coarse tiles keep at most binning_coarse_cap candidates.
+    two_level_binning: Optional[bool] = None
+    binning_coarse_cap: int = 16384
     # Cascaded shadow maps: 1 = a single map; 2-4 renders one depth map per
     # cascade and shading selects by view distance (render/csm.py).
     shadow_cascades: int = 1
@@ -174,17 +180,21 @@ class PostParams(NamedTuple):
 
 
 class FrameOutputs(NamedTuple):
+    """One frame's results, in the reference's field order."""
+
     image: torch.Tensor  # (H, W, 4) uint8
     color: torch.Tensor  # (H, W, 3) float32 (LDR, or HDR after TAA)
     depth: torch.Tensor  # (H, W) float32
     shadow_map: Optional[torch.Tensor]  # (S, S), (C, S, S) or None
     covered_pixels: torch.Tensor  # () int32
     binning_overflow: torch.Tensor  # () int32
+    history: Optional[torch.Tensor]  # (H, W, 3) TAA history out
     visible_draws: Optional[torch.Tensor]  # () int32 after culling
     # Dropped shadow triangles leak light, so they are reported like
     # main-pass drops. None when shadows are disabled.
     shadow_overflow: Optional[torch.Tensor] = None  # () int32
-    history: Optional[torch.Tensor] = None  # (H, W, 3) TAA history out
+    # Edge pixels past the MSAA edge worklist (ROADMAP A15): always None.
+    msaa_edge_overflow: Optional[torch.Tensor] = None
 
 
 class BandOutputs(NamedTuple):
@@ -227,6 +237,21 @@ def raster_size(cfg: FrameConfig):
     return internal_render_size(cfg.width, cfg.height, scale)
 
 
+# Above this many padded triangles the automatic switch picks two-level
+# binning (reference frame.py:287-298).
+DENSE_BINNING_MAX_TRIS = 32768
+
+
+def _binner(cfg: FrameConfig, num_tris: int):
+    """Dense or two-level binning: a static choice per scene bucket."""
+    use_two = (cfg.two_level_binning if cfg.two_level_binning is not None
+               else num_tris > DENSE_BINNING_MAX_TRIS)
+    if not use_two:
+        return binning.bin_triangles
+    return functools.partial(binning.bin_triangles_two_level,
+                             coarse_cap=cfg.binning_coarse_cap)
+
+
 def _keep_score(cfg: FrameConfig, setup):
     """Overflow priority for the binner (None = draw order)."""
     if cfg.binning_policy == "nearest":
@@ -242,6 +267,29 @@ def shadow_world(scene: SceneBuffers, models: torch.Tensor) -> torch.Tensor:
     return geometry.matvec3(m[:, :3, :3], pos) + m[:, :3, 3]
 
 
+def models_from_trs(t: torch.Tensor, q: torch.Tensor,
+                    s: torch.Tensor) -> torch.Tensor:
+    """(N, 3) translations, (N, 4) xyzw quaternions and (N, 3) scales ->
+    (N, 4, 4) model matrices T * R * S on the device, with the float
+    operations of core/maths.mat4_trs_batch in its order, so a frame
+    composed here equals one composed on the host bit for bit."""
+    x, y, z, w = q.unbind(-1)
+    x2, y2, z2 = x + x, y + y, z + z
+    xx, yy, zz = x * x2, y * y2, z * z2
+    xy, xz, yz = x * y2, x * z2, y * z2
+    wx, wy, wz = w * x2, w * y2, w * z2
+    r = torch.stack([
+        torch.stack([1.0 - (yy + zz), xy - wz, xz + wy], -1),
+        torch.stack([xy + wz, 1.0 - (xx + zz), yz - wx], -1),
+        torch.stack([xz - wy, yz + wx, 1.0 - (xx + yy)], -1),
+    ], -2)  # (N, 3, 3), rows i, columns j
+    r = r * s[:, None, :]  # column j scaled by s_j: the * S
+    top = torch.cat([r, t[:, :, None]], dim=2)  # (N, 3, 4)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=r.dtype,
+                          device=r.device).expand(t.shape[0], 1, 4)
+    return torch.cat([top, bottom], dim=1)
+
+
 def shadow_pass_bins(cfg: FrameConfig, scene: SceneBuffers,
                      world: torch.Tensor, light_matrix: torch.Tensor):
     """Front-cull setup and binning of the shadow pass -> (setup, bins)."""
@@ -250,7 +298,7 @@ def shadow_pass_bins(cfg: FrameConfig, scene: SceneBuffers,
     setup = geometry.triangle_setup(
         clip_l, scene.tri_v, scene.tri_valid, s, s, cull_mode="front"
     )
-    bins = binning.bin_triangles(
+    bins = _binner(cfg, scene.num_triangles)(
         setup.bbox, setup.valid, s, s, cfg.shadow_rows, cfg.shadow_tile,
         cfg.shadow_max_tris_per_tile, keep_score=_keep_score(cfg, setup),
     )
@@ -315,7 +363,7 @@ def main_pass_bins(cfg: FrameConfig, scene: SceneBuffers, uni: FrameUniforms):
             tv.clip, scene.tri_v, tri_valid, rw, rh, cull_mode="back",
         )
     with record_function("pass_binning"):
-        bins = binning.bin_triangles(
+        bins = _binner(cfg, scene.num_triangles)(
             setup.bbox, setup.valid, rh, rw, cfg.tile_h,
             cfg.tile_w, cfg.max_tris_per_tile,
             keep_score=_keep_score(cfg, setup),

@@ -1,22 +1,27 @@
-"""Renderer — the high-level API object (port of ash_tpu/render/renderer.py,
-main path).
+"""Renderer — the high-level API object (port of ash_tpu/render/renderer.py).
 
 The public surface matches the reference: `set_mesh`, `set_material`,
-`material_mut`, `register_mesh_handle`, `register_material_handle`,
-`submit_render_commands`, `add_point_light`, `add_spot_light`,
+`material_mut`, `register_mesh_handle`, `register_mesh_descriptor`,
+`register_material_handle`, `submit_render_commands`, the dynamic-scene
+updates (`update_transforms`, `update_transforms_trs`, `update_material`),
+`escalate_tile_capacities`, `add_point_light`, `add_spot_light`,
 `request_texture_residency`, the post-processing setters (`initialize_hdr`,
 `set_taa_enabled`, `set_render_scale`, tonemapping, bloom, FXAA),
 `render_frame(view, proj, camera_pos)` and `read_back`. State is host
 registries, the bindless texture manager (a mesh's maps get pool indices
 when it is registered), the packed scene on the device (rebuilt when the
-scene changes), the shadow and lighting features, the cascaded shadow map
-fit (`RendererConfig.csm`), a cached shadow map (a static scene under a
-static light renders its map, or its cascades, once), and the TAA state:
-the jitter sequence, last frame's unjittered matrices and the history
-image, which stays on the device between frames.
+draw list changes; a resubmit of the same handles only moves the models),
+a host mirror of the model matrices (uploaded with the frame's constants
+when it changed, or as translation, rotation and scale that the device
+composes), the shadow and lighting features, the cascaded shadow map fit
+(`RendererConfig.csm`), a cached shadow map (a static scene under a static
+light renders its map, or its cascades, once), and the TAA state: the
+jitter sequence, last frame's unjittered matrices and models, and the
+history image, which stays on the device between frames.
 
-Every reference option and feature that this port does not run yet raises
-NotImplementedError naming its ROADMAP.md item; none is silently ignored.
+Every reference option, method and feature that this port does not run yet
+raises NotImplementedError naming its ROADMAP.md item; none is silently
+ignored. The reference's XLA-only knobs are accepted and have no effect.
 """
 
 from __future__ import annotations
@@ -27,10 +32,11 @@ from typing import Dict, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from ..core import maths
 from ..core.material import Material
-from ..core.mesh import Mesh
+from ..core.mesh import Mesh, MeshDescriptor
 from ..core.transform import Transform
-from ..core.uniform import MaterialUniform
+from ..core.uniform import MATERIAL_RECORD_SIZE, MaterialUniform
 from ..device import resolve_device
 from ..errors import InvalidOperation
 from ..ops.taa import TaaParams
@@ -52,6 +58,7 @@ from .frame import (
     FrameUniforms,
     PostParams,
     internal_render_size,
+    models_from_trs,
     render_frame_program,
     shadow_program,
 )
@@ -64,26 +71,50 @@ FRAME_LIGHT_DIR = np.array([-0.35, -1.0, -0.25], np.float32)
 FRAME_LIGHT_COLOR = np.full(3, 1.5, np.float32)
 FRAME_AMBIENT = np.full(3, 0.35, np.float32)
 
-# Above this many (padded) triangles the reference switches to two-level
-# binning, which is not ported.
-DENSE_BINNING_MAX_TRIS = 32768
-
 
 def _unported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
 
 
-# Reference options the port does not run yet: (default, ROADMAP item).
+# Reference options the port does not run yet: (default, ROADMAP item). A
+# value other than the default raises.
 _UNPORTED_OPTIONS = {
     "max_draws_per_chunk": (None, "A16, chunked geometry"),
     "msaa_resolve": ("ssaa", "A15, MSAA"),
+    "msaa_edge_capacity": (0.125, "A15, MSAA"),
+    "shade_dtype": ("f32", "A14, bf16 shading"),
+    "gbuffer_packed": (False, "A14, packed G-buffer fetch"),
+    "lod_cull_threshold": (0.001, "A14, LOD selection"),
+}
+
+# The reference's XLA compilation, tunnel and debugging knobs: accepted,
+# validated as the reference validates them, and without effect here.
+XLA_ONLY_OPTIONS = ("debug", "watch_kernels", "use_pallas",
+                    "compilation_cache_dir", "pipeline_mode",
+                    "cold_compile_effort", "async_resize", "bg_compile")
+
+# Reference Renderer methods the port does not run yet -> ROADMAP item.
+UNPORTED_METHODS = {
+    "request_swapchain_resize": "A17, resize",
+    "wait_resize": "A17, resize",
+    "frame_cost_analysis": "A17, cost analysis",
+    "profile_passes": "A17, pass profiling",
+    "set_diagnostics_mode": "A17, diagnostics",
+    "toggle_diagnostics": "A17, diagnostics",
+    "diagnostics": "A17, diagnostics",
+    "lod_stats": "A14, LOD selection",
+    "set_occlusion_culling": "A14, Hi-Z occlusion",
+    "set_environment_map": "A14, IBL",
+    "clear_environment_map": "A14, IBL",
+    "set_msaa_preset": "A15, MSAA",
+    "msaa_preset": "A15, MSAA",
 }
 
 
 @dataclasses.dataclass
 class RendererConfig:
-    """Construction-time knobs (the main-path fields of the reference
-    RendererConfig, with its defaults)."""
+    """Construction-time knobs: the reference RendererConfig's fields, with
+    its names and defaults."""
 
     tile_h: int = 64
     tile_w: int = 128
@@ -93,28 +124,39 @@ class RendererConfig:
     shadow_tile: int = 128
     shadow_tile_h: Optional[int] = None  # None = min(shadow_tile, 32) rows
     shadow_max_tris_per_tile: int = 256
-    # None = dense up to DENSE_BINNING_MAX_TRIS, False = always dense;
-    # two-level binning (True, or larger scenes on auto) is ROADMAP A16.
+    # None = dense binning up to 32768 padded triangles and two-level above
+    # (render/frame.py:_binner); True / False force one. The two-level
+    # binner keeps at most binning_coarse_cap triangles per coarse tile.
     two_level_binning: Optional[bool] = None
+    binning_coarse_cap: int = 16384
     binning_policy: str = "draw_order"  # or "nearest"
     # LOD selection only acts on meshes with LOD chains (ROADMAP A14).
     lod_enabled: bool = True
-    shading: str = "pbr"  # "pbr" | "flat"
-    clear_color: tuple = (0.0, 0.0, 0.0)
-    frustum_culling: bool = True
+    lod_cull_threshold: float = 0.001
     # Cascaded shadow maps: the cascades' count, resolution and blending
     # (render/csm.py); they replace shadow_resolution's single map while
     # shadows_enabled. shadow_distance is the farthest cascade's reach.
     csm: Optional[CsmConfig] = None
     shadow_distance: float = 50.0
+    shading: str = "pbr"  # "pbr" | "flat"
+    shade_dtype: str = "f32"
+    clear_color: tuple = (0.0, 0.0, 0.0)
+    debug: bool = False
+    frustum_culling: bool = True
+    watch_kernels: bool = False
+    use_pallas: Optional[bool] = None
+    gbuffer_packed: bool = False
+    compilation_cache_dir: Optional[str] = None
+    # Anisotropic filtering taps of textured draws (the reference sampler's
+    # 16x; 1 = trilinear only).
+    max_anisotropy: int = 16
+    msaa_resolve: str = "ssaa"
+    msaa_edge_capacity: float = 0.125
     # Peel layers per transparency pass, in [2, 8] (checked at render), and
     # passes of iterated peeling; they act only on scenes with a
     # semi-transparent material (base colour alpha < 1).
     transparency_layers: int = 2
     transparency_passes: int = 1
-    # Anisotropic filtering taps of textured draws (the reference sampler's
-    # 16x; 1 = trilinear only).
-    max_anisotropy: int = 16
     # TAA upsampling: the internal raster size as a fraction of the
     # surface's, in [0.25, 1]; it acts only while the HDR post chain and
     # TAA are on (see Renderer.set_render_scale).
@@ -123,14 +165,21 @@ class RendererConfig:
     # it (render/bindless.py); None keeps every mip resident.
     texture_budget_bytes: Optional[int] = None
     max_draws_per_chunk: Optional[int] = None
-    msaa_resolve: str = "ssaa"
+    pipeline_mode: str = "tiered"
+    cold_compile_effort: Optional[float] = -1.0
+    async_resize: bool = True
+    bg_compile: str = "subprocess"
 
     def __post_init__(self):
         for name, (default, item) in _UNPORTED_OPTIONS.items():
             if getattr(self, name) != default:
                 _unported(f"RendererConfig.{name}={getattr(self, name)!r}", item)
-        if self.two_level_binning:
-            _unported("two-level binning", "A16")
+        if self.pipeline_mode not in ("tiered", "split", "fused"):
+            raise ValueError(f"pipeline_mode {self.pipeline_mode!r} not in "
+                             "('tiered', 'split', 'fused')")
+        if self.bg_compile not in ("subprocess", "thread"):
+            raise ValueError(f"bg_compile {self.bg_compile!r} not in "
+                             "('subprocess', 'thread')")
         if self.binning_policy not in ("draw_order", "nearest"):
             raise ValueError(f"unknown binning_policy {self.binning_policy!r}")
         if self.shading not in ("pbr", "flat"):
@@ -156,6 +205,15 @@ class FrameInputs(NamedTuple):
     lights: Optional[torch.Tensor]  # (L_pad, 16) packed lights, or None
     post: Optional[PostParams] = None  # the post chain's runtime knobs
     taa_params: Optional[TaaParams] = None  # None while TAA is off
+
+
+def _refuse(name: str, item: str):
+    def method(self, *args, **kwargs):
+        _unported(f"Renderer.{name}", item)
+
+    method.__name__ = name
+    method.__doc__ = f"Not ported yet: raises NotImplementedError (ROADMAP.md {item})."
+    return method
 
 
 class Renderer:
@@ -220,12 +278,34 @@ class Renderer:
 
         self._scene: Optional[BuiltScene] = None
         self._scene_dirty = True
-        self._scene_epoch = 0
-        self._models: Optional[torch.Tensor] = None  # multi-draw, per scene
+        self._scene_epoch = 0  # one per scene build
+        self._models: Optional[torch.Tensor] = None  # (D_pad, 4, 4), device
+        # The multi-draw path's model matrices on the host, (D_pad, 4, 4):
+        # authoritative from the scene build on; uploaded with the next
+        # frame's constants while _models_dirty. A dense update_transforms
+        # defers the write-back to DrawItem.model (_items_models_stale,
+        # _sync_item_models). update_transforms_trs instead keeps
+        # (t, q, s) padded to D_pad (_trs_host), which the next frame
+        # uploads and composes on the device (_trs_pending); the mirror is
+        # then stale until _ensure_models_host composes it.
+        self._models_host: Optional[np.ndarray] = None
+        self._models_dirty = False
+        self._trs_host: Optional[tuple] = None
+        self._trs_pending = False
+        self._trs_stale_host = False
+        self._items_models_stale = False
+        # Bumped by every transform update: keys the shadow cache.
+        self._models_epoch = 0
+        # The transforms-only fast path of submit_render_commands: a
+        # resubmit whose (mesh handles, material handles, material-registry
+        # version) equals the last one only moves the models.
+        self._mat_registry_version = 0
+        self._submit_sig: Optional[tuple] = None
+        self._draw_mat_handles: Optional[List[int]] = None
         # Whether a multi-draw scene has an alpha-cutoff material and a
-        # semi-transparent one, scanned once per scene build.
+        # semi-transparent one, scanned per scene build and material update.
         self._material_flags = (False, False)
-        # Bumped when the single mesh's material row changes in place.
+        # Bumped when a material row changes in place.
         self._materials_epoch = 0
         # (key, shadow_map, shadow_overflow): reused while the scene, the
         # transforms, the materials, the texture pool and the light matrix
@@ -267,6 +347,7 @@ class Renderer:
         """Single-mesh path: one draw of `mesh` with `self.transform`."""
         self._single_mesh_key = self._register_mesh(mesh)
         self.draw_items = []
+        self._items_models_stale = False
         self._scene_dirty = True
 
     def material_mut(self) -> Material:
@@ -279,16 +360,40 @@ class Renderer:
     def register_mesh_handle(self, handle: int, mesh: Mesh) -> None:
         self.mesh_handles[int(handle)] = self._register_mesh(mesh)
 
+    def register_mesh_descriptor(self, handle: int, desc: MeshDescriptor) -> None:
+        self.register_mesh_handle(handle, Mesh.from_descriptor(desc))
+
     def register_material_handle(self, handle: int, material: Material) -> None:
+        """Edits land when a material is (re-)registered: the registry
+        version moves, so the next submit repacks the rows."""
         self.material_handles[int(handle)] = material
+        self._mat_registry_version += 1
 
     def submit_render_commands(self, commands: Sequence[RenderCommand]) -> None:
         """Build the draw list. An empty list falls back to the single mesh.
-        Every submit rebuilds the packed scene on the next frame (the
-        reference's transforms-only fast path is ROADMAP A16)."""
-        if not commands and not self.draw_items:
-            return  # already on the single-mesh fallback
+        A resubmit with the same mesh and material handles, in the same
+        order and under the same material-registry version, is a transforms
+        update: no scene rebuild, only the models move (update_transforms).
+        Anything else rebuilds the packed scene on the next frame."""
+        if commands:
+            sig = (
+                tuple(int(c.mesh) for c in commands),
+                tuple(-1 if c.material is None else int(c.material)
+                      for c in commands),
+                self._mat_registry_version,
+            )
+            if (sig == self._submit_sig and not self._scene_dirty
+                    and self._scene is not None
+                    and len(self.draw_items) == len(commands)):
+                self.update_transforms(np.stack(
+                    [np.asarray(c.transform, np.float32) for c in commands]))
+                return
+        else:
+            sig = None
+            if not self.draw_items:
+                return  # already on the single-mesh fallback
         items: List[DrawItem] = []
+        mat_handles: List[int] = []
         for cmd in commands:
             key = self.mesh_handles.get(int(cmd.mesh))
             if key is None:
@@ -303,8 +408,203 @@ class Renderer:
                 material=self._material_uniform(material,
                                                 self.mesh_registry[key]),
             ))
+            mat_handles.append(-1 if cmd.material is None else int(cmd.material))
         self.draw_items = items
+        # The new items carry their own transforms: a pending write-back of
+        # the old list's mirror must not land on them.
+        self._items_models_stale = False
+        self._draw_mat_handles = mat_handles
+        self._submit_sig = sig
         self._scene_dirty = True
+
+    # ------------------------------------------------------------------
+    # Dynamic scenes
+    # ------------------------------------------------------------------
+
+    def update_transforms(self, transforms) -> None:
+        """Replace the draws' model matrices without a scene rebuild:
+        `transforms` is an (N, 4, 4) array in submission order (N = draw
+        count) or a {draw index: (4, 4)} dict. Before the first frame it
+        only edits the draw items, which the scene build packs."""
+        items = self.draw_items
+        if not items:
+            raise InvalidOperation("update_transforms needs a submitted draw list")
+        n = len(items)
+        if isinstance(transforms, dict):
+            rows = {}
+            for i, m in transforms.items():
+                i = int(i)
+                if not 0 <= i < n:
+                    raise InvalidOperation(f"draw index {i} out of range")
+                rows[i] = np.asarray(m, np.float32).reshape(4, 4)
+        else:
+            arr = np.asarray(transforms, np.float32)
+            if arr.shape != (n, 4, 4):
+                raise InvalidOperation(
+                    f"transforms shape {arr.shape} != ({n}, 4, 4)")
+        if self._scene is None or self._scene_dirty:
+            if isinstance(transforms, dict):
+                for i, m in rows.items():
+                    items[i].model = m
+            else:
+                for i, it in enumerate(items):
+                    it.model = arr[i]
+            return
+        self._ensure_models_host()  # a TRS update may have left it stale
+        self._trs_pending = False  # the matrices are authoritative now
+        if isinstance(transforms, dict):
+            for i, m in rows.items():
+                self._models_host[i] = m
+                items[i].model = m
+        else:
+            self._models_host[:n] = arr
+            self._items_models_stale = True
+        self._models_moved()
+
+    def update_transforms_trs(self, translations, rotations, scales) -> None:
+        """update_transforms for rigid TRS animation: translations (N, 3),
+        rotation quaternions (N, 4, xyzw) and scales ((N,) uniform or
+        (N, 3)). The frame uploads these 10 floats a draw and composes the
+        matrices on the device (frame.models_from_trs) with the float
+        operations of core/maths.mat4_trs_batch, so the frame equals
+        update_transforms(mat4_trs_batch(t, q, s)) bit for bit."""
+        items = self.draw_items
+        if not items:
+            raise InvalidOperation(
+                "update_transforms_trs needs a submitted draw list")
+        n = len(items)
+        t = np.asarray(translations, np.float32).reshape(n, 3)
+        q = np.asarray(rotations, np.float32).reshape(n, 4)
+        s = np.asarray(scales, np.float32)
+        s = (np.repeat(s.reshape(n, 1), 3, axis=1) if s.size == n
+             else s.reshape(n, 3))
+        if self._scene is None or self._scene_dirty:
+            # Nothing built to upload into: compose on the host.
+            self.update_transforms(maths.mat4_trs_batch(t, q, s))
+            return
+        d_pad = self._scene.buffers.num_draws
+        if self._trs_host is None:
+            qp = np.zeros((d_pad, 4), np.float32)
+            qp[:, 3] = 1.0  # the identity pad, as build_models pads
+            self._trs_host = (np.zeros((d_pad, 3), np.float32), qp,
+                              np.ones((d_pad, 3), np.float32))
+        tp, qp, sp = self._trs_host
+        tp[:n], qp[:n], sp[:n] = t, q, s
+        self._trs_pending = True
+        self._trs_stale_host = True
+        self._items_models_stale = True
+        self._models_moved()
+
+    def _models_moved(self) -> None:
+        """After a transform update of a built scene: upload with the next
+        frame, re-key the shadow cache, refit the shadow volume."""
+        self._models_dirty = True
+        self._models_epoch += 1
+        self._refresh_scene_bounds()
+
+    def _ensure_models_host(self) -> None:
+        """Compose the host mirror from the TRS mirror where
+        update_transforms_trs left it stale (the bounds refit, a later
+        matrix update and item write-backs read it)."""
+        if self._trs_stale_host:
+            self._models_host[...] = maths.mat4_trs_batch(*self._trs_host)
+            self._trs_stale_host = False
+
+    def _sync_item_models(self) -> None:
+        """Write the mirror back onto the draw items before anything reads
+        item.model (a scene rebuild)."""
+        if not self._items_models_stale:
+            return
+        self._ensure_models_host()
+        self._items_models_stale = False
+        for i, it in enumerate(self.draw_items):
+            it.model = self._models_host[i]
+
+    def _refresh_scene_bounds(self) -> None:
+        """Refit the auto-fitted shadow volume to the moved draws: the world
+        AABB of each draw's local box (centre c, half extents e) under an
+        affine M is M c +- |M[:3, :3]| e. Skipped once set_scene_bounds
+        pinned the volume."""
+        scene = self._scene
+        if self.shadow_feature.bounds_pinned or scene.draw_center_host is None:
+            return
+        self._ensure_models_host()
+        m = self._models_host[:len(self.draw_items)]
+        c, e = scene.draw_center_host, scene.draw_extents_host
+        wc = np.einsum("dij,dj->di", m[:, :3, :3], c) + m[:, :3, 3]
+        we = np.einsum("dij,dj->di", np.abs(m[:, :3, :3]), e)
+        lo = (wc - we).min(axis=0)
+        hi = (wc + we).max(axis=0)
+        center = ((lo + hi) * 0.5).astype(np.float32)
+        scene.scene_center = center
+        scene.scene_radius = max(float(np.linalg.norm(hi - center)), 1e-3)
+        self.shadow_feature.auto_fit_bounds(center, scene.scene_radius)
+
+    def update_material(self, handle: int, material: Material) -> None:
+        """Re-register material `handle` and rewrite the packed rows of the
+        draws that use it, without a scene rebuild: the next frame shades
+        with the new factors."""
+        handle = int(handle)
+        self.register_material_handle(handle, material)
+        if not self.draw_items or self._draw_mat_handles is None:
+            return
+        rows = [i for i, h in enumerate(self._draw_mat_handles) if h == handle]
+        if not rows:
+            return
+        for i in rows:
+            it = self.draw_items[i]
+            it.material = self._material_uniform(
+                material, self.mesh_registry[it.mesh_key])
+        if self._scene is None or self._scene_dirty:
+            return  # the pending build packs the items
+        mats = np.zeros((self._scene.buffers.num_draws, MATERIAL_RECORD_SIZE),
+                        np.float32)
+        mats[:len(self.draw_items)] = np.stack(
+            [it.packed_material() for it in self.draw_items])
+        self._scene = dataclasses.replace(
+            self._scene, buffers=self._scene.buffers._replace(
+                materials=torch.from_numpy(mats).to(self.device)))
+        self._materials_epoch += 1
+        self._material_flags = self._material_scan(self.draw_items)
+        # The applied state now matches the bumped registry version, so the
+        # next identical submit stays on the fast path.
+        if self._submit_sig is not None:
+            self._submit_sig = (*self._submit_sig[:2],
+                                self._mat_registry_version)
+
+    def escalate_tile_capacities(self, main_overflow: int = 0,
+                                 shadow_overflow: int = 0) -> dict:
+        """Grow the per-tile binning caps to fit a measured overflow, so the
+        next frame drops no triangle: `overflow` is the worst tile's excess
+        over its cap, so each cap grows to the next power of two at or
+        above cap + overflow. The coarse cap rises to at least twice the
+        larger fine cap (a two-level overflow may come from the coarse
+        level), and the cached shadow map, which may hold drops, goes.
+        Returns {field: new value} for what changed."""
+        c = self.config
+        changed: dict = {}
+
+        def pow2(n: int) -> int:
+            p = 1
+            while p < n:
+                p *= 2
+            return p
+
+        if int(main_overflow) > 0:
+            c.max_tris_per_tile = pow2(c.max_tris_per_tile + int(main_overflow))
+            changed["max_tris_per_tile"] = c.max_tris_per_tile
+        if int(shadow_overflow) > 0:
+            c.shadow_max_tris_per_tile = pow2(
+                c.shadow_max_tris_per_tile + int(shadow_overflow))
+            changed["shadow_max_tris_per_tile"] = c.shadow_max_tris_per_tile
+        if changed:
+            coarse = max(c.binning_coarse_cap,
+                         2 * max(c.max_tris_per_tile, c.shadow_max_tris_per_tile))
+            if coarse != c.binning_coarse_cap:
+                c.binning_coarse_cap = coarse
+                changed["binning_coarse_cap"] = coarse
+            self._shadow_cache = None
+        return changed
 
     @staticmethod
     def _material_uniform(material: Material, mesh: Mesh) -> MaterialUniform:
@@ -428,22 +728,15 @@ class Renderer:
     def _taa_active(self) -> bool:
         return self.hdr_enabled and self.temporal_aa.is_enabled()
 
-    # Reference features on later slices.
+    # The reference's tiered XLA compilation has no counterpart in an eager
+    # port: nothing is ever pending and no pipeline is raced.
 
-    def set_msaa_preset(self, *args, **kwargs):
-        _unported("set_msaa_preset", "A15, MSAA")
+    @property
+    def pipeline_decisions(self) -> dict:
+        return {}
 
-    def set_occlusion_culling(self, *args, **kwargs):
-        _unported("set_occlusion_culling", "A14, Hi-Z occlusion")
-
-    def set_environment_map(self, *args, **kwargs):
-        _unported("set_environment_map", "A14, IBL")
-
-    def update_transforms(self, *args, **kwargs):
-        _unported("update_transforms", "A16, dynamic scenes")
-
-    def update_transforms_trs(self, *args, **kwargs):
-        _unported("update_transforms_trs", "A16, dynamic scenes")
+    def wait_pipeline_optimization(self, timeout: Optional[float] = None) -> bool:
+        return True
 
     # ------------------------------------------------------------------
     # Frame loop
@@ -489,6 +782,8 @@ class Renderer:
             shadow_tile=c.shadow_tile,
             shadow_tile_h=c.shadow_tile_h,
             shadow_max_tris_per_tile=c.shadow_max_tris_per_tile,
+            two_level_binning=c.two_level_binning,
+            binning_coarse_cap=c.binning_coarse_cap,
             binning_policy=c.binning_policy,
             shading=c.shading,
             clear_color=tuple(c.clear_color),
@@ -542,14 +837,8 @@ class Renderer:
         return self._lights_cache[1]
 
     def _build_scene(self, items: List[DrawItem]) -> None:
+        self._sync_item_models()
         scene = build_scene(items, self.mesh_registry, self.device)
-        if (self.config.two_level_binning is None
-                and scene.buffers.num_triangles > DENSE_BINNING_MAX_TRIS):
-            _unported(
-                f"a scene of {scene.buffers.num_triangles} padded triangles "
-                "(two-level binning; set two_level_binning=False to force "
-                "dense)", "A16",
-            )
         self._scene = scene
         self._scene_dirty = False
         self._scene_epoch += 1
@@ -558,9 +847,10 @@ class Renderer:
         self._single_mat_row = (
             items[0].packed_material() if self._single_mesh_key else None
         )
-        self._models = torch.from_numpy(
-            build_models(items, scene.buffers.num_draws)
-        ).to(self.device)
+        self._models_host = build_models(items, scene.buffers.num_draws)
+        self._models_dirty = True
+        self._trs_host = None
+        self._trs_pending = self._trs_stale_host = False
         # Fit the shadow volume to the scene (a no-op once the app pinned
         # it with set_scene_bounds) and refresh the light matrix.
         self.shadow_feature.auto_fit_bounds(scene.scene_center, scene.scene_radius)
@@ -568,8 +858,9 @@ class Renderer:
 
     def prepare_frame(self, view, proj, camera_pos) -> FrameInputs:
         """Bring the device scene up to date and upload the frame's
-        uniforms; everything render_frame's device work reads. With TAA on,
-        each call takes the next jitter of the sequence."""
+        uniforms and any moved models; everything render_frame's device
+        work reads. With TAA on, each call takes the next jitter of the
+        sequence."""
         size = self.surface.physical_size()
         if size != (self._width, self._height):
             # State shaped like the old surface goes with it.
@@ -586,8 +877,8 @@ class Renderer:
         if self._scene_dirty or self._scene is None:
             self._build_scene(items)
         elif not self.draw_items:
-            # Single-mesh path: material_mut() edits and transform changes
-            # land without a scene rebuild.
+            # Single-mesh path: material_mut() edits land without a scene
+            # rebuild.
             row = items[0].packed_material()
             if not np.array_equal(row, self._single_mat_row):
                 mats = self._scene.buffers.materials.clone()
@@ -598,9 +889,6 @@ class Renderer:
                 )
                 self._single_mat_row = row
                 self._materials_epoch += 1
-            self._models = torch.from_numpy(
-                build_models(items, self._scene.buffers.num_draws)
-            ).to(self.device)
 
         view = np.asarray(view, np.float32)
         proj = np.asarray(proj, np.float32)
@@ -653,24 +941,41 @@ class Renderer:
             count = self.csm_manager.config.cascade_count
             parts["cascade_matrices"] = gpu.light_matrices[:count]
             parts["cascade_splits"] = gpu.split_distances
-        prev_models = None
         if taa_params is not None:
             # On the first TAA frame the current matrices stand in for the
-            # previous ones: zero velocity, right for a fresh history. So
-            # do the current models after a change of the draw count.
+            # previous ones: zero velocity, right for a fresh history.
             parts["prev_view_proj"] = (
                 self._prev_view_proj if self._prev_view_proj is not None
                 else self._unjittered_view_proj)
+        # The models ride in the same copy: every frame on the single-mesh
+        # path (its transform may change each frame), after a build or an
+        # update on the multi-draw path, as matrices or as TRS.
+        if not self.draw_items:
+            parts["models"] = build_models(items, self._scene.buffers.num_draws)
+        elif self._models_dirty and self._trs_pending:
+            parts.update(zip(("trs_t", "trs_q", "trs_s"), self._trs_host))
+        elif self._models_dirty:
+            parts["models"] = self._models_host
+        # One host->device copy for all per-frame constants.
+        dev = self._upload(parts)
+        if "models" in dev:
+            self._models = dev.pop("models")
+        elif "trs_t" in dev:
+            self._models = models_from_trs(dev.pop("trs_t"), dev.pop("trs_q"),
+                                           dev.pop("trs_s"))
+        self._models_dirty = False
+        prev_models = None
+        if taa_params is not None:
+            # So do the current models after a change of the draw count.
             prev_models = (
                 self._prev_models if self._prev_models is not None
                 and self._prev_models.shape == self._models.shape
                 else self._models)
-        # One host->device copy for all per-frame constants.
-        uni = FrameUniforms(models=self._models, prev_models=prev_models,
-                            **self._upload(parts))
-        # The multi-draw scan is cached per scene build; the single mesh is
-        # rescanned every frame, so a material_mut() alpha edit blends (or
-        # alpha-tests) on the next frame without a rebuild.
+        uni = FrameUniforms(models=self._models, prev_models=prev_models, **dev)
+        # The multi-draw scan is cached per scene build and material
+        # update; the single mesh is rescanned every frame, so a
+        # material_mut() alpha edit blends (or alpha-tests) on the next
+        # frame without a rebuild.
         any_cutoff, blend = (self._material_flags if self.draw_items
                              else self._material_scan(items))
         pool = self.bindless.pool()
@@ -706,13 +1011,14 @@ class Renderer:
     def _external_shadow(self, inputs: FrameInputs) -> tuple:
         """Render (or reuse) the shadow map. The key covers everything the
         shadow pass reads: the shadow-shaping config, the geometry (scene
-        epoch), the transforms (fixed per scene epoch on the multi-draw
-        path; the raw matrix on the single-mesh path), the materials and
-        the texture pool (the alpha test samples them) and the light
-        matrix, or with CSM the cascade matrices. Those are fitted to the
+        epoch), the transforms (the models epoch on the multi-draw path,
+        the raw matrix on the single-mesh path), the materials and the
+        texture pool (the alpha test samples them) and the light matrix,
+        or with CSM the cascade matrices. Those are fitted to the
         unjittered camera, so the TAA jitter alone keeps the map."""
-        mkey = None
-        if not self.draw_items:
+        if self.draw_items:
+            mkey = self._models_epoch
+        else:
             mkey = np.ascontiguousarray(self.transform.model_matrix()).tobytes()
         cfg = inputs.config
         if cfg.shadow_cascades > 1:
@@ -728,6 +1034,7 @@ class Renderer:
         # it.
         shape = (cfg.shadow_resolution, cfg.shadow_cascades, cfg.shadow_tile,
                  cfg.shadow_rows, cfg.shadow_max_tris_per_tile,
+                 cfg.two_level_binning, cfg.binning_coarse_cap,
                  cfg.binning_policy, cfg.textured, cfg.alpha_test)
         sampled = ((self._materials_epoch, self.bindless.version)
                    if cfg.alpha_test else None)
@@ -735,6 +1042,7 @@ class Renderer:
         cache = self._shadow_cache
         if cache is not None and cache[0] == key:
             return cache[1], cache[2]
+        self._shadow_cache = None  # free the stale map before the new one
         sm, sof = shadow_program(
             cfg, inputs.scene.buffers, inputs.uniforms.models,
             inputs.uniforms.light_space_matrix, inputs.pool,
@@ -782,3 +1090,9 @@ class Renderer:
     def read_back(self) -> Optional[np.ndarray]:
         """The last frame's (H, W, 4) uint8 image on the host."""
         return self._last_image
+
+
+# Reference methods of later slices.
+for _name, _item in UNPORTED_METHODS.items():
+    setattr(Renderer, _name, _refuse(_name, _item))
+del _name, _item

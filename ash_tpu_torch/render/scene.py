@@ -12,7 +12,7 @@ inputs.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, NamedTuple
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -94,6 +94,10 @@ class BuiltScene:
     scene_center: np.ndarray
     scene_radius: float
     has_lods: bool = False
+    # Per-draw local bounds on the host, for the bounds refit after a
+    # transform update (no device readback).
+    draw_center_host: Optional[np.ndarray] = None  # (D, 3)
+    draw_extents_host: Optional[np.ndarray] = None  # (D, 3)
 
 
 def _pack_mesh(mesh: Mesh) -> tuple:
@@ -236,6 +240,8 @@ def pack_scene(draw_items: List[DrawItem], meshes: Dict[str, Mesh]):
         scene_center=center,
         scene_radius=max(float(np.linalg.norm(hi - center)), 1e-3),
         has_lods=has_lods,
+        draw_center_host=centers,
+        draw_extents_host=extents,
     )
     return buffers, meta
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's standard, glass, textured, lit and rich frames
-on one NVIDIA GPU.
+"""Drive the PyTorch port's standard, glass, textured, lit, rich, animated
+and 1M-triangle frames on one NVIDIA GPU.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It needs one CUDA device and `nvcc`; it exits non-zero without a result when
@@ -22,7 +22,10 @@ fails. Phases, one stdout line each:
    y0 band, and the 2048^2 shadow shapes at 2 layers. Then the small bench
    and small glass scenes at 192x128 with 16x32 tiles (one layer, 4
    layers, 4 under a floor), and seeded random triangles at 1080p whose
-   bins hold near-plane crossers and grazing triangles (one layer, 4);
+   bins hold near-plane crossers and grazing triangles (one layer, 4).
+   Then the one-layer kernel on the mega frame's own main (1080p, 32x128
+   tiles) and shadow (2048^2, 32x128) passes, two-level binned, at the base
+   caps of 8192 and at the caps the escalation reaches, the whole targets;
 4. the slice: the standard frame (1000 instanced PBR cubes, bench.py's
    recipe) rendered at 1920x1080 through ash_tpu_torch.Renderer: the
    one-layer kernel runs twice on frame 1 and once per static frame after
@@ -54,14 +57,29 @@ fails. Phases, one stdout line each:
    the native frame 8: its PSNR and its gain over its own first frame. The
    seven golden scenes reach PSNR >= 40 dB against tests/golden/, and the
    small bench, glass, textured, lit and rich scenes on the card against
-   the port's CPU render;
+   the port's CPU render. Then the animated frame (bench.py --animate: 8
+   poses of update_transforms_trs and the orbiting camera after frame 1):
+   the one-layer kernel runs twice every frame (the moved scene re-renders
+   its shadow map), no overflow, every pose changes the image, frame N
+   equals frame N of a plain-raster renderer and of a renderer fed
+   update_transforms(mat4_trs_batch(...)), and resubmitting the same
+   handles with submit_render_commands builds the scene once and equals
+   update_transforms. Then the mega frame (bench.py --mega: 1,002,528
+   triangles): overflow at the base caps, escalate_tile_capacities until
+   nothing drops (at most 4 rounds), the final caps, the base-cap image's
+   PSNR against the drop-free one, and the drop-free frame against the
+   plain-raster frame;
 5. times (CUDA events) and peak device memory: static frame, frame with a
    shadow re-render, the glass frames, the textured frame (static, with a
    shadow re-render, and at anisotropy 1 for scale), the lit frame, the
-   rich frame (static, with a shadow re-render, at render_scale=0.5); then,
+   rich frame (static, with a shadow re-render, at render_scale=0.5), the
+   animated frame (median, min and max of 30 poses) and the mega frame
+   (8 frames at the drop-free caps and at the base caps), with kernels and
+   copies per frame (torch.profiler) for the last two; then,
    at each kernel shape of the main path (1080p one layer, 2048^2 one
    layer, the three 1024^2 cascades, 1080p K = 2, 4, 8 and K = 4 under a
-   floor): the
+   floor, the mega frame's four passes, which add the time with only the
+   heaviest tile's list left): the
    wrapper-loop time (50 calls of raster_cuda.rasterize, host work
    included; the `ms` of the kernels line, as in earlier versions), the
    device time (`graph_ms`: a CUDA graph of bare launches), the device time
@@ -72,6 +90,7 @@ fails. Phases, one stdout line each:
 Then one JSON line on the kernels and, last, the device JSON line.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -198,9 +217,8 @@ def work(setup, bins, height, width, tile_h, tile_w, y0=0, layers=1,
 
     from ash_tpu_torch.ops import raster
 
-    rects = raster.candidate_rects(setup, height, width, y0)
+    rects = raster.candidate_rects(setup, height, width, y0).long()
     rh, rw = raster.WARP_RECT
-    wb = raster.warp_bins(bins, rects, height, width, tile_h, tile_w)
     tx = -(-width // tile_w)
     ids = bins.tri_ids.long()
     slot = torch.arange(ids.shape[1], device=ids.device)[None, :]
@@ -218,6 +236,18 @@ def work(setup, bins, height, width, tile_h, tile_w, y0=0, layers=1,
     n = ((last_c - first_c + 1).clamp_min(0)
          * (last_r - first_r + 1).clamp_min(0))
     needed = int(torch.where(live, n, torch.zeros_like(n)).sum())
+    # The kernel's warps own aligned rh x rw rectangles of the tile; a
+    # candidate is evaluated by each warp its rectangle overlaps
+    # (raster.warp_bins, counted without building its lists).
+    rc = rects[ids.clamp_min(0)]  # (tiles, K, 4)
+    c0 = torch.maximum(rc[..., 0], x0.long())
+    c1 = torch.minimum(rc[..., 2], torch.clamp(x0.long() + tile_w,
+                                               max=width) - 1)
+    q0 = torch.maximum(rc[..., 1], r0.long())
+    q1 = torch.minimum(rc[..., 3], torch.clamp(r0.long() + tile_h,
+                                               max=height) - 1)
+    warps = ((c1 // rw - c0 // rw + 1) * (q1 // rh - q0 // rh + 1))
+    warps = torch.where(live & (c0 <= c1) & (q0 <= q1), warps, 0)
     out_bytes = layers * height * width * 8
     in_bytes = (bins.counts.numel() * 4 + int(live.sum()) * 4
                 + int(torch.unique(ids[live]).numel()) * RECORD_BYTES
@@ -226,7 +256,7 @@ def work(setup, bins, height, width, tile_h, tile_w, y0=0, layers=1,
     mem_ms = (out_bytes + in_bytes) / MEM_RATE * 1e3
     ops_ms = ops / F32_RATE * 1e3
     return {
-        "pairs_tested": int(wb.counts.sum()) * rh * rw,
+        "pairs_tested": int(warps.sum()) * rh * rw,
         "pairs_tile": int(bins.counts.sum()) * tile_h * tile_w,
         "pairs_needed": needed,
         "bytes": out_bytes + in_bytes,
@@ -322,6 +352,43 @@ def synthetic_setup(width, height, seed=11):
     )
 
 
+def frame_ms_spread(step, n):
+    """(median, min, max) of n frames timed as frame_ms times them, and the
+    peak device MiB over them."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(i)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return ((statistics.median(times), min(times), max(times)),
+            torch.cuda.max_memory_allocated() / 2**20)
+
+
+def device_ops_per_frame(step, n=2):
+    """Kernels and copies the device ran per frame over n frames of step,
+    from torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            step(i)
+        torch.cuda.synchronize()
+    work = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    return sum(e.count for e in work) / n
+
+
 def frame_ms_mem(step, n):
     """(frame_ms(step, n), peak device MiB over those frames)."""
     import torch
@@ -410,8 +477,13 @@ def main() -> int:
 
     import ash_tpu_torch
     from ash_tpu_torch.ops import _build, binning, raster, raster_cuda
-    from ash_tpu_torch.render import frame, golden_scenes
-    from ash_tpu_torch.render.bench_scene import build_bench_renderer
+    from ash_tpu_torch.render import RenderCommand, frame, golden_scenes
+    from ash_tpu_torch.core import maths
+    from ash_tpu_torch.render import bench_scene
+    from ash_tpu_torch.render.bench_scene import (
+        build_bench_renderer,
+        build_mega_renderer,
+    )
 
     # 1. Device.
     smi = subprocess.run(
@@ -552,6 +624,59 @@ def main() -> int:
             check(tid_bad == 0 and depth_bad == 0,
                   f"kernel != plain on {name}, {layers} layers")
             check(covered[0] > 0, f"{name}: nothing covered")
+
+    # B1 on the mega frame's own passes (1,002,528 triangles, two-level
+    # binning, 32x128 tiles) at the base caps of 8192 and at the caps the
+    # escalation reaches. The plain raster walks all K slots, so it is timed
+    # here once (phase 5 does not repeat it at these shapes).
+    rm, _, mcam, mega_tris = build_mega_renderer(1920, 1080, "cuda")
+    mega = {"base": pass_inputs(rm, mcam)}
+    mega_caps = {"base": (rm.config.max_tris_per_tile,
+                          rm.config.shadow_max_tris_per_tile)}
+    escalated = rm.escalate_tile_capacities(
+        int(mega["base"]["main"][1].overflow),
+        int(mega["base"]["shadow"][1].overflow))
+    check(escalated, "the mega frame's base caps drop nothing")
+    mega["escalated"] = pass_inputs(rm, mcam)
+    mega_caps["escalated"] = (rm.config.max_tris_per_tile,
+                              rm.config.shadow_max_tris_per_tile)
+    del rm
+    plain_once = {}
+    for level in ("base", "escalated"):
+        for pas in ("main", "shadow"):
+            args = mega[level][pas]
+            name = f"mega {pas} K={args[1].tri_ids.shape[1]}"
+            passes[name] = args
+            h, w, th, tw = args[2:6]
+            rects_bad = int((raster_cuda.device_rects(args[0], h, w)
+                             != raster.candidate_rects(args[0], h, w)).sum())
+            check(rects_bad == 0, f"kernel rectangles != candidate_rects "
+                  f"on {name}")
+            got = raster_cuda.rasterize(*args)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = raster.rasterize(*args)
+            end.record()
+            end.synchronize()
+            plain_once[name] = start.elapsed_time(end)
+            tid_bad = int((got.tri_id != want.tri_id).sum())
+            depth_bad = int((got.depth != want.depth).sum())
+            err = float((got.depth - want.depth).abs().max())
+            max_err = max(max_err, err)
+            counts = args[1].counts
+            print(f"phase3 {name}: {w}x{h} tiles {th}x{tw} (the whole "
+                  f"target): tri_id mismatches {tid_bad}, depth mismatches "
+                  f"{depth_bad}, max |depth err| {err}, rectangles unequal "
+                  f"to candidate_rects {rects_bad}, covered "
+                  f"{int((got.tri_id >= 0).sum())}, max tile count "
+                  f"{int(counts.max())} (tile {int(counts.argmax())}), "
+                  f"candidates {int(counts.sum())}, overflow "
+                  f"{int(args[1].overflow)}; plain raster {plain_once[name]:.0f}"
+                  " ms", flush=True)
+            check(tid_bad == 0 and depth_bad == 0, f"kernel != plain on {name}")
+            del got, want
+    mega_names = [n for n in passes if n.startswith("mega ")]
 
     # 4. The slice, through the renderer; count the kernels' launches on
     # each path from 0.
@@ -784,6 +909,141 @@ def main() -> int:
     check(taau_psnr >= 26.0, f"TAA upsampling at {taau_psnr:.2f} dB against "
           "the native frame after 8 frames, want 26")
 
+    # The animated standard frame (bench.py --animate): every pose is a
+    # TRS update and an orbiting camera, so the shadow map re-renders
+    # every frame. Beside it, with the same poses: a renderer fed the
+    # host-composed matrices, one on the plain raster, and the fast path
+    # of submit_render_commands against update_transforms.
+    def animated(step_renderer, poses, feed, plain=False):
+        """Render the first frame and `poses` poses of step_renderer fed by
+        feed(r, ft) -> ([image per frame], [B1 launches per frame],
+        [(main, shadow) overflow per frame], renderer)."""
+        ra, _, acam, anim = step_renderer
+        images, b1, overflow = [], [], []
+        ft = 0.0
+        ctx = (mock.patch.object(frame, "rasterize", raster.rasterize)
+               if plain else contextlib.nullcontext())
+        with ctx:
+            for i in range(poses + 1):
+                if i:
+                    ft += 1.0 / 60.0
+                    feed(ra, anim, ft)
+                aview = bench_scene.orbit_camera(acam, anim["extent"], ft)
+                before = raster_cuda.rasterize.launches
+                o = ra.render_frame(aview, proj, acam.position)
+                b1.append(raster_cuda.rasterize.launches - before)
+                overflow.append((int(o.binning_overflow),
+                                 int(o.shadow_overflow)))
+                images.append(ra.read_back().copy())
+        return images, b1, overflow, ra
+
+    def feed_trs(ra, anim, ft):
+        ra.update_transforms_trs(*bench_scene.animated_models_trs(anim, ft))
+
+    def feed_trs_matrices(ra, anim, ft):
+        t, q, s = bench_scene.animated_models_trs(anim, ft)
+        ra.update_transforms(maths.mat4_trs_batch(
+            t, q, np.repeat(s[:, None], 3, axis=1)))
+
+    def feed_matrices(ra, anim, ft):
+        ra.update_transforms(bench_scene.animated_models(anim, ft))
+
+    def feed_submit(ra, anim, ft):
+        m = bench_scene.animated_models(anim, ft)
+        ra.submit_render_commands([
+            RenderCommand(mesh=0, transform=m[i], material=i + 1)
+            for i in range(m.shape[0])])
+
+    def anim_renderer():
+        return build_bench_renderer(1920, 1080, 1000, "cuda", animate=True)
+
+    ANIM_POSES = 8
+    raster_cuda.rasterize.launches = 0
+    raster_cuda.rasterize.layer_launches = 0
+    anim_main = anim_renderer()
+    a_images, a_b1, a_over, _ = animated(anim_main, ANIM_POSES, feed_trs)
+    launches["animated"] = raster_cuda.rasterize.launches
+    layer_launches["animated"] = raster_cuda.rasterize.layer_launches
+    check(a_b1 == [2] * (ANIM_POSES + 1),
+          f"animated: one-layer launches per frame {a_b1}")
+    check(layer_launches["animated"] == 0, "animated: the peel ran")
+    check(a_over == [(0, 0)] * (ANIM_POSES + 1),
+          f"animated: overflow per frame {a_over}")
+    a_moving = sum(not np.array_equal(a, b)
+                   for a, b in zip(a_images, a_images[1:]))
+    check(a_moving == ANIM_POSES, f"animated: {a_moving} of {ANIM_POSES} "
+          "poses changed the image")
+    m_images = animated(anim_renderer(), ANIM_POSES, feed_trs_matrices)[0]
+    trs_equal = [bool(np.array_equal(a, b))
+                 for a, b in zip(a_images, m_images)]
+    check(all(trs_equal), f"animated: TRS frames != host-composed matrix "
+          f"frames: {trs_equal}")
+    p_images = animated(anim_renderer(), ANIM_POSES, feed_trs, plain=True)[0]
+    a_plain_equal = [bool(np.array_equal(a, b))
+                     for a, b in zip(a_images, p_images)]
+    check(all(a_plain_equal), f"animated: frame N with the kernel != frame "
+          f"N with the plain raster: {a_plain_equal}")
+    u_images = animated(anim_renderer(), ANIM_POSES, feed_matrices)[0]
+    s_images, _, _, rsub = animated(anim_renderer(), ANIM_POSES, feed_submit)
+    sub_builds = rsub._scene_epoch
+    check(sub_builds == 1, f"animated: {sub_builds} scene builds through "
+          "the resubmits, want 1 (the fast path)")
+    sub_equal = [bool(np.array_equal(a, b))
+                 for a, b in zip(s_images, u_images)]
+    check(all(sub_equal), f"animated: resubmit frames != update_transforms "
+          f"frames: {sub_equal}")
+    del m_images, p_images, u_images, s_images, rsub
+
+    # The mega frame (bench.py --mega): base caps, then the escalation
+    # loop of bench.py:734-748 until nothing drops.
+    raster_cuda.rasterize.launches = 0
+    raster_cuda.rasterize.layer_launches = 0
+    rmega, _, mcam, _ = build_mega_renderer(1920, 1080, "cuda")
+    margs = (mcam.view_matrix(), mcam.projection_matrix(), mcam.position)
+    mo = rmega.render_frame(*margs)
+    mega_base_image = rmega.read_back().copy()
+    mega_rounds = [(int(mo.binning_overflow), int(mo.shadow_overflow))]
+    mega_b1 = [raster_cuda.rasterize.launches]
+    check(mega_rounds[0] != (0, 0), "mega: nothing drops at the base caps")
+    mega_changes = []
+    for _ in range(4):
+        changed = rmega.escalate_tile_capacities(*mega_rounds[-1])
+        if not changed:
+            break
+        mega_changes.append(changed)
+        before = raster_cuda.rasterize.launches
+        mo = rmega.render_frame(*margs)
+        mega_b1.append(raster_cuda.rasterize.launches - before)
+        mega_rounds.append((int(mo.binning_overflow),
+                            int(mo.shadow_overflow)))
+        if mega_rounds[-1] == (0, 0):
+            break
+    launches["mega"] = raster_cuda.rasterize.launches
+    layer_launches["mega"] = raster_cuda.rasterize.layer_launches
+    mega_image = rmega.read_back().copy()
+    check(mega_rounds[-1] == (0, 0), f"mega: overflow after escalation "
+          f"{mega_rounds}")
+    check(mega_b1 == [2] * len(mega_rounds), f"mega: one-layer launches "
+          f"per frame {mega_b1}")
+    check(layer_launches["mega"] == 0, "mega: the peel ran")
+    check(bool(torch.isfinite(mo.color).all()), "mega: non-finite colour")
+    mega_final_caps = {k: getattr(rmega.config, k) for k in (
+        "max_tris_per_tile", "shadow_max_tris_per_tile", "binning_coarse_cap")}
+    check((mega_final_caps["max_tris_per_tile"],
+           mega_final_caps["shadow_max_tris_per_tile"])
+          == mega_caps["escalated"], "mega: phase 3 escalated elsewhere")
+    mega_psnr = ash_tpu_torch.psnr(mega_base_image, mega_image)
+    mega_covered = int(mo.covered_pixels)
+    rmega_plain, _, _, _ = build_mega_renderer(1920, 1080, "cuda",
+                                               **mega_final_caps)
+    with mock.patch.object(frame, "rasterize", raster.rasterize):
+        rmega_plain.render_frame(*margs)
+    mega_plain_equal = bool(np.array_equal(rmega_plain.read_back(),
+                                           mega_image))
+    check(mega_plain_equal, "mega: drop-free frame with the kernel != "
+          "plain-raster frame")
+    del rmega_plain
+
     goldens = {}
     for name, scene_fn in golden_scenes.SCENES.items():
         golden = ash_tpu_torch.read_png(
@@ -853,7 +1113,59 @@ def main() -> int:
           f"{taau_psnr:.2f} dB after 8 frames, {taau_first:.2f} dB after 1",
           flush=True)
 
+    print(f"phase4 animated frame: 1920x1080, 1000 cubes, {ANIM_POSES} "
+          f"poses of update_transforms_trs + orbit_camera after frame 1: "
+          f"one-layer launches per frame {a_b1}, peel 0; overflow (main, "
+          f"shadow) per frame {a_over}; frame N equal to the plain-raster "
+          f"frame N: {a_plain_equal}; TRS frames equal to "
+          f"update_transforms(mat4_trs_batch(...)) frames: {trs_equal}; "
+          f"submit_render_commands resubmits: {sub_builds} scene build, "
+          f"frames equal to update_transforms frames: {sub_equal}",
+          flush=True)
+    print(f"phase4 mega frame: 1920x1080, {mega_tris} triangles, two-level "
+          f"binning: overflow (main, shadow) per round {mega_rounds}; "
+          f"escalations {mega_changes}; final caps {mega_final_caps}; "
+          f"one-layer launches per frame {mega_b1}; covered {mega_covered}; "
+          f"base-cap image against the drop-free image {mega_psnr:.2f} dB; "
+          f"drop-free frame equal to the plain-raster frame: "
+          f"{mega_plain_equal}", flush=True)
+
     # 5. Times.
+    timed = {}
+    # B1 on the mega frame's passes: the plain raster was timed once in
+    # phase 3. Besides the whole launch, the launch with only the heaviest
+    # tile's list left: if it takes most of the time, the kernel's time
+    # follows the worst tile, not the pairs.
+    for name in mega_names:
+        args = passes[name]
+        bins = args[1]
+        launch, _, _ = raster_cuda.launcher(*args[:6])
+        empty = bins._replace(counts=torch.zeros_like(bins.counts))
+        launch_empty, _, _ = raster_cuda.launcher(args[0], empty, *args[2:6])
+        worst = int(bins.counts.argmax())
+        only = torch.arange(bins.counts.numel(), device=bins.counts.device)
+        worst_bins = bins._replace(counts=torch.where(
+            only == worst, bins.counts, torch.zeros_like(bins.counts)))
+        launch_worst, _, _ = raster_cuda.launcher(args[0], worst_bins,
+                                                  *args[2:6])
+        row = work(*args[:6])
+        row.update(
+            wrapper_ms=cuda_ms(lambda: raster_cuda.rasterize(*args[:6]), 10),
+            device_ms=statistics.mean([graph_ms(launch), graph_ms(launch)]),
+            clear_ms=graph_ms(launch_empty),
+            worst_tile_ms=graph_ms(launch_worst),
+            worst_tile_count=int(bins.counts[worst]),
+            worst_tile_pairs_tested=work(args[0], worst_bins,
+                                         *args[2:6])["pairs_tested"],
+            plain_ms=plain_once[name], size=f"{args[3]}x{args[2]}")
+        row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+        timed[name, 1, False] = row
+    # The mega passes' inputs (1M-triangle setups, bins of up to 32768
+    # slots) are freed before the frames are timed.
+    for name in mega_names:
+        del passes[name]
+    del mega, args, bins, empty, worst_bins, launch, launch_empty, launch_worst
+
     mem = {}
     static_ms, mem["standard"] = frame_ms_mem(
         lambda i: r.render_frame(view, proj, pos), 20)
@@ -888,10 +1200,35 @@ def main() -> int:
         rich_shadow_frame, 6)
     rich_half_ms, mem["rich, render_scale 0.5"] = frame_ms_mem(
         lambda i: r_half.render_frame(view, proj, pos), 10)
+    # The animated frame: the next pose at t += 1/60 per frame, as bench.py
+    # times it; the mega frame at its drop-free caps and at the base caps.
+    clock = [1.0]
+    ra, _, acam, anim = anim_main
+
+    def animated_frame(i):
+        clock[0] += 1.0 / 60.0
+        ra.update_transforms_trs(*bench_scene.animated_models_trs(
+            anim, clock[0]))
+        ra.render_frame(bench_scene.orbit_camera(acam, anim["extent"],
+                                                 clock[0]),
+                        proj, acam.position)
+
+    animated_frame(0)
+    anim_ms, mem["animated"] = frame_ms_spread(animated_frame, 30)
+    anim_ops = device_ops_per_frame(animated_frame)
+    rmega.render_frame(*margs)
+    mega_ms, mem["mega, drop-free caps"] = frame_ms_spread(
+        lambda i: rmega.render_frame(*margs), 8)
+    mega_ops = device_ops_per_frame(lambda i: rmega.render_frame(*margs))
+    del rmega
+    rbase, _, _, _ = build_mega_renderer(1920, 1080, "cuda")
+    rbase.render_frame(*margs)
+    mega_base_ms, mem["mega, base caps"] = frame_ms_spread(
+        lambda i: rbase.render_frame(*margs), 8)
+    del rbase
     # Each kernel shape of the main path: the wrapper loop, the device time
     # of bare launches (and with every list empty), the plain raster (plain,
     # kernel, kernel, plain) and the work from the inputs.
-    timed = {}
     for name, layers, with_floor in SHAPES:
         args = passes[name]
         kw = dict(y0=args[6], layers=layers,
@@ -924,9 +1261,30 @@ def main() -> int:
           f"lit frame {lit_ms} ms (medians of 10); rich frame {rich_ms} ms, "
           f"with shadow re-render {rich_shadow_ms} ms (median of 6), at "
           f"render_scale 0.5 {rich_half_ms} ms", flush=True)
+    print(f"phase5 A16 times on {card}: animated frame {anim_ms[0]} ms "
+          f"(median of 30 poses, min {anim_ms[1]}, max {anim_ms[2]}), "
+          f"{anim_ops:g} kernels and copies per frame; mega frame at the "
+          f"drop-free caps {mega_ms[0]} ms (median of 8, min {mega_ms[1]}, "
+          f"max {mega_ms[2]}), {mega_ops:g} kernels and copies per frame; at "
+          f"the base caps {mega_base_ms[0]} ms (median of 8, min "
+          f"{mega_base_ms[1]}, max {mega_base_ms[2]})", flush=True)
     print("phase5 peak device memory (MiB): " + ", ".join(
         f"{k} {v:.1f}" for k, v in mem.items()), flush=True)
+    for name in mega_names:
+        row = timed[name, 1, False]
+        print(f"phase5 kernel {name} {row['size']}: device {row['device_ms']} ms "
+              f"(every list empty: {row['clear_ms']} ms; only the heaviest "
+              f"tile's list, {row['worst_tile_count']} candidates, "
+              f"{row['worst_tile_pairs_tested']} pairs: "
+              f"{row['worst_tile_ms']} ms), wrapper loop {row['wrapper_ms']} "
+              f"ms, plain {row['plain_ms']} ms (one call); pairs evaluated "
+              f"{row['pairs_tested']} (every candidate at every tile pixel: "
+              f"{row['pairs_tile']}, in the bbox: {row['pairs_needed']}); "
+              f"bound {row['bound_ms']} ms by {row['bound_by']}, "
+              f"{100 * row['share_of_bound']:.1f}% of it", flush=True)
     for (name, layers, with_floor), row in timed.items():
+        if name in mega_names:
+            continue
         h, w = passes[name][2:4]
         print(f"phase5 kernel {name} {w}x{h} layers={layers} "
               f"floor={with_floor}: device {row['device_ms']} ms (every "
@@ -968,7 +1326,8 @@ def main() -> int:
         kernel_line("raster", "ash_tpu/ops/raster_pallas.py:106", launches,
                     max_err, ("main", 1, False),
                     [("main", 1, False), ("shadow", 1, False),
-                     *((c, 1, False) for c in CASCADES)]),
+                     *((c, 1, False) for c in CASCADES),
+                     *((n, 1, False) for n in mega_names)]),
         kernel_line("raster_layers", "ash_tpu/ops/raster_pallas.py:138",
                     layer_launches, max_err_layers, ("main", 4, False),
                     [("main", 2, False), ("main", 4, False),

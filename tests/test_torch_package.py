@@ -129,7 +129,7 @@ def test_missing_nvcc_raises(monkeypatch):
 @pytest.mark.parametrize("option,value", [
     ("max_draws_per_chunk", 100),
     ("msaa_resolve", "edge"),
-    ("two_level_binning", True),
+    ("shade_dtype", "bf16"),
 ])
 def test_unported_config_raises(option, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -138,7 +138,7 @@ def test_unported_config_raises(option, value):
 
 @pytest.mark.parametrize("method", [
     "set_msaa_preset", "set_occlusion_culling", "set_environment_map",
-    "update_transforms", "update_transforms_trs",
+    "lod_stats", "msaa_preset",
 ])
 def test_unported_renderer_method_raises(method):
     r = Renderer(HeadlessSurface(16, 16), device="cpu")
@@ -196,12 +196,23 @@ def _cam_args():
     return cam.view_matrix(), cam.projection_matrix(), cam.position
 
 
-def test_large_scene_needs_two_level_binning():
+def test_large_scene_needs_two_level_binning(monkeypatch):
+    """Above 32768 padded triangles the automatic switch bins in two
+    levels, and the frame renders."""
+    from ash_tpu_torch.ops import binning
+    from ash_tpu_torch.render import frame
+
+    calls = []
+    two_level = binning.bin_triangles_two_level
+    monkeypatch.setattr(frame.binning, "bin_triangles_two_level",
+                        lambda *a, **k: calls.append(k) or two_level(*a, **k))
     r = Renderer(HeadlessSurface(32, 32), RendererConfig(shadows_enabled=False),
                  device="cpu")
     r.register_mesh_handle(0, Mesh.create_cube())
     r.submit_render_commands(
         [RenderCommand(mesh=0, transform=np.eye(4, dtype=np.float32))] * 2800
     )
-    with pytest.raises(NotImplementedError, match="A16"):
-        r.render_frame(*_cam_args())
+    out = r.render_frame(*_cam_args())
+    assert r._scene.buffers.num_triangles == 65536
+    assert [k["coarse_cap"] for k in calls] == [16384]
+    assert int(out.covered_pixels) > 0

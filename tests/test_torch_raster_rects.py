@@ -256,6 +256,64 @@ def test_rects_conservative_on_slivers_far_from_origin():
     assert slack > 2.0, slack
 
 
+def _sliver_tips(width, height, perspective, seed, rows=64, t=400):
+    """Slivers 0.006-0.06 px thin and 20-200 px long, each pointing along
+    a pixel row of a band at the bottom of a width x height target, its
+    tip 0.2-3 px short of a pixel centre -> (setup, y0, rows). At such a
+    centre both long edge functions are nearly 0 while their terms are
+    large, so their f32 rounding alone decides whether it is covered."""
+    rng = np.random.default_rng(seed)
+    y0 = height - rows
+    yc = rng.integers(y0 + 2, y0 + rows - 2, t) + 0.5
+    gap = rng.uniform(0.2, 3.0, t)
+    xt = rng.integers(210, width - 4, t) + 0.5 - gap
+    length = rng.uniform(20.0, 200.0, (t, 1))
+    half = rng.uniform(0.003, 0.03, (t, 1))
+    tip = np.stack([xt, yc], 1)
+    base = tip - length * [1.0, 0.0]
+    pix = np.stack([tip, base - half * [0.0, 1.0], base + half * [0.0, 1.0]],
+                   1)
+    ndc = pix / [width / 2.0, height / 2.0] - 1.0
+    w = (rng.uniform(0.5, 4.0, (t, 1)) if perspective else np.ones((t, 1)))
+    clip = np.concatenate([ndc * w[..., None], np.broadcast_to(
+        0.5 * w[..., None], (t, 3, 1)), np.broadcast_to(w[..., None],
+                                                         (t, 3, 1))], -1)
+    setup = _setup_from_clip(clip.reshape(-1, 4).astype(np.float32), "none",
+                             height=height, width=width)
+    return setup, y0, rows
+
+
+def _outside_rects(setup, vis, height, width, y0):
+    rects = raster.candidate_rects(setup, height, width, y0)
+    hit = vis.tri_id >= 0
+    r, c = hit.nonzero(as_tuple=True)
+    rc = rects[vis.tri_id[hit].long()]
+    return int((~((c >= rc[:, 0]) & (c <= rc[:, 2]) & (r >= rc[:, 1])
+                  & (r <= rc[:, 3]))).sum())
+
+
+@pytest.mark.parametrize("width,height,perspective", [
+    (512, 8192, False), (7680, 2160, True)])
+def test_rects_rounding_term_decides_on_sliver_tips(monkeypatch, width,
+                                                     height, perspective):
+    """An input on which the f32 rounding term of `covers` (GAMMA3 in
+    rect_bounds) decides the box: sliver tips far from the origin, in a
+    512x8192 target and a 7680x2160 one (the SSAA size of A15) with
+    perspective w. The plain raster covers pixel centres up to about 3 px
+    beyond a tip through rounding alone; the box holds them, and the same
+    box built with GAMMA3 = 0 leaves some outside."""
+    setup, y0, rows = _sliver_tips(width, height, perspective, seed=1)
+    bins = _bins(setup, rows, width, y0=y0)
+    vis = raster.rasterize(setup, bins, rows, width, TH, TW, y0)
+    assert int((vis.tri_id >= 0).sum()) > 10000
+    _assert_conservative(setup, vis, rows, width, y0, "sliver tips")
+    monkeypatch.setattr(raster, "GAMMA3", 0.0)
+    missed = _outside_rects(setup, vis, rows, width, y0)
+    print(f"measured sliver tips {width}x{height}: {missed} covered pixels "
+          "outside the box built with GAMMA3 = 0")
+    assert missed > 0
+
+
 # -- conservativeness ------------------------------------------------------
 
 @pytest.mark.parametrize("cull", ["back", "front"])
@@ -422,3 +480,22 @@ def test_cuda_kernel_matches_plain_on_random_triangles(kind):
         for i in range(layers):
             assert torch.equal(got.layer(i)[1], want.layer(i)[1])
             assert torch.equal(got.layer(i)[0], want.layer(i)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,height,perspective", [
+    (512, 8192, False), (7680, 2160, True)])
+def test_cuda_kernel_matches_plain_on_sliver_tips(width, height, perspective):
+    """The kernel's rectangles and raster on the sliver tips whose covered
+    pixels only the rounding term keeps in their box."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    setup, y0, rows = _sliver_tips(width, height, perspective, seed=1)
+    setup = geometry.TriangleSetup._make(t.cuda() for t in setup)
+    assert torch.equal(raster_cuda.device_rects(setup, rows, width, y0),
+                       raster.candidate_rects(setup, rows, width, y0))
+    bins = _bins(setup, rows, width, y0=y0)
+    got = raster_cuda.rasterize(setup, bins, rows, width, TH, TW, y0)
+    want = raster.rasterize(setup, bins, rows, width, TH, TW, y0)
+    assert torch.equal(got.tri_id, want.tri_id)
+    assert torch.equal(got.depth, want.depth)
