@@ -1,7 +1,8 @@
 """Deferred shading over the visibility buffer (port of ash_tpu/ops/shade.py:
 PBR with textures, one directional light with PCF16 shadows from a single
-map or cascades, Forward+ point and spot lights, the alpha test, motion
-vectors for TAA, and flat vertex-colour shading).
+map or cascades, Forward+ point and spot lights, image-based lighting, bf16
+shading, the alpha test, motion vectors for TAA, and flat vertex-colour
+shading).
 
 Attributes are re-interpolated per pixel from the winning triangle id with
 perspective-correct weights, then lit with the reference fragment shader's
@@ -15,7 +16,8 @@ are sampled with anisotropic filtering, and the normal map goes through the
 Gram-Schmidt TBN frame.
 `resolve_alpha_test` lets cut-out pixels fall through to the second peel
 layer; `pixel_alpha` and `composite_over` blend the shaded layers of a depth
-peel. IBL and bf16 shading are ROADMAP A14.
+peel. With an environment, split-sum image-based lighting replaces the flat
+ambient term (ops/ibl.py); `dtype=torch.bfloat16` runs the BRDF in bf16.
 """
 
 from __future__ import annotations
@@ -322,12 +324,15 @@ def _sample_map(pool, index, uv, ddx, ddy, max_aniso: int = 1,
 
 
 def _light_slots(lo, gbuf, lights, tile_indices, n_iter, light_tile_size,
-                 normal, view_dir, base_color, metallic, roughness, f0, ndotv):
+                 normal, view_dir, base_color, metallic, roughness, f0, ndotv,
+                 cast=lambda x: x):
     """Add the Forward+ lights to `lo`: each pixel walks the first n_iter
     slots of its tile's culled light list. Point lights have a
     radius-windowed inverse-square falloff, spot lights (type 1) a smooth
     cone between their inner and outer angles, directional entries (type
-    2) a constant direction and no falloff."""
+    2) a constant direction and no falloff. Distances, attenuation and the
+    cone run in f32; `cast` takes the colour, the attenuation and the
+    direction into the shading dtype for the BRDF."""
     h, w = gbuf.mask.shape
     dev = gbuf.mask.device
     t_y = (torch.arange(h, device=dev) // light_tile_size).clamp(
@@ -338,7 +343,7 @@ def _light_slots(lo, gbuf, lights, tile_indices, n_iter, light_tile_size,
         lid = tile_indices[:, :, k][t_y, t_x]  # (H, W)
         row = lights[lid.clamp_min(0).long()]  # (H, W, 16)
         lradius = row[..., 3].clamp_min(1e-3)
-        lcolor = row[..., 4:7] * row[..., 7:8]  # colour * intensity
+        lcolor = cast(row[..., 4:7] * row[..., 7:8])  # colour * intensity
         ltype = row[..., 11]  # 0 point, 1 spot, 2 directional
         to_light = row[..., 0:3] - gbuf.world
         dist = _norm(to_light)
@@ -356,10 +361,11 @@ def _light_slots(lo, gbuf, lights, tile_indices, n_iter, light_tile_size,
         cos_inner = torch.cos(row[..., 12].clamp_min(5e-4))
         spot = ((cos_angle - cos_outer)
                 / (cos_inner - cos_outer).clamp_min(1e-4)).clamp(0.0, 1.0)
-        atten = torch.where(
+        atten = cast(torch.where(
             ltype >= 1.5, 1.0,
             torch.where(ltype >= 0.5, atten * spot * spot, atten),
-        )
+        ))
+        ldir = cast(ldir)
         nl = _dot(normal, ldir).clamp_min(0.0)
         half_l = _normalize(view_dir + ldir)
         nh = _dot(normal, half_l).clamp_min(0.0)
@@ -390,30 +396,49 @@ def shade_pbr(
     max_anisotropy: int = 1,
     csm: Optional[tuple] = None,  # (matrices (C, 4, 4), splits (4,), view (4, 4))
     csm_blend_size: float = 0.0,
+    ibl=None,  # ops/ibl.EnvironmentIBL: replaces the flat ambient term
+    dtype: torch.dtype = torch.float32,  # the BRDF's working dtype
 ) -> torch.Tensor:
     """Shade the visibility buffer -> (H, W, 3) f32 colour. With
     reinhard=True the result is the reference main pass's LDR output, with
     False linear HDR for the post chain. With `csm`, shadow_map is the
-    (C, S, S) cascade array.
+    (C, S, S) cascade array. With `ibl`, split-sum image-based lighting
+    (ops/ibl.ambient_ibl) replaces the flat ambient term, times the same
+    occlusion.
+
+    dtype=torch.bfloat16 runs the BRDF and the light loop in bf16, with
+    the casts where the reference puts them: the material factors, the
+    view and light directions, the texture samples but emissive's, the
+    normal frame, the dot products, GGX, Smith and Schlick, the shadow term
+    and the per-light colour, attenuation and direction. Positions, the
+    PCF lookups, light distances and attenuation, the ambient term and the
+    final composite stay f32, and so does the result. PyTorch rounds each
+    operation to bf16.
 
     With a pool, all five maps' anisotropic tap counts are taken first and
     their largest over the covered pixels sets one trip count for every
     map: one host sync per call. The light loop runs min(largest tile
     count, K) slots (a host sync), or all K slots when tile_light_counts
     is None; slots past a tile's count hold -1 and add nothing."""
+    if dtype == torch.float32:
+        def cast(x):
+            return x
+    else:
+        def cast(x):
+            return x.to(dtype)
     mat = materials[gbuf.draw_id.long()]  # (H, W, 18)
-    base_factor = mat[..., 0:4]
-    emissive_factor = mat[..., 4:8]
+    base_factor = cast(mat[..., 0:4])
+    emissive_factor = cast(mat[..., 4:8])
 
-    view_dir = _normalize(uniforms.camera_pos - gbuf.world)
-    light_dir = _normalize(-uniforms.light_direction).expand_as(gbuf.world)
+    view_dir = cast(_normalize(uniforms.camera_pos - gbuf.world))
+    light_dir = cast(_normalize(-uniforms.light_direction)).expand_as(gbuf.world)
 
     # The geometric normal with its backface flip; the shadow uses it.
-    flip = torch.where(gbuf.front_facing[..., None], 1.0, -1.0)
-    n = gbuf.normal * flip
+    flip = torch.where(gbuf.front_facing[..., None], 1.0, -1.0).to(dtype)
+    n = cast(gbuf.normal) * flip
     normal = n
-    metallic = mat[..., 8]
-    roughness = mat[..., 9].clamp_min(0.04)
+    metallic = cast(mat[..., 8])
+    roughness = cast(mat[..., 9]).clamp_min(0.04)
     base_color = base_factor[..., :3]  # untextured: the base sample is 1
     occlusion = None
     emissive = emissive_factor[..., :3]
@@ -431,37 +456,38 @@ def shade_pbr(
         def sample(name):
             return sample_footprint(pool, idx[name], gbuf.uv, fps[name], trips)
 
-        base_color = sample("base")[..., :3] * base_factor[..., :3]
+        base_color = cast(sample("base"))[..., :3] * base_factor[..., :3]
 
         # TBN with a safe fallback tangent, Gram-Schmidt and the backface
         # flip, then normal mapping.
-        t_raw = gbuf.tangent[..., :3]
+        t_raw = cast(gbuf.tangent[..., :3])
         t_len = torch.linalg.vector_norm(t_raw, dim=-1, keepdim=True)
         t = torch.where(
             t_len > 1e-3, t_raw / t_len.clamp_min(1e-8),
-            torch.tensor([1.0, 0.0, 0.0], device=t_raw.device),
+            torch.tensor([1.0, 0.0, 0.0], dtype=dtype, device=t_raw.device),
         )
-        g = gbuf.normal
+        g = cast(gbuf.normal)
         t = _normalize(t - _dot(t, g)[..., None] * g) * flip
-        b = _cross(n, t) * gbuf.tangent[..., 3:4]
-        map_sample = sample("normal")[..., :3]
+        b = _cross(n, t) * cast(gbuf.tangent[..., 3:4])
+        map_sample = cast(sample("normal")[..., :3])
         mn = map_sample * 2.0 - 1.0
-        mn = torch.cat([mn[..., :2] * mat[..., 11, None], mn[..., 2:]], -1)
+        mn = torch.cat([mn[..., :2] * cast(mat[..., 11, None]), mn[..., 2:]], -1)
         mapped = t * mn[..., 0:1] + b * mn[..., 1:2] + n * mn[..., 2:3]
         ok = ((_norm(map_sample) > 1e-3) & (_norm(mapped) > 1e-3)
               & (idx["normal"] >= 0))
         normal = torch.where(ok[..., None], _normalize(mapped), n)
 
-        mr = sample("mr")
+        mr = cast(sample("mr"))
         has_mr = idx["mr"] >= 0
         metallic = torch.where(has_mr, metallic * mr[..., 2], metallic)
         roughness = torch.where(
             has_mr, (roughness * mr[..., 1]).clamp_min(0.04), roughness)
 
-        occ = sample("occ")[..., 0]
+        occ = cast(sample("occ")[..., 0])
         occlusion = torch.where(idx["occ"] >= 0,
-                                1.0 + (occ - 1.0) * mat[..., 10], 1.0)
+                                1.0 + (occ - 1.0) * cast(mat[..., 10]), 1.0)
 
+        # Emissive's sample stays f32, as in the reference.
         es = sample("emis")[..., :3]
         emissive = torch.where((idx["emis"] >= 0)[..., None],
                                emissive * es, emissive)
@@ -482,7 +508,8 @@ def shade_pbr(
     kd = (1.0 - f) * (1.0 - metallic[..., None])
     diffuse = kd * base_color / PI
 
-    # The shadow uses the (flipped) geometric normal, not the mapped one.
+    # The shadow uses the (flipped) geometric normal, not the mapped one;
+    # PCF runs in f32 and its result re-enters the working dtype.
     if shadow_map is not None and csm is not None:
         matrices, splits, view = csm
         shadow = shadow_ops.shadow_pcf16_csm(
@@ -494,9 +521,10 @@ def shade_pbr(
         shadow = shadow_ops.shadow_pcf16(shadow_map, pos_light, n, light_dir)
     else:
         shadow = torch.zeros_like(ndotl)
+    shadow = cast(shadow)
 
     lo = (diffuse + specular) * (
-        uniforms.light_color * (ndotl * (1.0 - shadow))[..., None]
+        cast(uniforms.light_color) * (ndotl * (1.0 - shadow))[..., None]
     )
     if lights is not None and tile_light_indices is not None:
         k_slots = tile_light_indices.shape[-1]
@@ -505,9 +533,15 @@ def shade_pbr(
             n_iter = min(int(tile_light_counts.max()), k_slots)
         lo = _light_slots(lo, gbuf, lights, tile_light_indices, n_iter,
                           light_tile_size, normal, view_dir, base_color,
-                          metallic, roughness, f0, ndotv)
+                          metallic, roughness, f0, ndotv, cast)
 
-    ambient = uniforms.ambient_color * base_color
+    if ibl is not None:
+        from .ibl import ambient_ibl
+
+        ambient = ambient_ibl(ibl, normal, view_dir, base_color, metallic,
+                              roughness)
+    else:
+        ambient = uniforms.ambient_color * base_color
     if occlusion is not None:
         ambient = ambient * occlusion[..., None]
     color = ambient + lo + emissive

@@ -4,6 +4,7 @@
         [--glass [--transparency-passes P]] [--textured] [--lights N]
         [--max-anisotropy A] [--rich [--render-scale S]]
         [--max-tris-per-tile K] [--animate] [--mega [--escalate]]
+        [--occlusion] [--bf16] [--instancing] [--lod] [--ibl]
 
 Renders the bench scene (render/bench_scene.py: 1000 cubes, 1920x1080,
 2048^2 shadow map), or with --glass the glass standard frame (every fourth
@@ -20,10 +21,17 @@ the next pose (t += 1/60) through `update_transforms_trs` and the orbiting
 camera, so the shadow map re-renders every frame. With --mega it renders
 bench.py's 1,002,528-triangle frame (two-level binning, caps of 8192), and
 with --escalate first grows the caps (`escalate_tile_capacities`) until no
-triangle drops. It traces N static frames and N frames that re-render the
-shadow map (N animated frames with --animate) with `torch.profiler`. For each kind it prints the wall time per frame, the peak
-device memory, the device's busy and idle share of that wall time, the
-kernels and copies the frame launches, device time
+triangle drops. --occlusion adds Hi-Z occlusion culling to the bench
+scene and --bf16 shades it in bfloat16 (bench.py's --bf16). The examples'
+scenes: --instancing is example 07's 65,536 instanced cubes (1080p, 8x128
+tiles, a cap of 2048, Hi-Z on; the InstancingManager's seconds are
+printed), --lod its 400 LOD spheres (traced from distance 15 and from 30;
+the shadow map re-renders in every frame of a LOD scene), --ibl example
+06's IBL sphere grid (640x400, HDR, no shadows). It traces N static frames
+and N frames that re-render the shadow map (N animated frames with
+--animate) with `torch.profiler`. For each kind it prints the wall time
+per frame, the peak device memory, the device's busy and idle share of
+that wall time, the kernels and copies the frame launches, device time
 per `pass_*` scope (the kernels its PyTorch ops launched, the span from its
 first to its last kernel on the device, and its host time), and the device
 work that takes the most time. The raster kernel is launched through
@@ -46,7 +54,11 @@ from torch.profiler import ProfilerActivity, profile
 from .render.bench_scene import (
     animated_models_trs,
     build_bench_renderer,
+    build_ibl_renderer,
+    build_instancing_renderer,
+    build_lod_renderer,
     build_mega_renderer,
+    lod_camera,
     orbit_camera,
 )
 
@@ -105,12 +117,25 @@ def main(argv=None) -> int:
     ap.add_argument("--animate", action="store_true")
     ap.add_argument("--mega", action="store_true")
     ap.add_argument("--escalate", action="store_true")
+    ap.add_argument("--occlusion", action="store_true")
+    ap.add_argument("--bf16", action="store_true")
+    ap.add_argument("--instancing", action="store_true")
+    ap.add_argument("--lod", action="store_true")
+    ap.add_argument("--ibl", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_frame: needs a CUDA device", file=sys.stderr)
         return 1
     if args.mega:
         r, _, cam, _ = build_mega_renderer(1920, 1080, "cuda")
+    elif args.instancing:
+        r, _, cam, host_s = build_instancing_renderer(1920, 1080, "cuda")
+        print(f"InstancingManager: {host_s:.2f} s on the host")
+    elif args.lod:
+        r, _ = build_lod_renderer(1920, 1080, "cuda")
+        cam = lod_camera(15.0, 1920, 1080)
+    elif args.ibl:
+        r, _, cam = build_ibl_renderer(640, 400, "cuda")
     else:
         r, _, cam, anim = build_bench_renderer(
             1920, 1080, 1000, "cuda", glass=args.glass,
@@ -119,6 +144,8 @@ def main(argv=None) -> int:
             max_anisotropy=args.max_anisotropy, rich=args.rich,
             render_scale=args.render_scale,
             max_tris_per_tile=args.max_tris_per_tile, animate=args.animate,
+            occlusion=args.occlusion,
+            shade_dtype="bf16" if args.bf16 else "f32",
         )
     view, proj, pos = cam.view_matrix(), cam.projection_matrix(), cam.position
     for _ in range(3):  # build the kernel, the scene and the shadow map
@@ -147,12 +174,27 @@ def main(argv=None) -> int:
         r.shadow_feature.set_light_direction(lights[i % 2])
         r.render_frame(view, proj, pos)
 
+    far = lod_camera(30.0, 1920, 1080)
+
+    def lod_far(i):
+        r.render_frame(far.view_matrix(), far.projection_matrix(),
+                       far.position)
+
     out = r.last_outputs()
+    shadow_of = (None if out.shadow_overflow is None
+                 else int(out.shadow_overflow))
     print(f"device: {torch.cuda.get_device_name(0)}; overflow main "
-          f"{int(out.binning_overflow)}, shadow {int(out.shadow_overflow)}")
+          f"{int(out.binning_overflow)}, shadow {shadow_of}; visible draws "
+          f"{None if out.visible_draws is None else int(out.visible_draws)}")
     del out  # or the peak would count a second frame's outputs
-    kinds = ((("animated", animated),) if args.animate
-             else (("static", static), ("shadow_rerender", shadow)))
+    if args.animate:
+        kinds = (("animated", animated),)
+    elif args.lod:
+        kinds = (("near", static), ("far", lod_far))
+    elif args.ibl:
+        kinds = (("static", static),)
+    else:
+        kinds = (("static", static), ("shadow_rerender", shadow))
     for name, step in kinds:
         torch.cuda.reset_peak_memory_stats()
         prof, wall_ms = _trace(step, args.frames)

@@ -34,14 +34,33 @@ The mega frame (`build_mega_renderer`) is bench.py's `--mega`: a
 examples/08_million_tris.py's) drawn through `set_mesh` with 32x128 tiles,
 tile caps of 8192 and the "nearest" drop policy; above 32768 padded
 triangles the frame bins in two levels.
+
+The scenes of examples 06 and 07, at the examples' own sizes:
+
+- Instancing (`build_instancing_renderer`): 65,536 cubes scaled 0.35 on a
+  40-wide grid, batched by the InstancingManager, 1920x1080, 8x128 tiles
+  with a cap of 2048, Hi-Z occlusion culling on, shadows as the default
+  config has them; 786,432 triangles, so two-level binning.
+- LOD (`build_lod_renderer`): 400 spheres (48x32 segments) with two
+  coarser levels (20x14 below 2% coverage, 8x6 below 0.3%), 1080p, a tile
+  cap of 1024, seen from `lod_camera(15)` and `lod_camera(30)`.
+- IBL (`build_ibl_renderer`): a 5x5 grid of spheres sweeping metallic
+  (columns) and roughness (rows) under `sky_environment`, 640x400, HDR on,
+  shadows off, a tile cap of 2048.
+
+The `fill_*` helpers take either package's core and RenderCommand, so the
+reference renderer can draw the same scene in a test.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 
 from .. import core as port_core
 from ..core import Camera, Material
+from . import instancing
 from .csm import CsmConfig
 from .renderer import RenderCommand, Renderer, RendererConfig
 from .surface import HeadlessSurface
@@ -270,7 +289,7 @@ def bench_camera(width: int, height: int, extent: float) -> Camera:
 def build_bench_renderer(width, height, n_objects, device,
                          shadow_resolution=2048, glass=False, textured=False,
                          lights=0, cutoff=CUTOUT_ALPHA, rich=False,
-                         animate=False, **cfg_overrides):
+                         animate=False, occlusion=False, **cfg_overrides):
     """-> (renderer, surface, camera, extent) for an n_objects cube grid;
     glass=True draws the glass standard frame, textured=True the textured
     one (`cutoff` is its cutout draws' alpha_cutoff), lights=N adds
@@ -278,7 +297,8 @@ def build_bench_renderer(width, height, n_objects, device,
     post, TAA, cascaded shadow maps, RICH_LIGHTS lights unless given).
     animate=True returns bench.py's anim dict (positions, scales, phases,
     extent) in place of the extent, for animated_models[_trs] and
-    orbit_camera."""
+    orbit_camera. occlusion=True switches on Hi-Z occlusion culling;
+    shade_dtype="bf16" (a RendererConfig keyword) is bench.py's --bf16."""
     if rich:
         over = rich_overrides(height)
         over["csm"] = CsmConfig(cascade_count=over["csm"][0],
@@ -304,6 +324,7 @@ def build_bench_renderer(width, height, n_objects, device,
     if rich:
         r.initialize_hdr()
         r.set_taa_enabled(True)
+    r.set_occlusion_culling(occlusion)
     for pos, color in bench_lights(lights):
         r.add_point_light(pos, color=color, intensity=2.0, radius=6.0)
     return (r, surface, bench_camera(width, height, extent),
@@ -377,3 +398,169 @@ def build_mega_renderer(width, height, device, grid=MEGA_GRID,
     r.set_mesh(mesh)
     r.set_material(mega_material())
     return r, surface, mega_camera(width, height), mesh.num_triangles
+
+
+INSTANCES = 65536  # MAX_INSTANCES_PER_BATCH
+INSTANCE_SIDE = 40  # 40^3 = 64,000 on the grid; the rest stack above
+
+
+def instancing_manager(n=INSTANCES, module=instancing):
+    """Example 07's batch: n cubes scaled 0.35 at 1.2 spacing on a 40x40
+    layered grid, mesh handle 0 and material handle 1, in `module`'s
+    InstancingManager (this package's, or the reference's)."""
+    side = INSTANCE_SIDE
+    mgr = module.InstancingManager()
+    base = np.eye(4, dtype=np.float32)
+    base[:3, :3] *= 0.35
+    for i in range(n):
+        m = base.copy()
+        z, rem = divmod(i, side * side)
+        y, x = divmod(rem, side)
+        m[:3, 3] = [(x - side / 2) * 1.2, (y - side / 2) * 1.2,
+                    (z - side / 2) * 1.2]
+        if not mgr.add_instance(0, 1, module.InstanceData(model=m)):
+            raise ValueError(f"instance {i} over the batch limit")
+    return mgr
+
+
+def instancing_config(**cfg_overrides) -> dict:
+    """Example 07's RendererConfig keywords: small tiles for sub-tile
+    instances, and a tile cap of 2048."""
+    return {"tile_h": 8, "max_tris_per_tile": 2048, **cfg_overrides}
+
+
+def instancing_camera(width, height):
+    ext = INSTANCE_SIDE * 1.2
+    cam = Camera.new([ext, ext * 0.8, ext * 1.4], [0, 0, 0], width / height)
+    cam.far = ext * 6
+    return cam
+
+
+def fill_instancing_scene(r, mgr, core=port_core):
+    """Register example 07's cube and material on r and submit mgr."""
+    r.register_mesh_handle(0, core.Mesh.create_cube())
+    r.register_material_handle(1, core.Material(color=(0.75, 0.3, 0.2, 1.0),
+                                                roughness=0.4))
+    mgr.to_draw_items(r)
+
+
+def build_instancing_renderer(width, height, device, n=INSTANCES,
+                              occlusion=True, mgr=None, **cfg_overrides):
+    """-> (renderer, surface, camera, seconds the InstancingManager took)
+    of example 07's instancing frame; `mgr` reuses a batch already built
+    (0 seconds)."""
+    t0 = time.perf_counter()
+    if mgr is None:
+        mgr = instancing_manager(n)
+    host_s = time.perf_counter() - t0
+    surface = HeadlessSurface(width, height)
+    r = Renderer(surface, RendererConfig(**instancing_config(**cfg_overrides)),
+                 device=device)
+    r.set_occlusion_culling(occlusion)
+    fill_instancing_scene(r, mgr)
+    return r, surface, instancing_camera(width, height), host_s
+
+
+LOD_SPHERES = 400
+
+
+def lod_ball(core=port_core):
+    """Example 07's sphere with its 3-level chain."""
+    ball = core.Mesh.create_sphere("ball", segments=48, rings=32)
+    ball.add_lod(core.Mesh.create_sphere("l1", segments=20, rings=14), 0.02)
+    ball.add_lod(core.Mesh.create_sphere("l2", segments=8, rings=6), 0.003)
+    return ball
+
+
+def fill_lod_scene(r, core=port_core, command=RenderCommand, n=LOD_SPHERES):
+    """Example 07's LOD scene on r: n spheres on a 20-wide, 3-spaced grid."""
+    r.register_mesh_handle(0, lod_ball(core))
+    r.register_material_handle(1, core.Material(color=(0.2, 0.5, 0.8, 1.0)))
+    cmds = []
+    for i in range(n):
+        m = np.eye(4, dtype=np.float32)
+        m[:3, 3] = [(i % 20 - 10) * 3.0, 0, (i // 20 - 10) * 3.0]
+        cmds.append(command(mesh=0, transform=m, material=1))
+    r.submit_render_commands(cmds)
+
+
+def lod_camera(dist, width, height):
+    """Example 07's LOD camera at distance `dist` (15 near, 30 far)."""
+    cam = Camera.new([0, dist * 0.5, dist], [0, 0, 0], width / height)
+    cam.far = 600.0
+    return cam
+
+
+def lod_config(**cfg_overrides) -> dict:
+    return {"max_tris_per_tile": 1024, **cfg_overrides}
+
+
+def build_lod_renderer(width, height, device, n=LOD_SPHERES,
+                       **cfg_overrides):
+    """-> (renderer, surface) of example 07's LOD scene."""
+    surface = HeadlessSurface(width, height)
+    r = Renderer(surface, RendererConfig(**lod_config(**cfg_overrides)),
+                 device=device)
+    fill_lod_scene(r, n=n)
+    return r, surface
+
+
+IBL_GRID = 5
+
+
+def sky_environment(h=64, w=128) -> np.ndarray:
+    """Example 06's equirect sky: a blue gradient over a brown ground, and a
+    sun of radiance 10."""
+    env = np.zeros((h, w, 3), np.float32)
+    v = np.linspace(0, 1, h)[:, None, None]
+    env[:] = np.where(
+        v < 0.5,
+        np.array([0.25, 0.45, 1.1]) * (1.2 - v),
+        np.array([0.4, 0.32, 0.22]) * np.ones_like(v),
+    )
+    env[6:12, 18:30] = [10.0, 9.0, 7.0]
+    return env
+
+
+def ibl_config(**cfg_overrides) -> dict:
+    return {"shadows_enabled": False, "max_tris_per_tile": 2048,
+            **cfg_overrides}
+
+
+def fill_ibl_scene(r, core=port_core, command=RenderCommand, segments=32,
+                   rings=16, environment=True):
+    """Example 06's scene on r: the sphere grid, metallic i/4 by column and
+    roughness max(j/4, 0.05) by row, the sky (unless environment=False)
+    and HDR."""
+    r.register_mesh_handle(0, core.Mesh.create_sphere(segments=segments,
+                                                      rings=rings))
+    n = IBL_GRID
+    commands = []
+    for i in range(n):
+        for j in range(n):
+            m = np.eye(4, dtype=np.float32)
+            m[:3, :3] *= 0.8
+            m[:3, 3] = [(i - (n - 1) / 2) * 2.1, ((n - 1) / 2 - j) * 2.1, 0]
+            mid = i * n + j + 1
+            r.register_material_handle(mid, core.Material(
+                color=(0.9, 0.6, 0.3, 1.0), metallic=i / (n - 1),
+                roughness=max(j / (n - 1), 0.05)))
+            commands.append(command(mesh=0, transform=m, material=mid))
+    r.submit_render_commands(commands)
+    if environment:
+        r.set_environment_map(sky_environment())
+    r.initialize_hdr()
+
+
+def ibl_camera(width, height):
+    return Camera.new([0, 0, 13.5], [0, 0, 0], width / height)
+
+
+def build_ibl_renderer(width, height, device, environment=True,
+                       **cfg_overrides):
+    """-> (renderer, surface, camera) of example 06's frame."""
+    surface = HeadlessSurface(width, height)
+    r = Renderer(surface, RendererConfig(**ibl_config(**cfg_overrides)),
+                 device=device)
+    fill_ibl_scene(r, environment=environment)
+    return r, surface, ibl_camera(width, height)

@@ -1,8 +1,13 @@
 """The frame pipeline (port of ash_tpu/render/frame.py).
 
-`render_frame_program` is one `render_frame`: vertex stage -> frustum
-culling -> back-cull setup -> binning -> raster -> G-buffer -> Forward+
-light culling -> shading -> sRGB encode and RGBA8 pack. With the HDR post
+`render_frame_program` is one `render_frame`: vertex stage -> LOD selection
+-> frustum and Hi-Z culling -> back-cull setup -> binning -> raster ->
+G-buffer -> Forward+ light culling -> shading -> sRGB encode and RGBA8
+pack. LOD selection (lod_enabled) picks one level of each draw's chain by
+its screen coverage and masks the other levels' triangles out of every
+pass, the shadow pass included; Hi-Z culling (occlusion_culling) tests each
+draw's screen rectangle against a max pyramid of the previous frame's
+depth. With the HDR post
 chain (post_enabled) the main pass leaves linear HDR, and `finalize_frame`
 runs TAA (before the tonemap, on motion vectors from the G-buffer), bloom,
 the tonemap with gamma in place of the sRGB encode, and FXAA; with
@@ -39,6 +44,7 @@ from torch.profiler import record_function
 from ..ops import binning, geometry
 from ..ops.bloom import bloom_pyramid
 from ..ops.fxaa import fxaa
+from ..ops.hiz import build_hiz
 from ..ops.occlusion import cull_objects
 from ..ops.light_cull import cull_lights
 from ..ops.raster import VisibilityBuffer
@@ -125,6 +131,17 @@ class FrameConfig:
     # detail back. In [0.25, 1].
     render_scale: float = 1.0
     frustum_culling: bool = False
+    # Hi-Z occlusion culling against the previous frame's depth (given to
+    # render_frame_program as prev_depth, at the presentation size).
+    occlusion_culling: bool = False
+    # LOD selection: per draw, the first level of its chain whose coverage
+    # threshold holds; draws below lod_cull_threshold coverage are culled.
+    lod_enabled: bool = False
+    lod_cull_threshold: float = 0.001
+    # Image-based lighting from the renderer's environment bundle.
+    ibl_enabled: bool = False
+    # "bf16" runs the BRDF in bfloat16 (ops/shade.shade_pbr's dtype).
+    shade_dtype: str = "f32"
     # Semi-transparent materials: shade every layer of a K-layer depth peel
     # (K = transparency_layers, in [2, 8]) and composite them back to front
     # with SRC_ALPHA blending. The peel sorts per pixel, so the blend is
@@ -291,12 +308,16 @@ def models_from_trs(t: torch.Tensor, q: torch.Tensor,
 
 
 def shadow_pass_bins(cfg: FrameConfig, scene: SceneBuffers,
-                     world: torch.Tensor, light_matrix: torch.Tensor):
-    """Front-cull setup and binning of the shadow pass -> (setup, bins)."""
+                     world: torch.Tensor, light_matrix: torch.Tensor,
+                     tri_valid: Optional[torch.Tensor] = None):
+    """Front-cull setup and binning of the shadow pass -> (setup, bins).
+    `tri_valid` (default: the scene's) is the LOD-masked validity."""
     s = cfg.shadow_resolution
     clip_l = geometry.transform_points(light_matrix, world)
     setup = geometry.triangle_setup(
-        clip_l, scene.tri_v, scene.tri_valid, s, s, cull_mode="front"
+        clip_l, scene.tri_v,
+        scene.tri_valid if tri_valid is None else tri_valid, s, s,
+        cull_mode="front",
     )
     bins = _binner(cfg, scene.num_triangles)(
         setup.bbox, setup.valid, s, s, cfg.shadow_rows, cfg.shadow_tile,
@@ -308,18 +329,20 @@ def shadow_pass_bins(cfg: FrameConfig, scene: SceneBuffers,
 def shadow_program(cfg: FrameConfig, scene: SceneBuffers,
                    models: torch.Tensor, light_matrix: torch.Tensor,
                    pool: Optional[TexturePool] = None,
-                   cascade_matrices: Optional[torch.Tensor] = None):
+                   cascade_matrices: Optional[torch.Tensor] = None,
+                   tri_valid: Optional[torch.Tensor] = None):
     """The shadow pass: a depth-only raster of the scene from the light.
     With the alpha test it peels two layers and a textured surface whose
     base alpha is below 0.1 casts no shadow. Returns (shadow_map (S, S),
     shadow_overflow ()); with cfg.shadow_cascades > 1 one pass, and one
     launch of the raster, per cascade matrix: ((C, S, S), the largest
-    overflow)."""
+    overflow). `tri_valid` replaces the scene's triangle validity (a LOD
+    scene's camera-dependent mask)."""
     alpha_shadow = cfg.alpha_test and cfg.textured and pool is not None
     s = cfg.shadow_resolution
 
     def depth_only(matrix):
-        setup, bins = shadow_pass_bins(cfg, scene, world, matrix)
+        setup, bins = shadow_pass_bins(cfg, scene, world, matrix, tri_valid)
         vis = rasterize(setup, bins, s, s, cfg.shadow_rows, cfg.shadow_tile,
                         layers=2 if alpha_shadow else 1)
         if alpha_shadow:
@@ -338,23 +361,61 @@ def shadow_program(cfg: FrameConfig, scene: SceneBuffers,
         return torch.stack(maps), torch.stack(overflows).amax()
 
 
-def main_pass_bins(cfg: FrameConfig, scene: SceneBuffers, uni: FrameUniforms):
-    """Vertex stage, frustum culling, back-cull setup and binning of the
-    main pass, at the internal raster size -> (verts, setup, bins,
-    visible_draws or None)."""
+def lod_tri_mask(cfg: FrameConfig, scene: SceneBuffers, uni: FrameUniforms):
+    """pass_lod: (T,) bool, the triangles of each draw's selected LOD level,
+    none of a draw below cfg.lod_cull_threshold screen coverage. Coverage is
+    the projected bounding sphere's share of the screen: the world centre's
+    clip w, and the local extents' length times the model's largest axis
+    scale for the radius. The selected level is the first whose threshold
+    the coverage reaches (the last level's is -inf)."""
+    with record_function("pass_lod"):
+        m, c = uni.models, scene.draw_center
+        # The model and view-projection products as explicit sums over j
+        # (no TF32 path): the world centre (D, 4), then its clip w.
+        cw = ((m[:, :, 0] * c[:, 0:1] + m[:, :, 1] * c[:, 1:2])
+              + m[:, :, 2] * c[:, 2:3]) + m[:, :, 3]
+        vp = uni.view_proj
+        wc = ((cw[:, 0] * vp[3, 0] + cw[:, 1] * vp[3, 1])
+              + cw[:, 2] * vp[3, 2]) + cw[:, 3] * vp[3, 3]
+        axis_scale = torch.linalg.vector_norm(m[:, :3, :3], dim=2).amax(-1)
+        radius = torch.linalg.vector_norm(scene.draw_extents, dim=-1) * axis_scale
+        px_r = radius / wc.clamp_min(1e-8) * (0.5 * max(cfg.width, cfg.height))
+        coverage = (np.pi * px_r * px_r / (cfg.width * cfg.height)).clamp_max(1.0)
+        coverage = torch.where(wc <= 0.0, 0.0, coverage)
+        hit = coverage[:, None] >= scene.lod_thresholds  # (D, L)
+        # argmax returns the first maximum: the first level that holds.
+        sel = hit.to(torch.int32).argmax(dim=1)
+        draw_live = coverage >= cfg.lod_cull_threshold
+        tri_draw = scene.tri_draw.long()
+        return (scene.tri_lod.long() == sel[tri_draw]) & draw_live[tri_draw]
+
+
+def main_pass_bins(cfg: FrameConfig, scene: SceneBuffers, uni: FrameUniforms,
+                   tri_valid: Optional[torch.Tensor] = None,
+                   prev_depth: Optional[torch.Tensor] = None):
+    """Vertex stage, frustum and Hi-Z culling, back-cull setup and binning
+    of the main pass, at the internal raster size -> (verts, setup, bins,
+    visible_draws or None). `tri_valid` (default: the scene's) is the
+    LOD-masked validity; `prev_depth` is the previous frame's (H, W) depth
+    at the presentation size, whose pyramid the Hi-Z test reads when
+    cfg.occlusion_culling."""
     rw, rh = raster_size(cfg)
     with record_function("pass_vertex"):
         tv = geometry.transform_vertices(
             uni.models, uni.view_proj, scene.position, scene.normal,
             scene.tangent, scene.vert_draw, vert_uid=scene.vert_uid,
         )
-    tri_valid = scene.tri_valid
+    if tri_valid is None:
+        tri_valid = scene.tri_valid
     visible_draws = None
-    if cfg.frustum_culling:
+    if cfg.frustum_culling or cfg.occlusion_culling:
         with record_function("pass_cull"):
+            pyr = None
+            if cfg.occlusion_culling and prev_depth is not None:
+                pyr = build_hiz(prev_depth)
             cull = cull_objects(
                 scene.draw_center, scene.draw_extents, uni.models,
-                scene.draw_enabled, uni.view_proj,
+                scene.draw_enabled, uni.view_proj, pyr, cfg.width, cfg.height,
             )
             tri_valid = tri_valid & cull.visibility.bool()[scene.tri_draw.long()]
             visible_draws = cull.visible_count
@@ -387,20 +448,32 @@ def render_band(
     shadow: Optional[tuple] = None,  # (shadow_map, shadow_overflow)
     pool: Optional[TexturePool] = None,
     lights: Optional[torch.Tensor] = None,  # (L, 16) packed GpuLight rows
+    prev_depth: Optional[torch.Tensor] = None,  # (H, W) last frame's depth
+    ibl=None,  # ops/ibl.EnvironmentIBL, read when cfg.ibl_enabled
 ) -> BandOutputs:
-    """Vertex stage -> culling -> raster -> shade over the full frame.
-    `shadow` is the shadow pass's output; it must be given exactly when
-    cfg.shadow_enabled. `pool` is sampled when cfg.textured, `lights` lit
-    when cfg.lights_enabled."""
+    """Vertex stage -> LOD -> culling -> raster -> shade over the full
+    frame. `shadow` is the shadow pass's output; it must be given exactly
+    when cfg.shadow_enabled and not cfg.lod_enabled: a LOD scene's shadow
+    pass takes the camera-dependent level mask, so it runs here. `pool` is
+    sampled when cfg.textured, `lights` lit when cfg.lights_enabled."""
     if not 2 <= cfg.transparency_layers <= 8:
         raise ValueError(
             f"transparency_layers {cfg.transparency_layers} outside [2, 8]"
         )
-    if (shadow is not None) != cfg.shadow_enabled:
-        raise ValueError("shadow map given iff cfg.shadow_enabled")
+    if (shadow is not None) != (cfg.shadow_enabled and not cfg.lod_enabled):
+        raise ValueError("shadow map given iff cfg.shadow_enabled and not "
+                         "cfg.lod_enabled")
+    tri_valid = scene.tri_valid
+    if cfg.lod_enabled:
+        tri_valid = tri_valid & lod_tri_mask(cfg, scene, uni)
+        if cfg.shadow_enabled:
+            shadow = shadow_program(cfg, scene, uni.models,
+                                    uni.light_space_matrix, pool,
+                                    uni.cascade_matrices, tri_valid)
     shadow_map, shadow_overflow = shadow if shadow is not None else (None, None)
     rw, rh = raster_size(cfg)
-    tv, setup, bins, visible_draws = main_pass_bins(cfg, scene, uni)
+    tv, setup, bins, visible_draws = main_pass_bins(cfg, scene, uni,
+                                                    tri_valid, prev_depth)
     blend = cfg.alpha_blend and cfg.shading == "pbr"
     alpha_main = (cfg.alpha_test and cfg.textured and pool is not None
                   and not blend)
@@ -483,6 +556,9 @@ def render_band(
                 light_tile_size=cfg.light_tile_size,
                 max_anisotropy=cfg.max_anisotropy,
                 csm=csm, csm_blend_size=cfg.csm_blend_size,
+                ibl=ibl if cfg.ibl_enabled else None,
+                dtype=(torch.bfloat16 if cfg.shade_dtype == "bf16"
+                       else torch.float32),
             )
 
     if not blend:
@@ -593,9 +669,12 @@ def render_frame_program(
     post: Optional[PostParams] = None,
     taa_params: Optional[TaaParams] = None,
     history: Optional[torch.Tensor] = None,
+    prev_depth: Optional[torch.Tensor] = None,
+    ibl=None,
 ) -> FrameOutputs:
     """One frame: render_band + finalize_frame."""
     return finalize_frame(
-        cfg, render_band(cfg, scene, uni, shadow, pool, lights),
+        cfg, render_band(cfg, scene, uni, shadow, pool, lights, prev_depth,
+                         ibl),
         post, taa_params, history,
     )

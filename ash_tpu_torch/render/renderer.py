@@ -7,8 +7,9 @@ updates (`update_transforms`, `update_transforms_trs`, `update_material`),
 `escalate_tile_capacities`, `add_point_light`, `add_spot_light`,
 `request_texture_residency`, the post-processing setters (`initialize_hdr`,
 `set_taa_enabled`, `set_render_scale`, tonemapping, bloom, FXAA),
-`render_frame(view, proj, camera_pos)` and `read_back`. State is host
-registries, the bindless texture manager (a mesh's maps get pool indices
+`set_occlusion_culling`, `set_environment_map` / `clear_environment_map`,
+`lod_stats`, `render_frame(view, proj, camera_pos)` and `read_back`. State
+is host registries, the bindless texture manager (a mesh's maps get pool indices
 when it is registered), the packed scene on the device (rebuilt when the
 draw list changes; a resubmit of the same handles only moves the models),
 a host mirror of the model matrices (uploaded with the frame's constants
@@ -17,7 +18,8 @@ composes), the shadow and lighting features, the cascaded shadow map fit
 (`RendererConfig.csm`), a cached shadow map (a static scene under a static
 light renders its map, or its cascades, once), and the TAA state: the
 jitter sequence, last frame's unjittered matrices and models, and the
-history image, which stays on the device between frames.
+history image, which stays on the device between frames; the previous
+frame's depth for Hi-Z occlusion culling; and the IBL bundle.
 
 Every reference option, method and feature that this port does not run yet
 raises NotImplementedError naming its ROADMAP.md item; none is silently
@@ -35,10 +37,12 @@ import torch
 from ..core import maths
 from ..core.material import Material
 from ..core.mesh import Mesh, MeshDescriptor
+from ..core.texture import TextureData
 from ..core.transform import Transform
 from ..core.uniform import MATERIAL_RECORD_SIZE, MaterialUniform
 from ..device import resolve_device
 from ..errors import InvalidOperation
+from ..ops.ibl import build_environment
 from ..ops.taa import TaaParams
 from ..ops.texture_sample import TexturePool
 from .bindless import BindlessTextureManager
@@ -62,6 +66,7 @@ from .frame import (
     render_frame_program,
     shadow_program,
 )
+from .lod_system import MAX_LOD_LEVELS, LodStats
 from .scene import BuiltScene, DrawItem, build_models, build_scene
 from .surface import SurfaceProvider
 from .temporal_aa import TaaConfig, TemporalAA
@@ -82,16 +87,14 @@ _UNPORTED_OPTIONS = {
     "max_draws_per_chunk": (None, "A16, chunked geometry"),
     "msaa_resolve": ("ssaa", "A15, MSAA"),
     "msaa_edge_capacity": (0.125, "A15, MSAA"),
-    "shade_dtype": ("f32", "A14, bf16 shading"),
-    "gbuffer_packed": (False, "A14, packed G-buffer fetch"),
-    "lod_cull_threshold": (0.001, "A14, LOD selection"),
 }
 
 # The reference's XLA compilation, tunnel and debugging knobs: accepted,
 # validated as the reference validates them, and without effect here.
 XLA_ONLY_OPTIONS = ("debug", "watch_kernels", "use_pallas",
                     "compilation_cache_dir", "pipeline_mode",
-                    "cold_compile_effort", "async_resize", "bg_compile")
+                    "cold_compile_effort", "async_resize", "bg_compile",
+                    "gbuffer_packed")
 
 # Reference Renderer methods the port does not run yet -> ROADMAP item.
 UNPORTED_METHODS = {
@@ -102,10 +105,6 @@ UNPORTED_METHODS = {
     "set_diagnostics_mode": "A17, diagnostics",
     "toggle_diagnostics": "A17, diagnostics",
     "diagnostics": "A17, diagnostics",
-    "lod_stats": "A14, LOD selection",
-    "set_occlusion_culling": "A14, Hi-Z occlusion",
-    "set_environment_map": "A14, IBL",
-    "clear_environment_map": "A14, IBL",
     "set_msaa_preset": "A15, MSAA",
     "msaa_preset": "A15, MSAA",
 }
@@ -130,7 +129,9 @@ class RendererConfig:
     two_level_binning: Optional[bool] = None
     binning_coarse_cap: int = 16384
     binning_policy: str = "draw_order"  # or "nearest"
-    # LOD selection only acts on meshes with LOD chains (ROADMAP A14).
+    # LOD selection acts only on scenes with a LOD chain (Mesh.add_lod): a
+    # level per draw by screen coverage, and draws below lod_cull_threshold
+    # coverage culled.
     lod_enabled: bool = True
     lod_cull_threshold: float = 0.001
     # Cascaded shadow maps: the cascades' count, resolution and blending
@@ -139,7 +140,7 @@ class RendererConfig:
     csm: Optional[CsmConfig] = None
     shadow_distance: float = 50.0
     shading: str = "pbr"  # "pbr" | "flat"
-    shade_dtype: str = "f32"
+    shade_dtype: str = "f32"  # "bf16": the BRDF in bfloat16
     clear_color: tuple = (0.0, 0.0, 0.0)
     debug: bool = False
     frustum_culling: bool = True
@@ -184,6 +185,8 @@ class RendererConfig:
             raise ValueError(f"unknown binning_policy {self.binning_policy!r}")
         if self.shading not in ("pbr", "flat"):
             raise ValueError(f"unknown shading {self.shading!r}")
+        if self.shade_dtype not in ("f32", "bf16"):
+            raise ValueError(f"unknown shade_dtype {self.shade_dtype!r}")
 
 
 @dataclasses.dataclass
@@ -275,6 +278,11 @@ class Renderer:
         self._unjittered_view_proj: Optional[np.ndarray] = None  # this frame's
         # (lighting_feature.version, packed lights on the device or None).
         self._lights_cache: Optional[tuple] = None
+        # Hi-Z occlusion culling: last frame's depth, on the device.
+        self.occlusion_culling = False
+        self._prev_depth: Optional[torch.Tensor] = None
+        # The image-based lighting bundle (ops/ibl.EnvironmentIBL) or None.
+        self._ibl = None
 
         self._scene: Optional[BuiltScene] = None
         self._scene_dirty = True
@@ -337,8 +345,6 @@ class Renderer:
             if data is not None and getattr(mesh, idx_attr) is None:
                 data.srgb = srgb
                 setattr(mesh, idx_attr, self.bindless.add_sampled_image(data))
-        if mesh.lods and self.config.lod_enabled:
-            _unported(f"mesh {mesh.name!r}: LOD chains", "A14")
         self.mesh_registry[mesh.name] = mesh
         self._scene_dirty = True
         return mesh.name
@@ -728,6 +734,64 @@ class Renderer:
     def _taa_active(self) -> bool:
         return self.hdr_enabled and self.temporal_aa.is_enabled()
 
+    # ------------------------------------------------------------------
+    # Hi-Z occlusion culling, LOD statistics, image-based lighting
+    # ------------------------------------------------------------------
+
+    def set_occlusion_culling(self, enabled: bool) -> None:
+        """Cull draws hidden behind last frame's depth (a Hi-Z pyramid)."""
+        self.occlusion_culling = bool(enabled)
+        if not enabled:
+            self._prev_depth = None
+
+    def set_environment_map(self, env, mips: int = 5) -> None:
+        """Light the scene from an equirectangular radiance map ((H, W, 3)
+        float array or TextureData): split-sum IBL replaces the flat
+        ambient term. The bundle (GGX-prefiltered mips, irradiance, BRDF
+        LUT) is built on the renderer's device."""
+        if isinstance(env, TextureData):
+            env = env.to_linear_f32()[..., :3]
+        self._ibl = build_environment(np.asarray(env, np.float32), mips=mips,
+                                      device=self.device)
+
+    def clear_environment_map(self) -> None:
+        self._ibl = None
+
+    def lod_stats(self, view, proj) -> LodStats:
+        """LodStats of the current scene seen through (view, proj): a host
+        mirror of the frame's LOD selection (render/frame.py:lod_tri_mask),
+        with no device readback. Triangles before and after selection, the
+        culled draws and the draws per level."""
+        stats = LodStats()
+        scene = self._scene
+        if scene is None or not scene.has_lods:
+            return stats
+        self._sync_item_models()
+        items = self._current_draw_items()
+        models = build_models(items, len(items))
+        vp = (np.asarray(proj, np.float32) @ np.asarray(view, np.float32))
+        c4 = np.concatenate(
+            [scene.draw_center_host, np.ones((len(items), 1), np.float32)],
+            axis=-1)
+        cw = np.einsum("dij,dj->di", models, c4)
+        wc = (cw @ vp.T)[:, 3]
+        scale = np.max(np.linalg.norm(models[:, :3, :3], axis=2), axis=-1)
+        radius = np.linalg.norm(scene.draw_extents_host, axis=-1) * scale
+        px_r = radius / np.maximum(wc, 1e-8) * (
+            0.5 * max(self._width, self._height))
+        coverage = np.minimum(
+            np.pi * px_r * px_r / (self._width * self._height), 1.0)
+        coverage = np.where(wc <= 0.0, 0.0, coverage)
+        sel = np.argmax(coverage[:, None] >= scene.lod_thresholds_host, axis=1)
+        live = coverage >= self.config.lod_cull_threshold
+        lt = scene.lod_level_triangles
+        stats.triangles_before = int(lt[:, 0].sum())
+        stats.triangles_after = int((lt[np.arange(len(items)), sel] * live).sum())
+        stats.objects_culled = int((~live).sum())
+        for i in range(MAX_LOD_LEVELS):
+            stats.objects_per_lod[i] = int(((sel == i) & live).sum())
+        return stats
+
     # The reference's tiered XLA compilation has no counterpart in an eager
     # port: nothing is ever pending and no pipeline is raced.
 
@@ -802,6 +866,12 @@ class Renderer:
                               if self.tonemapping_enabled else "none"),
             taa_enabled=self.temporal_aa.is_enabled(),
             fxaa_enabled=self.fxaa_enabled,
+            occlusion_culling=self.occlusion_culling,
+            lod_enabled=(c.lod_enabled and self._scene is not None
+                         and self._scene.has_lods),
+            lod_cull_threshold=c.lod_cull_threshold,
+            ibl_enabled=self._ibl is not None,
+            shade_dtype=c.shade_dtype,
         )
 
     @staticmethod
@@ -866,6 +936,7 @@ class Renderer:
             # State shaped like the old surface goes with it.
             self._width, self._height = size
             self.reset_taa_history()
+            self._prev_depth = None
         items = self._current_draw_items()
         if not items:
             raise InvalidOperation(
@@ -1052,12 +1123,24 @@ class Renderer:
         return sm, sof
 
     def render_frame(self, view, proj, camera_pos) -> FrameOutputs:
-        """Render and present one frame."""
+        """Render and present one frame. A LOD scene renders its shadow map
+        inside the frame, under the camera's level mask, so the cache is
+        not used for it. With occlusion culling the first frame tests
+        against a far-plane depth (nothing is known occluded yet) and every
+        frame keeps its depth for the next."""
         inputs = self.prepare_frame(view, proj, camera_pos)
+        cfg = inputs.config
         shadow = (
             self._external_shadow(inputs)
-            if inputs.config.shadow_enabled else None
+            if cfg.shadow_enabled and not cfg.lod_enabled else None
         )
+        prev_depth = None
+        if self.occlusion_culling:
+            prev_depth = self._prev_depth
+            if prev_depth is None:
+                prev_depth = torch.ones((self._height, self._width),
+                                        dtype=torch.float32,
+                                        device=self.device)
         history = None
         if inputs.taa_params is not None:
             history = self._taa_history
@@ -1068,10 +1151,12 @@ class Renderer:
         outputs = render_frame_program(
             inputs.config, inputs.scene.buffers, inputs.uniforms, shadow,
             inputs.pool, inputs.lights, inputs.post, inputs.taa_params,
-            history,
+            history, prev_depth, self._ibl,
         )
         if outputs.history is not None:
             self._taa_history = outputs.history
+        if self.occlusion_culling:
+            self._prev_depth = outputs.depth
         self._prev_view_proj = self._unjittered_view_proj
         self._prev_models = inputs.uniforms.models
         self._last_image = outputs.image.cpu().numpy()

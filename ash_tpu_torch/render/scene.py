@@ -66,6 +66,10 @@ class SceneBuffers(NamedTuple):
     def num_draws(self) -> int:
         return int(self.materials.shape[0])
 
+    @property
+    def num_unique_vertices(self) -> int:
+        return int(self.position.shape[0])
+
 
 def scene_from_numpy(buffers, device) -> SceneBuffers:
     """Any SceneBuffers-shaped tuple (this package's numpy packing, or the
@@ -94,8 +98,12 @@ class BuiltScene:
     scene_center: np.ndarray
     scene_radius: float
     has_lods: bool = False
+    # Host LOD tables for Renderer.lod_stats (no device readback): per draw,
+    # the triangle count of each level and the levels' coverage thresholds.
+    lod_level_triangles: Optional[np.ndarray] = None  # (D, MAX_LOD_LEVELS)
+    lod_thresholds_host: Optional[np.ndarray] = None  # (D, MAX_LOD_LEVELS)
     # Per-draw local bounds on the host, for the bounds refit after a
-    # transform update (no device readback).
+    # transform update and lod_stats (no device readback).
     draw_center_host: Optional[np.ndarray] = None  # (D, 3)
     draw_extents_host: Optional[np.ndarray] = None  # (D, 3)
 
@@ -106,12 +114,14 @@ def _pack_mesh(mesh: Mesh) -> tuple:
     if len(levels) > MAX_LOD_LEVELS:
         raise ValueError(f"more than {MAX_LOD_LEVELS} LOD levels")
     parts, tris, lods = [], [], []
+    level_tris = np.zeros(MAX_LOD_LEVELS, np.int32)
     off = 0
     for li, lv in enumerate(levels):
         parts.append(lv.vertices)
         t = lv.triangle_indices + off
         tris.append(t)
         lods.append(np.full(t.shape[0], li, np.int32))
+        level_tris[li] = t.shape[0]
         off += len(lv.vertices)
     thr = np.full(MAX_LOD_LEVELS, np.inf, np.float32)
     for j, (_, s) in enumerate(mesh.lods):
@@ -124,7 +134,7 @@ def _pack_mesh(mesh: Mesh) -> tuple:
          for z in (lo[2], hi[2])], np.float32,
     )
     return (parts, np.concatenate(tris).astype(np.int32),
-            np.concatenate(lods), c, e, thr, corners, off)
+            np.concatenate(lods), c, e, thr, level_tris, corners, off)
 
 
 class _PackedMesh(NamedTuple):
@@ -135,6 +145,7 @@ class _PackedMesh(NamedTuple):
     center: np.ndarray
     extents: np.ndarray
     thresholds: np.ndarray  # (MAX_LOD_LEVELS,) f32
+    level_tris: np.ndarray  # (MAX_LOD_LEVELS,) int32 triangles per level
     corners: np.ndarray  # (8, 3) local AABB corners
 
 
@@ -150,12 +161,12 @@ def pack_scene(draw_items: List[DrawItem], meshes: Dict[str, Mesh]):
     for item in draw_items:
         if item.mesh_key in packed:
             continue
-        parts, tris, tri_lod, c, e, thr, corners, nv = _pack_mesh(
+        parts, tris, tri_lod, c, e, thr, lt, corners, nv = _pack_mesh(
             meshes[item.mesh_key]
         )
         pool_parts.extend(parts)
         packed[item.mesh_key] = _PackedMesh(voff, nv, tris, tri_lod, c, e,
-                                            thr, corners)
+                                            thr, lt, corners)
         voff += nv
     pool = VertexArrays.concatenate(pool_parts)
 
@@ -196,7 +207,8 @@ def pack_scene(draw_items: List[DrawItem], meshes: Dict[str, Mesh]):
     centers = np.stack([p.center for p in pm])
     extents = np.stack([p.extents for p in pm])
     thresholds = np.stack([p.thresholds for p in pm])
-    has_lods = any(meshes[k].lods for k in packed)
+    level_tris = np.stack([p.level_tris for p in pm])
+    has_lods = bool((level_tris[:, 1] > 0).any())
 
     # World AABB for shadow fitting: batched corner transform.
     corners = np.stack([p.corners for p in pm])  # (D, 8, 3)
@@ -240,6 +252,8 @@ def pack_scene(draw_items: List[DrawItem], meshes: Dict[str, Mesh]):
         scene_center=center,
         scene_radius=max(float(np.linalg.norm(hi - center)), 1e-3),
         has_lods=has_lods,
+        lod_level_triangles=level_tris,
+        lod_thresholds_host=thresholds,
         draw_center_host=centers,
         draw_extents_host=extents,
     )

@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's standard, glass, textured, lit, rich, animated
-and 1M-triangle frames on one NVIDIA GPU.
+and 1M-triangle frames, examples 06 and 07's frames, the bf16 standard
+frame and the standard frame with Hi-Z occlusion culling on one NVIDIA
+GPU.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It needs one CUDA device and `nvcc`; it exits non-zero without a result when
@@ -25,7 +27,10 @@ fails. Phases, one stdout line each:
    bins hold near-plane crossers and grazing triangles (one layer, 4).
    Then the one-layer kernel on the mega frame's own main (1080p, 32x128
    tiles) and shadow (2048^2, 32x128) passes, two-level binned, at the base
-   caps of 8192 and at the caps the escalation reaches, the whole targets;
+   caps of 8192 and at the caps the escalation reaches, the whole targets,
+   and on example 07's instancing frame 1 (65,536 cubes from the
+   InstancingManager, 786,432 triangles): its main pass at 8x128 tiles and
+   K=2048 and its shadow pass;
 4. the slice: the standard frame (1000 instanced PBR cubes, bench.py's
    recipe) rendered at 1920x1080 through ash_tpu_torch.Renderer: the
    one-layer kernel runs twice on frame 1 and once per static frame after
@@ -68,18 +73,39 @@ fails. Phases, one stdout line each:
    triangles): overflow at the base caps, escalate_tile_capacities until
    nothing drops (at most 4 rounds), the final caps, the base-cap image's
    PSNR against the drop-free one, and the drop-free frame against the
-   plain-raster frame;
+   plain-raster frame. Then the A14 paths. Example 07's instancing frame
+   (Hi-Z on) for 3 frames: B1 [2, 1, 1], visible draws per frame (frame 1
+   frustum only, fewer after), overflow, each frame against a plain-raster
+   renderer's, frame 2's cull_objects with the pyramid on the card held
+   to the same call on CPU copies of its inputs (the card's verdicts equal
+   frame 2's visible draws, equal pyramids, at most 1% of the flags
+   differ), frame 2 against a renderer with occlusion culling off (the
+   pixels that differ, recorded, not held),
+   peak memory, and the host seconds of the InstancingManager (outside the
+   frame times). Example 07's LOD scene from distance 15 and 30: B1 [2, 2]
+   (a LOD scene renders its shadow map in every frame, under the camera's
+   level mask, which must change the map), lod_stats at each, each frame
+   against its plain-raster frame. Example 06's IBL frame: against the same
+   scene without the environment (it must differ) and its plain-raster
+   frame. bench.py --bf16's standard frame: PSNR >= 40 dB against the f32
+   frame and not identical, and its plain-raster frame. The standard frame
+   with Hi-Z: visible draws, frame 2's cull held to the CPU as above, the
+   pixels it changes against the frustum-only frame (recorded: the
+   reference's Hi-Z test culls visible draws here too), its plain-raster
+   frame 3;
 5. times (CUDA events) and peak device memory: static frame, frame with a
    shadow re-render, the glass frames, the textured frame (static, with a
    shadow re-render, and at anisotropy 1 for scale), the lit frame, the
    rich frame (static, with a shadow re-render, at render_scale=0.5), the
    animated frame (median, min and max of 30 poses) and the mega frame
    (8 frames at the drop-free caps and at the base caps), with kernels and
-   copies per frame (torch.profiler) for the last two; then,
+   copies per frame (torch.profiler) for the last two; the instancing frame
+   (median, min and max of 5), the LOD frames, the IBL frame, the bf16 and
+   f32 standard frames and the standard frame with Hi-Z; then,
    at each kernel shape of the main path (1080p one layer, 2048^2 one
    layer, the three 1024^2 cascades, 1080p K = 2, 4, 8 and K = 4 under a
-   floor, the mega frame's four passes, which add the time with only the
-   heaviest tile's list left): the
+   floor, the mega frame's four passes and the instancing frame's two,
+   which add the time with only the heaviest tile's list left): the
    wrapper-loop time (50 calls of raster_cuda.rasterize, host work
    included; the `ms` of the kernels line, as in earlier versions), the
    device time (`graph_ms`: a CUDA graph of bare launches), the device time
@@ -449,6 +475,47 @@ def largest_tile_light_count(rend, view, proj, pos):
     return int(tl.counts.max())
 
 
+def hiz_cull_card_vs_cpu(rend, depth, view, proj, pos):
+    """The Hi-Z cull of `rend`'s next frame over the pyramid of `depth` (the
+    last frame's), by cull_objects on the card and on CPU copies of the
+    same inputs -> (visible on the card, visible on the CPU, flags that
+    differ, pyramid texels equal bit for bit)."""
+    import torch
+
+    from ash_tpu_torch.ops.hiz import build_hiz
+    from ash_tpu_torch.ops.occlusion import cull_objects
+
+    inputs = rend.prepare_frame(view, proj, pos)
+    cfg, sb, uni = inputs.config, inputs.scene.buffers, inputs.uniforms
+    args = (sb.draw_center, sb.draw_extents, uni.models, sb.draw_enabled,
+            uni.view_proj)
+    texels, vis = {}, {}
+    for dev in ("cuda", "cpu"):
+        pyr = build_hiz(depth.to(dev))
+        texels[dev] = pyr.texels.cpu()
+        vis[dev] = cull_objects(*(a.to(dev) for a in args), pyr, cfg.width,
+                                cfg.height).visibility.cpu()
+    return (int(vis["cuda"].sum()), int(vis["cpu"].sum()),
+            int((vis["cuda"] != vis["cpu"]).sum()),
+            bool(torch.equal(texels["cuda"], texels["cpu"])))
+
+
+def check_hiz_cull(name, rend, outs, fargs):
+    """Frame 2's culling, held to the same cull on the CPU: the card's
+    verdicts equal frame 2's visible draws, the pyramids are equal and at
+    most 1% of frame 1's visible draws flip (tests/test_torch_hiz.py holds
+    the CPU's to the reference at the same 1%). -> the cull's numbers."""
+    card, cpu, flips, same_pyr = hiz_cull_card_vs_cpu(rend, outs[0].depth,
+                                                      *fargs)
+    visible = [int(o.visible_draws) for o in outs]
+    check(card == visible[1] and same_pyr
+          and flips <= max(1, visible[0] // 100),
+          f"{name}: Hi-Z cull on the card {card} visible (frame 2: "
+          f"{visible[1]}), on the CPU {cpu}, {flips} flags differ, pyramids "
+          f"equal: {same_pyr}")
+    return card, cpu, flips
+
+
 def compare_layers(got, want, layers):
     """(tri_id mismatches, depth mismatches, max |depth err|, covered per
     layer) over every layer of two visibility buffers."""
@@ -482,7 +549,11 @@ def main() -> int:
     from ash_tpu_torch.render import bench_scene
     from ash_tpu_torch.render.bench_scene import (
         build_bench_renderer,
+        build_ibl_renderer,
+        build_instancing_renderer,
+        build_lod_renderer,
         build_mega_renderer,
+        lod_camera,
     )
 
     # 1. Device.
@@ -677,6 +748,57 @@ def main() -> int:
             check(tid_bad == 0 and depth_bad == 0, f"kernel != plain on {name}")
             del got, want
     mega_names = [n for n in passes if n.startswith("mega ")]
+
+    # B1 on example 07's instancing frame (65,536 cubes, 786,432 triangles,
+    # two-level binning): its main pass at 8x128 tiles and K=2048, and its
+    # shadow pass, as frame 1 computes them (frustum culling only; no depth
+    # yet). The renderer is phase 4's.
+    t0 = time.perf_counter()
+    inst_mgr = bench_scene.instancing_manager()
+    inst_host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r_inst, _, icam, _ = build_instancing_renderer(1920, 1080, "cuda",
+                                                   mgr=inst_mgr)
+    inst_submit_s = time.perf_counter() - t0
+    iargs = (icam.view_matrix(), icam.projection_matrix(), icam.position)
+    inst_passes = pass_inputs(r_inst, icam)
+    inst_names = []
+    for pas in ("main", "shadow"):
+        args = inst_passes[pas]
+        name = f"instancing {pas} K={args[1].tri_ids.shape[1]}"
+        inst_names.append(name)
+        passes[name] = args
+        h, w, th, tw = args[2:6]
+        rects_bad = int((raster_cuda.device_rects(args[0], h, w)
+                         != raster.candidate_rects(args[0], h, w)).sum())
+        check(rects_bad == 0, f"kernel rectangles != candidate_rects on {name}")
+        got = raster_cuda.rasterize(*args)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = raster.rasterize(*args)
+        end.record()
+        end.synchronize()
+        plain_once[name] = start.elapsed_time(end)
+        tid_bad = int((got.tri_id != want.tri_id).sum())
+        depth_bad = int((got.depth != want.depth).sum())
+        err = float((got.depth - want.depth).abs().max())
+        max_err = max(max_err, err)
+        counts = args[1].counts
+        print(f"phase3 {name}: {w}x{h} tiles {th}x{tw} (example 07, frame "
+              f"1): tri_id mismatches {tid_bad}, depth mismatches "
+              f"{depth_bad}, max |depth err| {err}, rectangles unequal to "
+              f"candidate_rects {rects_bad}, covered "
+              f"{int((got.tri_id >= 0).sum())}, max tile count "
+              f"{int(counts.max())} (tile {int(counts.argmax())}), candidates "
+              f"{int(counts.sum())}, overflow {int(args[1].overflow)}; plain "
+              f"raster {plain_once[name]:.0f} ms", flush=True)
+        check(tid_bad == 0 and depth_bad == 0, f"kernel != plain on {name}")
+        del got, want
+    check(passes[inst_names[0]][1].tri_ids.shape[1] == 2048
+          and passes[inst_names[0]][4:6] == (8, 128),
+          "example 07's main pass is not 8x128 tiles at K=2048")
+    big_names = mega_names + inst_names
 
     # 4. The slice, through the renderer; count the kernels' launches on
     # each path from 0.
@@ -1044,6 +1166,194 @@ def main() -> int:
           "plain-raster frame")
     del rmega_plain
 
+    def plain_frames(rend, cams, before=None):
+        """rend's images of one frame per camera on the plain raster."""
+        images = []
+        with mock.patch.object(frame, "rasterize", raster.rasterize):
+            for c in cams:
+                if before is not None:
+                    before()
+                rend.render_frame(*c)
+                images.append(rend.read_back().copy())
+        return images
+
+    def timed_frame(rend, fargs):
+        """(outputs, CUDA-event ms) of one frame."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        o = rend.render_frame(*fargs)
+        end.record()
+        end.synchronize()
+        return o, start.elapsed_time(end)
+
+    # Example 07's instancing frame: 65,536 cubes, Hi-Z occlusion culling
+    # on. Frame 1 tests against the far plane (frustum only), frame 2 and
+    # after against the last frame's depth.
+    raster_cuda.rasterize.launches = 0
+    raster_cuda.rasterize.layer_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    i_one, i_peel, i_outs, i_ms, i_images = [], [], [], [], []
+    for _ in range(3):
+        b1 = raster_cuda.rasterize.launches
+        b2 = raster_cuda.rasterize.layer_launches
+        o, ms = timed_frame(r_inst, iargs)
+        i_outs.append(o)
+        i_ms.append(ms)
+        i_images.append(r_inst.read_back().copy())
+        i_one.append(raster_cuda.rasterize.launches - b1)
+        i_peel.append(raster_cuda.rasterize.layer_launches - b2)
+    launches["instancing"] = raster_cuda.rasterize.launches
+    layer_launches["instancing"] = raster_cuda.rasterize.layer_launches
+    inst_peak = torch.cuda.max_memory_allocated() / 2**20
+    i_visible = [int(o.visible_draws) for o in i_outs]
+    i_over = [(int(o.binning_overflow), int(o.shadow_overflow)) for o in i_outs]
+    check(i_one == [2, 1, 1] and i_peel == [0, 0, 0],
+          f"instancing: one-layer launches {i_one}, peel {i_peel}")
+    check(i_visible[1] < i_visible[0],
+          f"instancing: visible draws per frame {i_visible}")
+    inst_hiz = check_hiz_cull("instancing", r_inst, i_outs, iargs)
+    check(all(bool(torch.isfinite(o.color).all()) for o in i_outs),
+          "instancing: non-finite colour")
+    inst_plain = plain_frames(
+        build_instancing_renderer(1920, 1080, "cuda", mgr=inst_mgr)[0],
+        [iargs, iargs])
+    inst_plain_equal = [bool(np.array_equal(a, b))
+                        for a, b in zip(inst_plain, i_images)]
+    check(all(inst_plain_equal), f"instancing: frame N with the kernel != "
+          f"frame N with the plain raster: {inst_plain_equal}")
+    del inst_plain
+    r_inst_off = build_instancing_renderer(1920, 1080, "cuda", mgr=inst_mgr,
+                                           occlusion=False)[0]
+    off_out = r_inst_off.render_frame(*iargs)
+    inst_off_over = (int(off_out.binning_overflow),
+                     int(off_out.shadow_overflow))
+    inst_off_diff = np.abs(r_inst_off.read_back().astype(np.int16)
+                           - i_images[1].astype(np.int16)).max(-1)
+    del r_inst_off, off_out
+    # Recorded, not held to the reference test's bar of one level: the
+    # frame without culling drops triangles in its fullest tiles, and the
+    # reference's Hi-Z test itself culls visible draws (one texel at the
+    # rectangle's centre; ROADMAP.md C), which the port reproduces.
+    inst_off_pixels = int((inst_off_diff > 1).sum())
+
+    # Example 07's LOD scene: 400 three-level spheres from distance 15 and
+    # 30. The shadow map renders inside every frame, under the camera's
+    # level mask.
+    raster_cuda.rasterize.launches = 0
+    raster_cuda.rasterize.layer_launches = 0
+    rlod, _ = build_lod_renderer(1920, 1080, "cuda")
+    lod_cams = {d: lod_camera(d, 1920, 1080) for d in (15.0, 30.0)}
+    lod_args = {d: (c.view_matrix(), c.projection_matrix(), c.position)
+                for d, c in lod_cams.items()}
+    lod_one, lod_images, lod_maps, lod_stats, lod_over = [], [], [], {}, []
+    for d in (15.0, 30.0):
+        b1 = raster_cuda.rasterize.launches
+        o = rlod.render_frame(*lod_args[d])
+        lod_one.append(raster_cuda.rasterize.launches - b1)
+        lod_images.append(rlod.read_back().copy())
+        lod_maps.append(o.shadow_map.clone())
+        lod_over.append((int(o.binning_overflow), int(o.shadow_overflow)))
+        lod_stats[d] = rlod.lod_stats(*lod_args[d][:2])
+        check(bool(torch.isfinite(o.color).all()), "lod: non-finite colour")
+    launches["lod"] = raster_cuda.rasterize.launches
+    layer_launches["lod"] = raster_cuda.rasterize.layer_launches
+    check(lod_one == [2, 2] and layer_launches["lod"] == 0,
+          f"lod: one-layer launches per frame {lod_one}, peel "
+          f"{layer_launches['lod']}")
+    check(not lod_maps[0].equal(lod_maps[1]),
+          "lod: the shadow map did not follow the camera's levels")
+    near, far = lod_stats[15.0], lod_stats[30.0]
+    check(near.triangles_after > far.triangles_after > 0
+          and far.reduction_rate > near.reduction_rate,
+          f"lod: triangles {near.triangles_after} near, "
+          f"{far.triangles_after} far")
+    del lod_maps
+    lod_plain = plain_frames(build_lod_renderer(1920, 1080, "cuda")[0],
+                             [lod_args[15.0], lod_args[30.0]])
+    lod_plain_equal = [bool(np.array_equal(a, b))
+                       for a, b in zip(lod_plain, lod_images)]
+    check(all(lod_plain_equal), f"lod: frame with the kernel != plain-raster "
+          f"frame: {lod_plain_equal}")
+    del lod_plain
+
+    # Example 06: the IBL sphere grid at 640x400, HDR on, no shadows.
+    raster_cuda.rasterize.launches = 0
+    raster_cuda.rasterize.layer_launches = 0
+    t0 = time.perf_counter()
+    ribl, _, ibl_cam = build_ibl_renderer(640, 400, "cuda")
+    torch.cuda.synchronize()
+    ibl_build_s = time.perf_counter() - t0
+    ibl_args = (ibl_cam.view_matrix(), ibl_cam.projection_matrix(),
+                ibl_cam.position)
+    ibl_one, _, ibl_outs = launches_per_frame(ribl, *ibl_args, 2)
+    launches["ibl"] = raster_cuda.rasterize.launches
+    layer_launches["ibl"] = raster_cuda.rasterize.layer_launches
+    ibl_image = ribl.read_back().copy()
+    check(ibl_one == [1, 1] and layer_launches["ibl"] == 0,
+          f"ibl: one-layer launches {ibl_one}")
+    check(all(bool(torch.isfinite(o.color).all()) for o in ibl_outs)
+          and int(ibl_outs[0].binning_overflow) == 0, "ibl: frame")
+    r_noenv = build_ibl_renderer(640, 400, "cuda", environment=False)[0]
+    r_noenv.render_frame(*ibl_args)
+    ibl_vs_flat = ash_tpu_torch.psnr(ibl_image, r_noenv.read_back())
+    check(ibl_vs_flat < 40.0, f"ibl: the environment does not show "
+          f"({ibl_vs_flat:.2f} dB against the flat ambient)")
+    del r_noenv
+    ibl_plain_equal = bool(np.array_equal(
+        plain_frames(build_ibl_renderer(640, 400, "cuda")[0], [ibl_args])[0],
+        ibl_image))
+    check(ibl_plain_equal, "ibl: frame with the kernel != plain-raster frame")
+
+    # bench.py --bf16: the standard frame shaded in bfloat16.
+    raster_cuda.rasterize.launches = 0
+    raster_cuda.rasterize.layer_launches = 0
+    rbf, _, _, _ = build_bench_renderer(1920, 1080, 1000, "cuda",
+                                        shade_dtype="bf16")
+    bf_one, _, bf_outs = launches_per_frame(rbf, view, proj, pos, 2)
+    launches["bf16"] = raster_cuda.rasterize.launches
+    layer_launches["bf16"] = raster_cuda.rasterize.layer_launches
+    bf_image = rbf.read_back().copy()
+    check(bf_one == [2, 1] and layer_launches["bf16"] == 0,
+          f"bf16: one-layer launches {bf_one}")
+    check(bool(torch.isfinite(bf_outs[0].color).all()), "bf16: non-finite")
+    bf_psnr = ash_tpu_torch.psnr(bf_image, image)
+    check(bf_psnr >= 40.0 and not np.array_equal(bf_image, image),
+          f"bf16: {bf_psnr:.2f} dB against the f32 frame (want >= 40 and "
+          "not identical)")
+    bf_plain_equal = bool(np.array_equal(plain_frames(build_bench_renderer(
+        1920, 1080, 1000, "cuda", shade_dtype="bf16")[0],
+        [(view, proj, pos)])[0], bf_image))
+    check(bf_plain_equal, "bf16: frame with the kernel != plain-raster frame")
+
+    # The standard frame with Hi-Z occlusion culling.
+    raster_cuda.rasterize.launches = 0
+    raster_cuda.rasterize.layer_launches = 0
+    rocc, _, _, _ = build_bench_renderer(1920, 1080, 1000, "cuda",
+                                         occlusion=True)
+    occ_one, _, occ_outs = launches_per_frame(rocc, view, proj, pos, 3)
+    launches["occlusion"] = raster_cuda.rasterize.launches
+    layer_launches["occlusion"] = raster_cuda.rasterize.layer_launches
+    occ_hiz = check_hiz_cull("occlusion", rocc, occ_outs, (view, proj, pos))
+    occ_image = rocc.read_back().copy()
+    occ_visible = [int(o.visible_draws) for o in occ_outs]
+    check(occ_one == [2, 1, 1] and layer_launches["occlusion"] == 0,
+          f"occlusion: one-layer launches {occ_one}")
+    check(occ_visible[0] == int(out.visible_draws)
+          and occ_visible[1] <= occ_visible[0],
+          f"occlusion: visible draws {occ_visible}, frustum only "
+          f"{int(out.visible_draws)}")
+    # Recorded: the reference's Hi-Z test culls visible draws of this scene
+    # too (ROADMAP.md C); the port reproduces its verdicts.
+    occ_diff_px = np.abs(occ_image.astype(np.int16)
+                         - image.astype(np.int16)).max(-1)
+    occ_diff, occ_pixels = int(occ_diff_px.max()), int((occ_diff_px > 1).sum())
+    occ_plain_equal = bool(np.array_equal(plain_frames(build_bench_renderer(
+        1920, 1080, 1000, "cuda", occlusion=True)[0],
+        [(view, proj, pos)] * 3)[2], occ_image))
+    check(occ_plain_equal, "occlusion: frame 3 with the kernel != plain-"
+          "raster frame 3")
+
     goldens = {}
     for name, scene_fn in golden_scenes.SCENES.items():
         golden = ash_tpu_torch.read_png(
@@ -1129,14 +1439,53 @@ def main() -> int:
           f"base-cap image against the drop-free image {mega_psnr:.2f} dB; "
           f"drop-free frame equal to the plain-raster frame: "
           f"{mega_plain_equal}", flush=True)
+    print(f"phase4 instancing frame (example 07): 1920x1080, 65,536 cubes, "
+          f"{r_inst._scene.num_triangles} triangles, tiles 8x128, K=2048, "
+          f"Hi-Z on: InstancingManager {inst_host_s:.2f} s on the host, "
+          f"submit {inst_submit_s:.2f} s; frames 1-3: {i_ms} ms (CUDA "
+          f"events), visible draws {i_visible} (frame 1 frustum only), "
+          f"overflow (main, shadow) {i_over}, one-layer launches {i_one}, "
+          f"peel {i_peel}; frame 2's Hi-Z cull on the card / CPU "
+          f"{inst_hiz[0]} / {inst_hiz[1]} visible, {inst_hiz[2]} flags "
+          f"differ; frame N equal to the plain-raster frame N: "
+          f"{inst_plain_equal}; recorded, against occlusion off (overflow "
+          f"{inst_off_over}): max diff {int(inst_off_diff.max())}, "
+          f"{inst_off_pixels} pixels over 1 level; peak device memory "
+          f"{inst_peak:.1f} MiB", flush=True)
+    print(f"phase4 lod frame (example 07): 1920x1080, 400 spheres, "
+          f"{rlod._scene.num_triangles} triangles: one-layer launches per "
+          f"frame {lod_one} (the shadow map follows the camera), overflow "
+          f"(main, shadow) {lod_over}; "
+          + "; ".join(f"distance {d:g}: per level {st.objects_per_lod[:3]}, "
+                      f"culled {st.objects_culled}, triangles "
+                      f"{st.triangles_before} -> {st.triangles_after} "
+                      f"({100 * st.reduction_rate:.1f}% fewer)"
+                      for d, st in lod_stats.items())
+          + f"; equal to the plain-raster frames: {lod_plain_equal}",
+          flush=True)
+    print(f"phase4 ibl frame (example 06): 640x400, 25 spheres, HDR: "
+          f"environment and scene built in {ibl_build_s:.2f} s, one-layer "
+          f"launches {ibl_one}; PSNR against the flat ambient "
+          f"{ibl_vs_flat:.2f} dB; equal to the plain-raster frame: "
+          f"{ibl_plain_equal}", flush=True)
+    print(f"phase4 bf16 frame (bench.py --bf16): one-layer launches {bf_one}; "
+          f"PSNR against the f32 frame {bf_psnr:.2f} dB (not identical); "
+          f"equal to the plain-raster frame: {bf_plain_equal}", flush=True)
+    print(f"phase4 occlusion frame (standard + Hi-Z): one-layer launches "
+          f"{occ_one}; visible draws {occ_visible} (frustum only "
+          f"{int(out.visible_draws)}); frame 2's Hi-Z cull on the card / CPU "
+          f"{occ_hiz[0]} / {occ_hiz[1]} visible, {occ_hiz[2]} flags differ; "
+          f"recorded, against the frustum-only frame: max "
+          f"diff {occ_diff}, {occ_pixels} pixels over 1 level; frame 3 "
+          f"equal to the plain-raster frame 3: {occ_plain_equal}", flush=True)
 
     # 5. Times.
     timed = {}
-    # B1 on the mega frame's passes: the plain raster was timed once in
-    # phase 3. Besides the whole launch, the launch with only the heaviest
-    # tile's list left: if it takes most of the time, the kernel's time
-    # follows the worst tile, not the pairs.
-    for name in mega_names:
+    # B1 on the mega frame's and the instancing frame's passes: the plain
+    # raster was timed once in phase 3. Besides the whole launch, the launch
+    # with only the heaviest tile's list left: if it takes most of the time,
+    # the kernel's time follows the worst tile, not the pairs.
+    for name in big_names:
         args = passes[name]
         bins = args[1]
         launch, _, _ = raster_cuda.launcher(*args[:6])
@@ -1160,11 +1509,12 @@ def main() -> int:
             plain_ms=plain_once[name], size=f"{args[3]}x{args[2]}")
         row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
         timed[name, 1, False] = row
-    # The mega passes' inputs (1M-triangle setups, bins of up to 32768
-    # slots) are freed before the frames are timed.
-    for name in mega_names:
+    # The mega and instancing passes' inputs (1M-triangle setups, bins of
+    # up to 32768 slots) are freed before the frames are timed.
+    for name in big_names:
         del passes[name]
-    del mega, args, bins, empty, worst_bins, launch, launch_empty, launch_worst
+    del mega, inst_passes, args, bins, empty, worst_bins, launch
+    del launch_empty, launch_worst
 
     mem = {}
     static_ms, mem["standard"] = frame_ms_mem(
@@ -1226,6 +1576,23 @@ def main() -> int:
     mega_base_ms, mem["mega, base caps"] = frame_ms_spread(
         lambda i: rbase.render_frame(*margs), 8)
     del rbase
+    # The A14 paths: example 07's instancing frame (steady state, after its
+    # first three frames) and LOD frames, example 06's IBL frame, the bf16
+    # standard frame beside the f32 one, the standard frame with Hi-Z.
+    inst_ms, mem["instancing"] = frame_ms_spread(
+        lambda i: r_inst.render_frame(*iargs), 5)
+    lod_ms = {}
+    for d in (15.0, 30.0):
+        lod_ms[d], mem[f"lod, distance {d:g}"] = frame_ms_mem(
+            lambda i, a=lod_args[d]: rlod.render_frame(*a), 5)
+    ibl_ms, mem["ibl"] = frame_ms_mem(lambda i: ribl.render_frame(*ibl_args),
+                                      10)
+    bf_ms, mem["bf16"] = frame_ms_mem(
+        lambda i: rbf.render_frame(view, proj, pos), 10)
+    f32_ms = frame_ms(lambda i: r.render_frame(view, proj, pos), 10)
+    occ_ms, mem["occlusion"] = frame_ms_mem(
+        lambda i: rocc.render_frame(view, proj, pos), 10)
+    del r_inst, rlod, ribl, rbf, rocc
     # Each kernel shape of the main path: the wrapper loop, the device time
     # of bare launches (and with every list empty), the plain raster (plain,
     # kernel, kernel, plain) and the work from the inputs.
@@ -1268,9 +1635,15 @@ def main() -> int:
           f"max {mega_ms[2]}), {mega_ops:g} kernels and copies per frame; at "
           f"the base caps {mega_base_ms[0]} ms (median of 8, min "
           f"{mega_base_ms[1]}, max {mega_base_ms[2]})", flush=True)
+    print(f"phase5 A14 times on {card}: instancing frame {inst_ms[0]} ms "
+          f"(median of 5, min {inst_ms[1]}, max {inst_ms[2]}); lod frame at "
+          f"distance 15 {lod_ms[15.0]} ms, at 30 {lod_ms[30.0]} ms (medians "
+          f"of 5); ibl frame {ibl_ms} ms; bf16 standard frame {bf_ms} ms "
+          f"beside the f32 one {f32_ms} ms; standard frame with Hi-Z "
+          f"{occ_ms} ms (medians of 10)", flush=True)
     print("phase5 peak device memory (MiB): " + ", ".join(
         f"{k} {v:.1f}" for k, v in mem.items()), flush=True)
-    for name in mega_names:
+    for name in big_names:
         row = timed[name, 1, False]
         print(f"phase5 kernel {name} {row['size']}: device {row['device_ms']} ms "
               f"(every list empty: {row['clear_ms']} ms; only the heaviest "
@@ -1283,7 +1656,7 @@ def main() -> int:
               f"bound {row['bound_ms']} ms by {row['bound_by']}, "
               f"{100 * row['share_of_bound']:.1f}% of it", flush=True)
     for (name, layers, with_floor), row in timed.items():
-        if name in mega_names:
+        if name in big_names:
             continue
         h, w = passes[name][2:4]
         print(f"phase5 kernel {name} {w}x{h} layers={layers} "
@@ -1327,7 +1700,7 @@ def main() -> int:
                     max_err, ("main", 1, False),
                     [("main", 1, False), ("shadow", 1, False),
                      *((c, 1, False) for c in CASCADES),
-                     *((n, 1, False) for n in mega_names)]),
+                     *((n, 1, False) for n in big_names)]),
         kernel_line("raster_layers", "ash_tpu/ops/raster_pallas.py:138",
                     layer_launches, max_err_layers, ("main", 4, False),
                     [("main", 2, False), ("main", 4, False),

@@ -1,5 +1,6 @@
 """Frustum culling and stream compaction: ash_tpu_torch.ops.occlusion and
-ops.compute_utils against ash_tpu on the same numpy inputs.
+ops.compute_utils against ash_tpu on the same numpy inputs (Hi-Z culling:
+tests/test_torch_hiz.py).
 
 Visibility flags, draw lists and counts are exact; planes and world bounds
 atol 1e-5 (f32 sums in another order than XLA's).
@@ -13,7 +14,7 @@ import torch
 from ash_tpu.core.transform import Camera
 from ash_tpu.ops import compute_utils as ref_cu
 from ash_tpu.ops import occlusion as ref_occ
-from ash_tpu_torch.ops import compute_utils, occlusion
+from ash_tpu_torch.ops import compute_utils, hiz, occlusion
 
 torch.set_num_threads(1)
 
@@ -73,7 +74,11 @@ def test_cull_objects_matches_reference():
 
 
 def test_hiz_occlusion_is_unported():
+    """Named for the refusal this test held before Hi-Z was ported; it now
+    checks that a pyramid without the depth buffer's size is refused
+    (tests/test_torch_hiz.py holds the Hi-Z cull to the reference)."""
     centers, extents, models, enabled, vp = _draws(4)
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(ValueError, match="size"):
         occlusion.cull_objects(_t(centers), _t(extents), _t(models),
-                               _t(enabled), _t(vp), pyr=object())
+                               _t(enabled), _t(vp),
+                               pyr=hiz.build_hiz(torch.ones(8, 8)))

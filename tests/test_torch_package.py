@@ -129,7 +129,7 @@ def test_missing_nvcc_raises(monkeypatch):
 @pytest.mark.parametrize("option,value", [
     ("max_draws_per_chunk", 100),
     ("msaa_resolve", "edge"),
-    ("shade_dtype", "bf16"),
+    ("msaa_edge_capacity", 0.25),
 ])
 def test_unported_config_raises(option, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -137,8 +137,8 @@ def test_unported_config_raises(option, value):
 
 
 @pytest.mark.parametrize("method", [
-    "set_msaa_preset", "set_occlusion_culling", "set_environment_map",
-    "lod_stats", "msaa_preset",
+    "set_msaa_preset", "request_swapchain_resize", "frame_cost_analysis",
+    "toggle_diagnostics", "msaa_preset",
 ])
 def test_unported_renderer_method_raises(method):
     r = Renderer(HeadlessSurface(16, 16), device="cpu")
@@ -149,6 +149,9 @@ def test_unported_renderer_method_raises(method):
 @pytest.mark.parametrize("option,value", [
     ("csm", CsmConfig(cascade_count=3, resolution=64)),
     ("render_scale", 0.5),
+    ("shade_dtype", "bf16"),
+    ("gbuffer_packed", True),
+    ("lod_cull_threshold", 0.01),
 ])
 def test_ported_config_is_accepted(option, value):
     """Options that raised before their slice landed now reach the frame."""
@@ -185,10 +188,20 @@ def test_full_frame_renders_without_ash_tpu():
 
 
 def test_lod_chain_raises():
-    mesh = Mesh.create_cube().add_lod(Mesh.create_named_cube("lod1"), 0.1)
+    """A LOD chain registers and renders (A14); one longer than
+    MAX_LOD_LEVELS raises when the scene is packed, as in the reference."""
+    mesh = Mesh.create_cube()
+    for i in range(8):
+        mesh.add_lod(Mesh.create_named_cube(f"lod{i + 1}"), 0.1 / (i + 1))
     r = Renderer(HeadlessSurface(16, 16), device="cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        r.register_mesh_handle(0, mesh)
+    r.register_mesh_handle(0, mesh)
+    r.submit_render_commands([RenderCommand(0, np.eye(4, dtype=np.float32))])
+    with pytest.raises(ValueError, match="LOD levels"):
+        r.render_frame(*_cam_args())
+    mesh.lods.pop()
+    r.register_mesh_handle(0, mesh)
+    r.render_frame(*_cam_args())
+    assert r.lod_stats(*_cam_args()[:2]).triangles_before == 12
 
 
 def _cam_args():

@@ -125,7 +125,7 @@ def test_reference_config_keyword_is_accepted(name):
     ("debug", True), ("watch_kernels", True), ("use_pallas", False),
     ("compilation_cache_dir", "unused-cache-dir"), ("pipeline_mode", "fused"),
     ("cold_compile_effort", None), ("async_resize", False),
-    ("bg_compile", "thread"),
+    ("bg_compile", "thread"), ("gbuffer_packed", True),
 ])
 def test_xla_only_knob_has_no_effect(name, value):
     """An XLA-only knob changes nothing: the same frame, and nothing is
@@ -158,13 +158,38 @@ def test_xla_only_knob_is_validated(name, value):
 
 
 @pytest.mark.parametrize("name,value,item", [
-    ("shade_dtype", "bf16", "A14"), ("gbuffer_packed", True, "A14"),
-    ("lod_cull_threshold", 0.01, "A14"), ("msaa_edge_capacity", 0.25, "A15"),
+    ("msaa_edge_capacity", 0.25, "A15"),
     ("msaa_resolve", "edge", "A15"), ("max_draws_per_chunk", 64, "A16"),
 ])
 def test_unported_option_raises_with_its_item(name, value, item):
     with pytest.raises(NotImplementedError, match=item):
         port_renderer.RendererConfig(**{name: value})
+
+
+def test_unported_names_are_a15_to_a17_only():
+    """After A14, the refusals name only MSAA (A15), chunked geometry (A16)
+    and the surfaces and diagnostics (A17)."""
+    items = ({v.split(",")[0] for v in port_render.UNPORTED_NAMES.values()}
+             | {v.split(",")[0] for v in port_renderer.UNPORTED_METHODS.values()}
+             | {v[1].split(",")[0]
+                for v in port_renderer._UNPORTED_OPTIONS.values()})
+    assert items == {"A15", "A16", "A17"}
+
+
+@pytest.mark.parametrize("name,value,field", [
+    ("shade_dtype", "bf16", "shade_dtype"),
+    ("lod_cull_threshold", 0.01, "lod_cull_threshold"),
+])
+def test_a14_option_reaches_the_frame(name, value, field):
+    r = port_render.Renderer(
+        port_render.HeadlessSurface(24, 16),
+        port_renderer.RendererConfig(shadow_resolution=64, shadow_tile=64,
+                                     **{name: value}), device="cpu")
+    r.set_mesh(ash_tpu_torch.Mesh.create_cube())
+    cam = ash_tpu_torch.Camera.new([3.0, 2.0, 4.0], [0, 0, 0], 1.5)
+    inputs = r.prepare_frame(cam.view_matrix(), cam.projection_matrix(),
+                             cam.position)
+    assert getattr(inputs.config, field) == value
 
 
 def test_register_mesh_descriptor():
