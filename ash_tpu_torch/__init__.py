@@ -28,7 +28,9 @@ from .device import resolve_device
 from .errors import AshError, SwapchainOutOfDate
 from .render import (
     UNPORTED_NAMES,
+    FileStreamSurface,
     HeadlessSurface,
+    LiveViewSurface,
     RenderCommand,
     Renderer,
     RendererConfig,
@@ -59,7 +61,9 @@ __all__ = [
     "read_png",
     "write_png",
     "resolve_device",
+    "FileStreamSurface",
     "HeadlessSurface",
+    "LiveViewSurface",
     "RenderCommand",
     "Renderer",
     "RendererConfig",
@@ -68,7 +72,7 @@ __all__ = [
 
 
 def __getattr__(name):
-    # The reference's lazily exported surfaces that are not ported yet.
+    # The reference's names that are not ported yet raise, naming their item.
     if name in UNPORTED_NAMES:
         from . import render
 

@@ -16,7 +16,9 @@ calls `rasterize` here.
 
 `rasterize.launches` counts launches of the one-layer kernel and
 `rasterize.layer_launches` those of the K-layer kernel (and nothing else),
-so a run can show which kernel its frames went through.
+so a run can show which kernel its frames went through. Each callable in
+`rasterize.observers` is handed every launch's input and output tensors
+(render/cost_analysis.py counts their bytes).
 """
 
 from __future__ import annotations
@@ -145,11 +147,15 @@ def rasterize(
         rasterize.launches += 1
     else:
         rasterize.layer_launches += 1
+    for observe in rasterize.observers:
+        observe((setup.edge, setup.z_clip, bins.tri_ids, bins.counts,
+                 depth_floor), (depth, tri_id))
     return VisibilityBuffer.from_layers(depth, tri_id)
 
 
 rasterize.launches = 0
 rasterize.layer_launches = 0
+rasterize.observers = []
 
 
 def device_rects(setup: TriangleSetup, height: int, width: int,

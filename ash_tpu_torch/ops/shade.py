@@ -18,6 +18,8 @@ Gram-Schmidt TBN frame.
 layer; `pixel_alpha` and `composite_over` blend the shaded layers of a depth
 peel. With an environment, split-sum image-based lighting replaces the flat
 ambient term (ops/ibl.py); `dtype=torch.bfloat16` runs the BRDF in bf16.
+Edge-adaptive MSAA (ops/msaa_edge.py) interpolates and shades at explicit
+coordinates (`pixel_xy`, `deriv_step`) in place of the pixel grid.
 """
 
 from __future__ import annotations
@@ -132,22 +134,31 @@ def interpolate_gbuffer(
     prev_clip: Optional[torch.Tensor] = None,  # (Ve, 4) last frame's clip pos
     fb_height: Optional[int] = None,  # the whole framebuffer's size, for
     fb_width: Optional[int] = None,  # the velocity's uv (bands)
+    pixel_xy: Optional[tuple] = None,  # (px, py) f32 global render coords
+    deriv_step: tuple = (1.0, 1.0),  # the uv derivatives' step, render px
 ) -> GBuffer:
+    """Interpolate the winning triangles' attributes. `tri_id` may have any
+    2-D shape when `pixel_xy` gives each element's global render
+    coordinates (edge-adaptive MSAA's pixel centres and worklist samples,
+    ops/msaa_edge.py); by default they are the (h, w) pixel grid from row
+    y0. The uv derivatives step `deriv_step` render pixels: (sx, sy) when
+    shading at the centre rate keeps the 1x footprint for mip selection."""
     h, w = tri_id.shape
     mask = tri_id >= 0
     t = tri_id.clamp_min(0).long()
     vids = tri_v.long()[t]  # (H, W, 3) expanded vertex ids
     uids = vert_uid.long()[vids] if vert_uid is not None else vids
     edge = setup.edge[t]  # (H, W, 3, 3)
-    px, py = _pixel_grid(h, w, y0, tri_id.device)
+    px, py = (pixel_xy if pixel_xy is not None
+              else _pixel_grid(h, w, y0, tri_id.device))
 
     pw = _perspective_weights(edge, px, py)
     uv3 = vert_uv[uids]
     uv = _interp(pw, uv3)
     # Analytic screen-space uv derivatives: re-evaluate the projective
-    # interpolation one pixel right and one pixel down.
-    uv_x = _interp(_perspective_weights(edge, px + 1.0, py), uv3)
-    uv_y = _interp(_perspective_weights(edge, px, py + 1.0), uv3)
+    # interpolation deriv_step pixels right and down.
+    uv_x = _interp(_perspective_weights(edge, px + deriv_step[0], py), uv3)
+    uv_y = _interp(_perspective_weights(edge, px, py + deriv_step[1]), uv3)
 
     # Motion vectors: interpolate last frame's clip position of this surface
     # point, project it, and take the pixel's own uv minus it.
@@ -325,9 +336,11 @@ def _sample_map(pool, index, uv, ddx, ddy, max_aniso: int = 1,
 
 def _light_slots(lo, gbuf, lights, tile_indices, n_iter, light_tile_size,
                  normal, view_dir, base_color, metallic, roughness, f0, ndotv,
-                 cast=lambda x: x):
+                 cast=lambda x: x, pixel_xy=None):
     """Add the Forward+ lights to `lo`: each pixel walks the first n_iter
-    slots of its tile's culled light list. Point lights have a
+    slots of its tile's culled light list, its tile found from `pixel_xy`
+    (band-local integer render coordinates) or else from its place in the
+    (H, W) grid. Point lights have a
     radius-windowed inverse-square falloff, spot lights (type 1) a smooth
     cone between their inner and outer angles, directional entries (type
     2) a constant direction and no falloff. Distances, attenuation and the
@@ -335,10 +348,13 @@ def _light_slots(lo, gbuf, lights, tile_indices, n_iter, light_tile_size,
     direction into the shading dtype for the BRDF."""
     h, w = gbuf.mask.shape
     dev = gbuf.mask.device
-    t_y = (torch.arange(h, device=dev) // light_tile_size).clamp(
-        0, tile_indices.shape[0] - 1)[:, None]
-    t_x = (torch.arange(w, device=dev) // light_tile_size).clamp(
-        0, tile_indices.shape[1] - 1)[None, :]
+    if pixel_xy is not None:
+        px, py = pixel_xy
+    else:
+        px = torch.arange(w, device=dev)[None, :]
+        py = torch.arange(h, device=dev)[:, None]
+    t_y = (py // light_tile_size).clamp(0, tile_indices.shape[0] - 1).long()
+    t_x = (px // light_tile_size).clamp(0, tile_indices.shape[1] - 1).long()
     for k in range(n_iter):
         lid = tile_indices[:, :, k][t_y, t_x]  # (H, W)
         row = lights[lid.clamp_min(0).long()]  # (H, W, 16)
@@ -398,6 +414,9 @@ def shade_pbr(
     csm_blend_size: float = 0.0,
     ibl=None,  # ops/ibl.EnvironmentIBL: replaces the flat ambient term
     dtype: torch.dtype = torch.float32,  # the BRDF's working dtype
+    pixel_xy: Optional[tuple] = None,  # (px, py) int32 band-local render
+    # coords per element, for the Forward+ tile lookup of a gbuffer that is
+    # not the pixel grid (edge-adaptive MSAA, ops/msaa_edge.py)
 ) -> torch.Tensor:
     """Shade the visibility buffer -> (H, W, 3) f32 colour. With
     reinhard=True the result is the reference main pass's LDR output, with
@@ -533,7 +552,7 @@ def shade_pbr(
             n_iter = min(int(tile_light_counts.max()), k_slots)
         lo = _light_slots(lo, gbuf, lights, tile_light_indices, n_iter,
                           light_tile_size, normal, view_dir, base_color,
-                          metallic, roughness, f0, ndotv, cast)
+                          metallic, roughness, f0, ndotv, cast, pixel_xy)
 
     if ibl is not None:
         from .ibl import ambient_ibl

@@ -21,6 +21,8 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 
 class TexturePool(NamedTuple):
     """Flat bindless texture storage, on one device.
@@ -45,16 +47,18 @@ def build_pool(
     mip_pyramids: list,
     min_levels: Optional[Sequence[int]] = None,
     arena_texels: Optional[int] = None,
-    device="cpu",
+    device="cuda",
 ) -> TexturePool:
     """Pack per-texture mip pyramids ((H, W, 4) float32 each) into a pool
-    on `device`.
+    on `device` (the card unless the caller names another; without CUDA
+    the default raises).
 
     `min_levels[i]` (streaming residency) skips the levels below it for
     texture i: only resident mips are stored. `arena_texels` fixes the texel
     array's length so restreams keep its shape; resident texels must fit or
     this raises.
     """
+    device = resolve_device(device)
     if not mip_pyramids:
         # A single white 1x1 placeholder keeps the shapes valid.
         mip_pyramids = [[np.ones((1, 1, 4), np.float32)]]

@@ -5,6 +5,7 @@
         [--max-anisotropy A] [--rich [--render-scale S]]
         [--max-tris-per-tile K] [--animate] [--mega [--escalate]]
         [--occlusion] [--bf16] [--instancing] [--lod] [--ibl]
+        [--msaa x2|x4|x8 [--edge]] [--overlay]
 
 Renders the bench scene (render/bench_scene.py: 1000 cubes, 1920x1080,
 2048^2 shadow map), or with --glass the glass standard frame (every fourth
@@ -27,7 +28,11 @@ scenes: --instancing is example 07's 65,536 instanced cubes (1080p, 8x128
 tiles, a cap of 2048, Hi-Z on; the InstancingManager's seconds are
 printed), --lod its 400 LOD spheres (traced from distance 15 and from 30;
 the shadow map re-renders in every frame of a LOD scene), --ibl example
-06's IBL sphere grid (640x400, HDR, no shadows). It traces N static frames
+06's IBL sphere grid (640x400, HDR, no shadows). --msaa renders the bench
+scene at an MSAA preset (x2 = 2x1, x4 = 2x2, x8 = 4x2 samples a pixel),
+shading every sample, or with --edge only the edge pixels' samples
+(RendererConfig.msaa_resolve="edge"); --overlay turns on the diagnostics
+overlay (the text patch and the overflow taint). It traces N static frames
 and N frames that re-render the shadow map (N animated frames with
 --animate) with `torch.profiler`. For each kind it prints the wall time
 per frame, the peak device memory, the device's busy and idle share of
@@ -51,6 +56,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from .render.diagnostics import DiagnosticsMode
 from .render.bench_scene import (
     animated_models_trs,
     build_bench_renderer,
@@ -122,6 +128,9 @@ def main(argv=None) -> int:
     ap.add_argument("--instancing", action="store_true")
     ap.add_argument("--lod", action="store_true")
     ap.add_argument("--ibl", action="store_true")
+    ap.add_argument("--msaa", choices=("x2", "x4", "x8"), default=None)
+    ap.add_argument("--edge", action="store_true")
+    ap.add_argument("--overlay", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_frame: needs a CUDA device", file=sys.stderr)
@@ -146,7 +155,12 @@ def main(argv=None) -> int:
             max_tris_per_tile=args.max_tris_per_tile, animate=args.animate,
             occlusion=args.occlusion,
             shade_dtype="bf16" if args.bf16 else "f32",
+            msaa_resolve="edge" if args.edge else "ssaa",
         )
+    if args.msaa:
+        r.set_msaa_preset(args.msaa)
+    if args.overlay:
+        r.set_diagnostics_mode(DiagnosticsMode.OVERLAY_ONLY)
     view, proj, pos = cam.view_matrix(), cam.projection_matrix(), cam.position
     for _ in range(3):  # build the kernel, the scene and the shadow map
         r.render_frame(view, proj, pos)
@@ -183,9 +197,12 @@ def main(argv=None) -> int:
     out = r.last_outputs()
     shadow_of = (None if out.shadow_overflow is None
                  else int(out.shadow_overflow))
+    edge_of = (None if out.msaa_edge_overflow is None
+               else int(out.msaa_edge_overflow))
     print(f"device: {torch.cuda.get_device_name(0)}; overflow main "
           f"{int(out.binning_overflow)}, shadow {shadow_of}; visible draws "
-          f"{None if out.visible_draws is None else int(out.visible_draws)}")
+          f"{None if out.visible_draws is None else int(out.visible_draws)}; "
+          f"msaa_edge_overflow {edge_of}")
     del out  # or the peak would count a second frame's outputs
     if args.animate:
         kinds = (("animated", animated),)

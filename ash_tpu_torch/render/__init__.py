@@ -3,11 +3,13 @@ the frame pipeline."""
 
 from .csm import CascadedShadowMap, CsmConfig
 from .frame import FrameConfig, FrameOutputs, FrameUniforms
-from .renderer import RenderCommand, Renderer, RendererConfig
+from .live_view import LiveViewSurface
+from .renderer import MsaaPreset, RenderCommand, Renderer, RendererConfig
 from .scene import DrawItem, SceneBuffers, build_scene, scene_from_numpy
 from .shadow_map import ShadowConfig
-from .surface import HeadlessSurface, SurfaceProvider
+from .surface import FileStreamSurface, HeadlessSurface, SurfaceProvider
 from .temporal_aa import TaaConfig, TemporalAA
+from .terminal_surface import TerminalSurface
 
 __all__ = [
     "CascadedShadowMap",
@@ -15,6 +17,7 @@ __all__ = [
     "FrameConfig",
     "FrameOutputs",
     "FrameUniforms",
+    "MsaaPreset",
     "RenderCommand",
     "Renderer",
     "RendererConfig",
@@ -23,20 +26,19 @@ __all__ = [
     "build_scene",
     "scene_from_numpy",
     "ShadowConfig",
+    "FileStreamSurface",
     "HeadlessSurface",
+    "LiveViewSurface",
+    "TerminalSurface",
     "SurfaceProvider",
     "TaaConfig",
     "TemporalAA",
 ]
 
 # Names of the reference's render package that are not ported yet, with the
-# ROADMAP.md item of each. Importing one raises NotImplementedError.
-UNPORTED_NAMES = {
-    "MsaaPreset": "A15, MSAA",
-    "FileStreamSurface": "A17, surfaces",
-    "LiveViewSurface": "A17, surfaces",
-    "TerminalSurface": "A17, surfaces",
-}
+# ROADMAP.md item of each. Importing one raises NotImplementedError. (None
+# is left: chunked geometry, A16, adds no name here.)
+UNPORTED_NAMES: dict = {}
 
 
 def __getattr__(name):

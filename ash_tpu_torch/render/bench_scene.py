@@ -48,6 +48,10 @@ The scenes of examples 06 and 07, at the examples' own sizes:
   (columns) and roughness (rows) under `sky_environment`, 640x400, HDR on,
   shadows off, a tile cap of 2048.
 
+Example 02's scene (`build_cube_example`, `cube_example_camera`): a red
+metallic cube under a camera orbiting at radius 5, 640x480, a 1024^2
+shadow map, as examples/02_cube.py draws it.
+
 The `fill_*` helpers take either package's core and RenderCommand, so the
 reference renderer can draw the same scene in a test.
 """
@@ -59,7 +63,7 @@ import time
 import numpy as np
 
 from .. import core as port_core
-from ..core import Camera, Material
+from ..core import Camera, Material, maths
 from . import instancing
 from .csm import CsmConfig
 from .renderer import RenderCommand, Renderer, RendererConfig
@@ -564,3 +568,28 @@ def build_ibl_renderer(width, height, device, environment=True,
                  device=device)
     fill_ibl_scene(r, environment=environment)
     return r, surface, ibl_camera(width, height)
+
+
+def build_cube_example(device, width=640, height=480, surface=None):
+    """-> (renderer, surface) of examples/02_cube.py's scene: one cube,
+    colour (0.8, 0.2, 0.2), metallic and roughness 0.5, a 1024^2 shadow
+    map; on a HeadlessSurface unless `surface` is given."""
+    if surface is None:
+        surface = HeadlessSurface(width, height)
+    r = Renderer(surface, RendererConfig(shadow_resolution=1024),
+                 device=device)
+    r.set_mesh(port_core.Mesh.create_cube())
+    r.set_material(Material(color=(0.8, 0.2, 0.2, 1.0), metallic=0.5,
+                            roughness=0.5))
+    return r, surface
+
+
+def cube_example_camera(i, width=640, height=480):
+    """(view, proj, camera_pos) of examples/02_cube.py's frame i: radius 5,
+    height 2, t = i / 30, a 45 degree lens with the Vulkan Y flip."""
+    t = i / 30.0
+    pos = np.array([5.0 * np.sin(t), 2.0, 5.0 * np.cos(t)], np.float32)
+    view = maths.look_at_rh(pos, [0, 0, 0], [0, 1, 0])
+    proj = maths.perspective_rh(np.deg2rad(45), width / height, 0.5, 100.0)
+    proj[1, 1] *= -1.0
+    return view, proj, pos

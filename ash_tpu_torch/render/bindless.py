@@ -14,6 +14,7 @@ from typing import List, Optional
 import numpy as np
 
 from ..core.texture import TextureData, mip_chain
+from ..device import resolve_device
 from ..errors import ResourceCreationError
 from ..ops.texture_sample import TexturePool, build_pool
 
@@ -35,14 +36,14 @@ class BindlessTextureManager:
     """
 
     def __init__(self, capacity: int = DEFAULT_CAPACITY,
-                 budget_bytes: Optional[int] = None, device="cpu"):
+                 budget_bytes: Optional[int] = None, device="cuda"):
         if capacity > MAX_BINDLESS_RESOURCES:
             raise ResourceCreationError(
                 f"capacity {capacity} exceeds pool max {MAX_BINDLESS_RESOURCES}"
             )
         self.capacity = capacity
         self.budget_bytes = budget_bytes
-        self.device = device
+        self.device = resolve_device(device)
         self._pyramids: List[List[np.ndarray]] = []
         self._requested: List[int] = []  # wanted min_level per texture
         self._resident: List[int] = []  # actual, after the budget fit

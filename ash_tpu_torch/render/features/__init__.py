@@ -1,7 +1,8 @@
 """Render features of the port: shadows, lighting, Forward+ light culling
-state, the post chain's configs (bloom, tonemapping, post-processing) and
-their plugin base."""
+state, the post chain's configs (bloom, tonemapping, post-processing), the
+single mesh's auto-rotation and their plugin base."""
 
+from .auto_rotate import AutoRotateFeature
 from .bloom import BloomConfig, BloomFeature
 from .feature_trait import FeatureFrameContext, FeatureManager, RenderFeature
 from .light_culling import GpuLight
@@ -17,6 +18,7 @@ from .shadows import ShadowFeature
 from .tonemapping import TonemapOperator, TonemappingConfig, TonemappingFeature
 
 __all__ = [
+    "AutoRotateFeature",
     "BloomConfig",
     "BloomFeature",
     "PostProcessingConfig",

@@ -12,8 +12,14 @@ chain (post_enabled) the main pass leaves linear HDR, and `finalize_frame`
 runs TAA (before the tonemap, on motion vectors from the G-buffer), bloom,
 the tonemap with gamma in place of the sRGB encode, and FXAA; with
 render_scale < 1 the raster and the shading run at an internal size and
-the result is upsampled before the TAA blend (TAAU). With
-semi-transparent materials (alpha_blend) the main raster is a K-layer depth
+the result is upsampled before the TAA blend (TAAU). With supersampling
+(ssaa_x, ssaa_y > 1, the MSAA presets) the raster, the light culling and
+the shading run at the sample rate and `pass_resolve` box-averages the
+colour and min-reduces the depth; msaa_resolve="edge" shades once per
+pixel at its centre and only the edge pixels' samples at sample rate
+(ops/msaa_edge.py). With overflow_taint (the diagnostics overlay)
+`finalize_frame` paints a corner block where binning dropped triangles.
+With semi-transparent materials (alpha_blend) the main raster is a K-layer depth
 peel, iterated `transparency_passes` times, and every layer is shaded and
 composited back to front. With alpha-tested materials and a texture pool
 (alpha_test) the raster peels two layers and cut-out pixels fall through to
@@ -41,7 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from ..ops import binning, geometry
+from ..ops import binning, geometry, msaa_edge
 from ..ops.bloom import bloom_pyramid
 from ..ops.fxaa import fxaa
 from ..ops.hiz import build_hiz
@@ -167,6 +173,21 @@ class FrameConfig:
     light_tile_size: int = 16
     max_lights_per_tile: int = 256
     shaded_lights_per_tile: int = 256
+    # Supersampling (the MSAA presets: x2 = 2x1, x4 = 2x2, x8 = 4x2
+    # samples, ordered grid). "ssaa" shades every sample and box-resolves;
+    # "edge" shades each pixel once at its centre and the samples of edge
+    # pixels (samples that see different triangles) through a worklist of
+    # msaa_edge_capacity x the pixels; pixels past it keep the centre
+    # shading and are counted in FrameOutputs.msaa_edge_overflow. "edge"
+    # needs pbr shading and excludes alpha blending.
+    ssaa_x: int = 1
+    ssaa_y: int = 1
+    msaa_resolve: str = "ssaa"
+    msaa_edge_capacity: float = 0.125
+    # The diagnostics overlay's taint: an 8x8 block at the bottom right,
+    # magenta where the main pass dropped triangles, and cyan beside it for
+    # the shadow pass, decided on the device.
+    overflow_taint: bool = False
 
     @property
     def shadow_rows(self) -> int:
@@ -210,22 +231,25 @@ class FrameOutputs(NamedTuple):
     # Dropped shadow triangles leak light, so they are reported like
     # main-pass drops. None when shadows are disabled.
     shadow_overflow: Optional[torch.Tensor] = None  # () int32
-    # Edge pixels past the MSAA edge worklist (ROADMAP A15): always None.
-    msaa_edge_overflow: Optional[torch.Tensor] = None
+    # Edge pixels past the edge-MSAA worklist (they keep their centre
+    # shading); None unless msaa_resolve="edge" supersamples.
+    msaa_edge_overflow: Optional[torch.Tensor] = None  # () int32
 
 
 class BandOutputs(NamedTuple):
-    """What the raster + shade stage hands to finalize_frame, at the
-    internal raster size."""
+    """What the raster + shade stage hands to finalize_frame: at the
+    internal raster size under TAAU, resolved to the presentation size
+    under supersampling."""
 
     color: torch.Tensor  # (H, W, 3) linear colour, Reinhard-mapped or HDR
     depth: torch.Tensor  # (H, W)
     velocity: Optional[torch.Tensor]  # (H, W, 2) uv motion, with TAA
     shadow_map: Optional[torch.Tensor]
-    covered: torch.Tensor  # () int32
+    covered: torch.Tensor  # () int32, covered samples
     overflow: torch.Tensor  # () int32
     shadow_overflow: Optional[torch.Tensor]
     visible_draws: Optional[torch.Tensor]
+    msaa_edge_overflow: Optional[torch.Tensor] = None  # () int32
 
 
 def _srgb_encode(c: torch.Tensor) -> torch.Tensor:
@@ -246,12 +270,39 @@ def internal_render_size(width: int, height: int, scale: float):
     )
 
 
+def ssaa_factors(cfg: FrameConfig):
+    """(sx, sy): the supersampling factors, at least 1."""
+    return max(int(cfg.ssaa_x), 1), max(int(cfg.ssaa_y), 1)
+
+
 def raster_size(cfg: FrameConfig):
-    """(width, height) of the main pass's raster and shading."""
+    """(width, height) of the main pass's raster, light culling and
+    shading: the TAAU internal size, or the sample-rate size."""
     scale = float(cfg.render_scale)
-    if not 0.25 <= scale <= 1.0:
-        raise ValueError(f"render_scale {scale} outside [0.25, 1]")
-    return internal_render_size(cfg.width, cfg.height, scale)
+    sx, sy = ssaa_factors(cfg)
+    if scale != 1.0:
+        if sx != 1 or sy != 1:
+            raise ValueError("render_scale is exclusive with SSAA")
+        if not 0.25 <= scale <= 1.0:
+            raise ValueError(f"render_scale {scale} outside [0.25, 1]")
+        return internal_render_size(cfg.width, cfg.height, scale)
+    return cfg.width * sx, cfg.height * sy
+
+
+def edge_msaa(cfg: FrameConfig) -> bool:
+    """Whether the frame takes the edge-adaptive resolve; raises on the
+    reference's invalid combinations."""
+    if cfg.msaa_resolve not in ("ssaa", "edge"):
+        raise ValueError(f"unknown msaa_resolve {cfg.msaa_resolve!r}")
+    sx, sy = ssaa_factors(cfg)
+    edge = cfg.msaa_resolve == "edge" and (sx > 1 or sy > 1)
+    if edge and cfg.shading != "pbr":
+        raise ValueError("msaa_resolve='edge' requires pbr shading")
+    if edge and cfg.alpha_blend:
+        raise ValueError(
+            "msaa_resolve='edge' is exclusive with alpha blending "
+            "(K-layer blending already shades every peeled layer; use ssaa)")
+    return edge
 
 
 # Above this many padded triangles the automatic switch picks two-level
@@ -463,6 +514,9 @@ def render_band(
     if (shadow is not None) != (cfg.shadow_enabled and not cfg.lod_enabled):
         raise ValueError("shadow map given iff cfg.shadow_enabled and not "
                          "cfg.lod_enabled")
+    edge = edge_msaa(cfg)
+    sx, sy = ssaa_factors(cfg)
+    rw, rh = raster_size(cfg)
     tri_valid = scene.tri_valid
     if cfg.lod_enabled:
         tri_valid = tri_valid & lod_tri_mask(cfg, scene, uni)
@@ -471,7 +525,6 @@ def render_band(
                                     uni.light_space_matrix, pool,
                                     uni.cascade_matrices, tri_valid)
     shadow_map, shadow_overflow = shadow if shadow is not None else (None, None)
-    rw, rh = raster_size(cfg)
     tv, setup, bins, visible_draws = main_pass_bins(cfg, scene, uni,
                                                     tri_valid, prev_depth)
     blend = cfg.alpha_blend and cfg.shading == "pbr"
@@ -507,12 +560,13 @@ def render_band(
             prev_clip = geometry.transform_points(
                 uni.prev_view_proj, shadow_world(scene, uni.prev_models))
 
-    def gbuffer(tri_id):
+    def gbuffer(tri_id, motion=True, **kw):
         with record_function("pass_gbuffer"):
             return interpolate_gbuffer(
                 tri_id, setup, scene.tri_v, scene.tri_draw, tv, scene.uv,
-                scene.color, vert_uid=scene.vert_uid, prev_clip=prev_clip,
-                fb_height=rh, fb_width=rw,
+                scene.color, vert_uid=scene.vert_uid,
+                prev_clip=prev_clip if motion else None,
+                fb_height=rh, fb_width=rw, **kw,
             )
 
     # One host-to-device copy per frame, shared by every shaded layer.
@@ -536,7 +590,7 @@ def render_band(
     csm = ((uni.cascade_matrices, uni.cascade_splits, uni.view)
            if cfg.shadow_cascades > 1 else None)
 
-    def shade(gbuf):
+    def shade(gbuf, pixel_xy=None):
         with record_function("pass_shade"):
             if cfg.shading == "flat":
                 return shade_flat(gbuf, clear_color=clear)
@@ -559,9 +613,33 @@ def render_band(
                 ibl=ibl if cfg.ibl_enabled else None,
                 dtype=(torch.bfloat16 if cfg.shade_dtype == "bf16"
                        else torch.float32),
+                pixel_xy=pixel_xy,
             )
 
-    if not blend:
+    msaa_edge_overflow = None
+    dev = setup.edge.device
+    if edge:
+        # Edge-adaptive MSAA: the centre G-buffer (one point per pixel, uv
+        # derivatives stepping one pixel), shaded; then the edge pixels'
+        # samples through the worklist, shaded and box-averaged over it.
+        with record_function("pass_gbuffer"):
+            plan = msaa_edge.classify(vis.tri_id, vis.depth, sy, sx)
+        gbuf = gbuffer(plan.primary_tid, deriv_step=(float(sx), float(sy)),
+                       pixel_xy=msaa_edge.center_pixel_xy(
+                           cfg.height, cfg.width, sy, sx, 0, dev))
+        color_c = shade(gbuf, pixel_xy=msaa_edge.center_tile_xy(
+            cfg.height, cfg.width, sy, sx, dev))
+        velocity = gbuf.velocity
+        cap = msaa_edge.edge_capacity(cfg.height * cfg.width,
+                                      cfg.msaa_edge_capacity, sx * sy)
+        with record_function("pass_gbuffer"):
+            wl = msaa_edge.build_worklist(vis.tri_id, plan, cap, sy, sx)
+        gbuf_e = gbuffer(wl.tid, motion=False, pixel_xy=(wl.px, wl.py))
+        color_e = shade(gbuf_e, pixel_xy=(wl.tile_px, wl.tile_py))
+        with record_function("pass_resolve"):
+            color = msaa_edge.resolve(color_c, color_e, wl, sx * sy)
+            msaa_edge_overflow = (wl.n_edge - cap).clamp_min(0)
+    elif not blend:
         gbuf = gbuffer(vis.tri_id)
         color, velocity = shade(gbuf), gbuf.velocity
     else:
@@ -578,11 +656,22 @@ def render_band(
             color = clear.expand_as(layers[0][0])
             for color_l, alpha_l in reversed(layers):
                 color = composite_over(color_l, alpha_l, color)
+    depth = vis.depth
+    if sx > 1 or sy > 1:
+        # The resolve: the depth's min; under SSAA also the colour's and
+        # the velocity's box mean (the edge path's are per pixel already).
+        h, w = cfg.height, cfg.width
+        with record_function("pass_resolve"):
+            depth = depth.reshape(h, sy, w, sx).amin((1, 3))
+            if not edge:
+                color = color.reshape(h, sy, w, sx, 3).mean((1, 3))
+                if velocity is not None:
+                    velocity = velocity.reshape(h, sy, w, sx, 2).mean((1, 3))
     return BandOutputs(
-        color=color, depth=vis.depth, velocity=velocity, shadow_map=shadow_map,
+        color=color, depth=depth, velocity=velocity, shadow_map=shadow_map,
         covered=(vis.tri_id >= 0).sum(dtype=torch.int32),
         overflow=bins.overflow, shadow_overflow=shadow_overflow,
-        visible_draws=visible_draws,
+        visible_draws=visible_draws, msaa_edge_overflow=msaa_edge_overflow,
     )
 
 
@@ -651,12 +740,33 @@ def finalize_frame(
             (cfg.height, cfg.width, 1), 255, dtype=torch.uint8, device=rgb.device
         )
         image = torch.cat([rgb, alpha], dim=-1)
+    if cfg.overflow_taint:
+        image = overflow_taint(image, bo.overflow, bo.shadow_overflow)
     return FrameOutputs(
         image=image, color=color, depth=depth, shadow_map=bo.shadow_map,
         covered_pixels=bo.covered, binning_overflow=bo.overflow,
         visible_draws=bo.visible_draws, shadow_overflow=bo.shadow_overflow,
-        history=new_history,
+        history=new_history, msaa_edge_overflow=bo.msaa_edge_overflow,
     )
+
+
+def overflow_taint(image: torch.Tensor, overflow: torch.Tensor,
+                   shadow_overflow: Optional[torch.Tensor]) -> torch.Tensor:
+    """Paint, in place, the (H, W, 4) u8 image's bottom-right block (8x8 at
+    most) magenta where `overflow` > 0 and the block left of it cyan where
+    `shadow_overflow` > 0, on the device: no host sync. The text overlay
+    sits at the top left."""
+    h, w = image.shape[:2]
+    blk = max(min(8, h, w // 2), 1)
+    paint = torch.tensor([[255, 0, 255], [0, 255, 255]], dtype=torch.uint8)
+    paint = paint.to(image.device)
+    for i, of in enumerate((overflow, shadow_overflow)):
+        if of is None:
+            continue
+        cols = slice(w - (i + 1) * blk, w - i * blk)
+        block = image[h - blk:, cols, :3]
+        image[h - blk:, cols, :3] = torch.where(of > 0, paint[i], block)
+    return image
 
 
 def render_frame_program(

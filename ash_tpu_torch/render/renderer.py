@@ -8,7 +8,11 @@ updates (`update_transforms`, `update_transforms_trs`, `update_material`),
 `request_texture_residency`, the post-processing setters (`initialize_hdr`,
 `set_taa_enabled`, `set_render_scale`, tonemapping, bloom, FXAA),
 `set_occlusion_culling`, `set_environment_map` / `clear_environment_map`,
-`lod_stats`, `render_frame(view, proj, camera_pos)` and `read_back`. State
+`lod_stats`, the MSAA presets (`set_msaa_preset`), the diagnostics
+(`set_diagnostics_mode`, `toggle_diagnostics`, `diagnostics`, the text
+overlay and the overflow taint), `request_swapchain_resize` /
+`wait_resize`, `frame_cost_analysis`, `profile_passes`,
+`render_frame(view, proj, camera_pos)` and `read_back`. State
 is host registries, the bindless texture manager (a mesh's maps get pool indices
 when it is registered), the packed scene on the device (rebuilt when the
 draw list changes; a resubmit of the same handles only moves the models),
@@ -29,6 +33,8 @@ ignored. The reference's XLA-only knobs are accepted and have no effect.
 from __future__ import annotations
 
 import dataclasses
+import logging
+import time
 from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -46,8 +52,12 @@ from ..ops.ibl import build_environment
 from ..ops.taa import TaaParams
 from ..ops.texture_sample import TexturePool
 from .bindless import BindlessTextureManager
+from .cost_analysis import FrameCost
 from .csm import CascadedShadowMap, CsmConfig
+from .diagnostics import DeviceProfiler, DiagnosticsState, FrameProfiler
+from .diagnostics.overlay import DiagnosticsOverlay
 from .features import (
+    AutoRotateFeature,
     FeatureFrameContext,
     FeatureManager,
     GpuLight,
@@ -67,6 +77,7 @@ from .frame import (
     shadow_program,
 )
 from .lod_system import MAX_LOD_LEVELS, LodStats
+from .pass_profiler import profile_passes
 from .scene import BuiltScene, DrawItem, build_models, build_scene
 from .surface import SurfaceProvider
 from .temporal_aa import TaaConfig, TemporalAA
@@ -85,8 +96,6 @@ def _unported(what: str, item: str):
 # value other than the default raises.
 _UNPORTED_OPTIONS = {
     "max_draws_per_chunk": (None, "A16, chunked geometry"),
-    "msaa_resolve": ("ssaa", "A15, MSAA"),
-    "msaa_edge_capacity": (0.125, "A15, MSAA"),
 }
 
 # The reference's XLA compilation, tunnel and debugging knobs: accepted,
@@ -96,18 +105,11 @@ XLA_ONLY_OPTIONS = ("debug", "watch_kernels", "use_pallas",
                     "cold_compile_effort", "async_resize", "bg_compile",
                     "gbuffer_packed")
 
-# Reference Renderer methods the port does not run yet -> ROADMAP item.
-UNPORTED_METHODS = {
-    "request_swapchain_resize": "A17, resize",
-    "wait_resize": "A17, resize",
-    "frame_cost_analysis": "A17, cost analysis",
-    "profile_passes": "A17, pass profiling",
-    "set_diagnostics_mode": "A17, diagnostics",
-    "toggle_diagnostics": "A17, diagnostics",
-    "diagnostics": "A17, diagnostics",
-    "set_msaa_preset": "A15, MSAA",
-    "msaa_preset": "A15, MSAA",
-}
+# Reference Renderer methods the port does not run yet -> ROADMAP item:
+# none is left.
+UNPORTED_METHODS: Dict[str, str] = {}
+
+log = logging.getLogger("ash_tpu_torch.renderer")
 
 
 @dataclasses.dataclass
@@ -151,6 +153,10 @@ class RendererConfig:
     # Anisotropic filtering taps of textured draws (the reference sampler's
     # 16x; 1 = trilinear only).
     max_anisotropy: int = 16
+    # The MSAA resolve while a preset is on (set_msaa_preset): "ssaa"
+    # shades every sample, "edge" each pixel once and the samples of edge
+    # pixels through a worklist of msaa_edge_capacity x the pixels
+    # (render/frame.py, ops/msaa_edge.py).
     msaa_resolve: str = "ssaa"
     msaa_edge_capacity: float = 0.125
     # Peel layers per transparency pass, in [2, 8] (checked at render), and
@@ -189,6 +195,19 @@ class RendererConfig:
             raise ValueError(f"unknown shade_dtype {self.shade_dtype!r}")
 
 
+class MsaaPreset:
+    """MSAA presets: ordered-grid supersampling with a box resolve, or the
+    edge-adaptive resolve (RendererConfig.msaa_resolve)."""
+
+    OFF = "off"
+    X2 = "x2"
+    X4 = "x4"
+    X8 = "x8"
+
+    # Per-axis samples (x, y); each preset's count is its name's.
+    SCALE = {OFF: (1, 1), X2: (2, 1), X4: (2, 2), X8: (4, 2)}
+
+
 @dataclasses.dataclass
 class RenderCommand:
     """One submitted draw."""
@@ -208,15 +227,6 @@ class FrameInputs(NamedTuple):
     lights: Optional[torch.Tensor]  # (L_pad, 16) packed lights, or None
     post: Optional[PostParams] = None  # the post chain's runtime knobs
     taa_params: Optional[TaaParams] = None  # None while TAA is off
-
-
-def _refuse(name: str, item: str):
-    def method(self, *args, **kwargs):
-        _unported(f"Renderer.{name}", item)
-
-    method.__name__ = name
-    method.__doc__ = f"Not ported yet: raises NotImplementedError (ROADMAP.md {item})."
-    return method
 
 
 class Renderer:
@@ -253,8 +263,10 @@ class Renderer:
         self.feature_manager = FeatureManager()
         self.shadow_feature = ShadowFeature()
         self.lighting_feature = LightingFeature()
+        self.feature_manager.add(AutoRotateFeature(), self)
         self.feature_manager.add(self.shadow_feature, self)
         self.feature_manager.add(self.lighting_feature, self)
+        self.auto_rotate = False  # spins the single mesh's transform
         self.csm_manager = (CascadedShadowMap(self.config.csm)
                             if self.config.csm is not None else None)
 
@@ -268,6 +280,7 @@ class Renderer:
         self.bloom_intensity = 0.5
         self.bloom_threshold = 0.8
         self.fxaa_enabled = False
+        self.msaa = MsaaPreset.OFF
         self.temporal_aa = TemporalAA(TaaConfig(enabled=False))
         self._taa_history: Optional[torch.Tensor] = None  # (H, W, 3), device
         self._render_scale = float(self.config.render_scale)
@@ -322,6 +335,19 @@ class Renderer:
         self._last_outputs: Optional[FrameOutputs] = None
         self._last_image: Optional[np.ndarray] = None
         self.frame_count = 0
+        # An extent asked for by request_swapchain_resize, adopted on the
+        # next frame.
+        self._pending_resize: Optional[tuple] = None
+
+        # Diagnostics. The overflow probe holds (frame, the three overflow
+        # scalars on the device) for 60 frames before reading them, and
+        # only in console mode, so a frame takes no extra host sync.
+        self.diagnostics_state = DiagnosticsState()
+        self.frame_profiler = FrameProfiler()
+        self.device_profiler = DeviceProfiler(device=self.device)
+        self.overlay = DiagnosticsOverlay()
+        self._overflow_probe: Optional[tuple] = None
+        self._start_time = self._last_frame_time = time.perf_counter()
 
     # ------------------------------------------------------------------
     # Scene registration
@@ -734,6 +760,18 @@ class Renderer:
     def _taa_active(self) -> bool:
         return self.hdr_enabled and self.temporal_aa.is_enabled()
 
+    def set_msaa_preset(self, preset: str) -> None:
+        """"off", "x2" (2x1 samples), "x4" (2x2) or "x8" (4x2): the frame
+        rasters at the sample rate and resolves as
+        RendererConfig.msaa_resolve says. Exclusive with render_scale < 1
+        (the frame raises)."""
+        if preset not in MsaaPreset.SCALE:
+            raise ValueError(f"unknown MSAA preset {preset!r}")
+        self.msaa = preset
+
+    def msaa_preset(self) -> str:
+        return self.msaa
+
     # ------------------------------------------------------------------
     # Hi-Z occlusion culling, LOD statistics, image-based lighting
     # ------------------------------------------------------------------
@@ -791,6 +829,126 @@ class Renderer:
         for i in range(MAX_LOD_LEVELS):
             stats.objects_per_lod[i] = int(((sel == i) & live).sum())
         return stats
+
+    # ------------------------------------------------------------------
+    # Resize, diagnostics, cost analysis, pass profiling
+    # ------------------------------------------------------------------
+
+    def request_swapchain_resize(self, width: int, height: int) -> None:
+        """Render the next frame at (width, height). The frame after it
+        follows the surface's physical_size again, as the reference does."""
+        self._pending_resize = (int(width), int(height))
+
+    def wait_resize(self, timeout: Optional[float] = None) -> bool:
+        """True: a resize needs no compile here, so nothing is pending."""
+        return True
+
+    def set_diagnostics_mode(self, mode) -> None:
+        self.diagnostics_state.mode = mode
+
+    def toggle_diagnostics(self) -> None:
+        """The F6 handler: Off -> console -> overlay -> both -> Off."""
+        self.diagnostics_state.toggle()
+
+    def diagnostics(self) -> DiagnosticsState:
+        return self.diagnostics_state
+
+    def frame_cost_analysis(self, view, proj, camera_pos) -> dict:
+        """Render one frame while counting its operations: {"flops",
+        "bytes_accessed", "programs"}, bytes and flops summed over every
+        aten op the frame ran and the raster launches' tensors, programs
+        the pass_* scopes that ran (render/cost_analysis.py). Call after a
+        warm-up frame, so the frame counted is a steady one (the shadow
+        map cached)."""
+        with FrameCost() as cost:
+            self.render_frame(view, proj, camera_pos)
+        return cost.result()
+
+    def profile_passes(self, view, proj, camera_pos, n: int = 64):
+        """ms per stage of the frame, each timed over n runs of its own
+        (render/pass_profiler.py); the GpuProfiler readout under the
+        reference's scope names. It synchronises the device: use on
+        demand."""
+        self._sync_item_models()
+        return profile_passes(self, view, proj, camera_pos, n=n)
+
+    def _update_diagnostics(self, draw_calls: int, frame_ms: float) -> None:
+        """Refresh the diagnostics after a frame. Console mode warns about
+        dropped triangles and worklist overflow: it holds the frame's
+        overflow scalars on the device and reads them 60 frames later (one
+        host sync per 60 frames, none with diagnostics off)."""
+        mode = self.diagnostics_state.mode
+        if mode.console_enabled:
+            self._probe_overflow()
+        self.frame_profiler.record(frame_ms)
+        fs = self.diagnostics_state.frame_stats
+        fs.fps = self.frame_profiler.fps
+        fs.frame_time_ms = self.frame_profiler.avg_ms
+        fs.frame_time_min_ms = self.frame_profiler.min_ms
+        fs.frame_time_max_ms = self.frame_profiler.max_ms
+        fs.draw_calls = draw_calls
+        fs.triangles = self._scene.num_triangles if self._scene else 0
+        fs.total_frames = self.frame_count
+        ms = self.diagnostics_state.memory_stats
+        # Refreshed while diagnostics show, else once per 60 frames.
+        if (mode.console_enabled or mode.overlay_enabled
+                or self.frame_count % 60 == 1):
+            if self.device.type == "cuda":
+                ms.gpu_used_bytes = torch.cuda.memory_allocated(self.device)
+                if ms.gpu_budget_bytes == 0:
+                    ms.gpu_budget_bytes = torch.cuda.mem_get_info(
+                        self.device)[1]
+            else:
+                ms.gpu_used_bytes = self._buffer_bytes()
+        ms.allocation_count = len(self._scene.buffers) if self._scene else 0
+        ms.buffer_pool = (0, ms.allocation_count, ms.gpu_used_bytes)
+        self.diagnostics_state.gpu_timings.passes = (
+            self.device_profiler.timings_ms())
+        self.diagnostics_state.on_frame()
+
+    def _probe_overflow(self) -> None:
+        """Hold a frame's three overflow scalars (frame_count % 60 == 1) and
+        warn about them 60 frames later."""
+        if self._overflow_probe is None:
+            if self._last_outputs is not None and self.frame_count % 60 == 1:
+                out = self._last_outputs
+                self._overflow_probe = (
+                    self.frame_count, out.binning_overflow,
+                    out.shadow_overflow, out.msaa_edge_overflow)
+        elif self.frame_count - self._overflow_probe[0] >= 60:
+            _, main_of, shadow_of, edge_of = self._overflow_probe
+            self._overflow_probe = None
+            if int(main_of) > 0:
+                log.warning(
+                    "binning overflow: worst tile exceeded max_tris_per_tile"
+                    " (%d) by %d: triangles were dropped; raise"
+                    " RendererConfig.max_tris_per_tile",
+                    self.config.max_tris_per_tile, int(main_of))
+            if shadow_of is not None and int(shadow_of) > 0:
+                log.warning(
+                    "shadow binning overflow: worst shadow tile exceeded"
+                    " shadow_max_tris_per_tile (%d) by %d: shadow triangles"
+                    " were dropped (light leaks); raise"
+                    " RendererConfig.shadow_max_tris_per_tile",
+                    self.config.shadow_max_tris_per_tile, int(shadow_of))
+            if edge_of is not None and int(edge_of) > 0:
+                log.warning(
+                    "edge-MSAA worklist overflow: %d edge pixels past"
+                    " msaa_edge_capacity fell back to centre shading (lost"
+                    " their AA); raise RendererConfig.msaa_edge_capacity",
+                    int(edge_of))
+
+    def _buffer_bytes(self) -> int:
+        """Bytes of the scene's buffers, the texture pool and the TAA
+        history: the renderer's own state on its device."""
+        tensors = [t for t in (self._scene.buffers if self._scene else ())
+                   if isinstance(t, torch.Tensor)]
+        pool = self.bindless.pool()
+        if pool is not None:
+            tensors.append(pool.texels)
+        if self._taa_history is not None:
+            tensors.append(self._taa_history)
+        return sum(t.numel() * t.element_size() for t in tensors)
 
     # The reference's tiered XLA compilation has no counterpart in an eager
     # port: nothing is ever pending and no pipeline is raced.
@@ -851,6 +1009,11 @@ class Renderer:
             binning_policy=c.binning_policy,
             shading=c.shading,
             clear_color=tuple(c.clear_color),
+            ssaa_x=MsaaPreset.SCALE[self.msaa][0],
+            ssaa_y=MsaaPreset.SCALE[self.msaa][1],
+            msaa_resolve=c.msaa_resolve,
+            msaa_edge_capacity=c.msaa_edge_capacity,
+            overflow_taint=self.diagnostics_state.mode.overlay_enabled,
             frustum_culling=c.frustum_culling,
             alpha_blend=alpha_blend,
             transparency_layers=c.transparency_layers,
@@ -931,9 +1094,10 @@ class Renderer:
         uniforms and any moved models; everything render_frame's device
         work reads. With TAA on, each call takes the next jitter of the
         sequence."""
-        size = self.surface.physical_size()
+        size = self._pending_resize or self.surface.physical_size()
+        self._pending_resize = None
         if size != (self._width, self._height):
-            # State shaped like the old surface goes with it.
+            # State shaped like the old extent goes with it.
             self._width, self._height = size
             self.reset_taa_history()
             self._prev_depth = None
@@ -942,9 +1106,16 @@ class Renderer:
             raise InvalidOperation(
                 "no mesh: call set_mesh or submit_render_commands first"
             )
-        self.feature_manager.before_frame(
-            FeatureFrameContext(transform=self.transform)
-        )
+        # The feature hooks run after the draw items are read, as in the
+        # reference: an auto-rotation step shows in the next frame.
+        now = time.perf_counter()
+        self.feature_manager.before_frame(FeatureFrameContext(
+            delta_time=now - self._last_frame_time,
+            elapsed=now - self._start_time,
+            auto_rotate=self.auto_rotate,
+            transform=self.transform,
+        ))
+        self._last_frame_time = now
         if self._scene_dirty or self._scene is None:
             self._build_scene(items)
         elif not self.draw_items:
@@ -1127,7 +1298,10 @@ class Renderer:
         inside the frame, under the camera's level mask, so the cache is
         not used for it. With occlusion culling the first frame tests
         against a far-plane depth (nothing is known occluded yet) and every
-        frame keeps its depth for the next."""
+        frame keeps its depth for the next. In an overlay diagnostics mode
+        the stats text is blended onto the image on the device before its
+        copy to the host."""
+        start = time.perf_counter()
         inputs = self.prepare_frame(view, proj, camera_pos)
         cfg = inputs.config
         shadow = (
@@ -1159,10 +1333,16 @@ class Renderer:
             self._prev_depth = outputs.depth
         self._prev_view_proj = self._unjittered_view_proj
         self._prev_models = inputs.uniforms.models
+        if self.diagnostics_state.mode.overlay_enabled:
+            self.overlay.composite(outputs.image,
+                                   self.diagnostics_state.overlay_lines())
         self._last_image = outputs.image.cpu().numpy()
         self.surface.present(self._last_image)
         self._last_outputs = outputs
         self.frame_count += 1
+        # A frame without a draw list draws the single mesh.
+        self._update_diagnostics(len(self.draw_items) or 1,
+                                 (time.perf_counter() - start) * 1e3)
         return outputs
 
     # ------------------------------------------------------------------
@@ -1176,8 +1356,3 @@ class Renderer:
         """The last frame's (H, W, 4) uint8 image on the host."""
         return self._last_image
 
-
-# Reference methods of later slices.
-for _name, _item in UNPORTED_METHODS.items():
-    setattr(Renderer, _name, _refuse(_name, _item))
-del _name, _item

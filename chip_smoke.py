@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's standard, glass, textured, lit, rich, animated
-and 1M-triangle frames, examples 06 and 07's frames, the bf16 standard
-frame and the standard frame with Hi-Z occlusion culling on one NVIDIA
+and 1M-triangle frames, examples 02, 06 and 07's frames, the bf16 standard
+frame, the standard frame with Hi-Z occlusion culling, with MSAA and with
+the diagnostics overlay, the file sink and the profilers on one NVIDIA
 GPU.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
@@ -30,7 +31,9 @@ fails. Phases, one stdout line each:
    caps of 8192 and at the caps the escalation reaches, the whole targets,
    and on example 07's instancing frame 1 (65,536 cubes from the
    InstancingManager, 786,432 triangles): its main pass at 8x128 tiles and
-   K=2048 and its shadow pass;
+   K=2048 and its shadow pass; and the standard frame's main pass at the
+   MSAA presets' sample rates (3840x1080, 3840x2160, 7680x2160; the peel
+   at 2 layers at 3840x2160);
 4. the slice: the standard frame (1000 instanced PBR cubes, bench.py's
    recipe) rendered at 1920x1080 through ash_tpu_torch.Renderer: the
    one-layer kernel runs twice on frame 1 and once per static frame after
@@ -92,7 +95,16 @@ fails. Phases, one stdout line each:
    with Hi-Z: visible draws, frame 2's cull held to the CPU as above, the
    pixels it changes against the frustum-only frame (recorded: the
    reference's Hi-Z test culls visible draws here too), its plain-raster
-   frame 3;
+   frame 3. Then MSAA (A15): the standard frame at x2, x4 and x8 SSAA and
+   x4 and x8 edge resolve for 3 frames each (B1 [2, 1, 1], no overflow,
+   msaa_edge_overflow None under SSAA, static frames equal, each against
+   its plain-raster frame, PSNR against the 1x frame, edge against SSAA),
+   and tests/test_edge_msaa.py's 64x64 scenes (edge against SSAA >= 40
+   dB). Then A17: example 02's 30 frames (diagnostics().frame_stats), the
+   standard frame in overlay mode at a tile cap of 16 (the magenta block,
+   and every pixel equal to the frame without diagnostics with the CPU's
+   composite of the same text), a FileStreamSurface of three card frames,
+   profile_passes and frame_cost_analysis on the standard frame;
 5. times (CUDA events) and peak device memory: static frame, frame with a
    shadow re-render, the glass frames, the textured frame (static, with a
    shadow re-render, and at anisotropy 1 for scale), the lit frame, the
@@ -101,10 +113,12 @@ fails. Phases, one stdout line each:
    (8 frames at the drop-free caps and at the base caps), with kernels and
    copies per frame (torch.profiler) for the last two; the instancing frame
    (median, min and max of 5), the LOD frames, the IBL frame, the bf16 and
-   f32 standard frames and the standard frame with Hi-Z; then,
+   f32 standard frames and the standard frame with Hi-Z, the five MSAA
+   frames (median, min and max of 5, kernels and copies per frame); then,
    at each kernel shape of the main path (1080p one layer, 2048^2 one
    layer, the three 1024^2 cascades, 1080p K = 2, 4, 8 and K = 4 under a
-   floor, the mega frame's four passes and the instancing frame's two,
+   floor, the x4 and x8 MSAA main passes, the mega frame's four passes and
+   the instancing frame's two,
    which add the time with only the heaviest tile's list left): the
    wrapper-loop time (50 calls of raster_cuda.rasterize, host work
    included; the `ms` of the kernels line, as in earlier versions), the
@@ -123,6 +137,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -142,9 +157,15 @@ RECORD_BYTES = 48
 # standard frame's is 256 at the native size).
 HALF_SCALE_TILE_CAP = 1024
 CASCADES = ["cascade0", "cascade1", "cascade2"]
+# The standard frame's MSAA presets: (preset, the main pass's sample-rate
+# size), and the (resolve, preset) frames driven.
+MSAA_PRESETS = {"x2": (3840, 1080), "x4": (3840, 2160), "x8": (7680, 2160)}
+MSAA_FRAMES = [("ssaa", "x2"), ("ssaa", "x4"), ("ssaa", "x8"),
+               ("edge", "x4"), ("edge", "x8")]
 SHAPES = [("main", 1, False), ("shadow", 1, False),
           *((c, 1, False) for c in CASCADES), ("main", 2, False),
-          ("main", 4, False), ("main", 8, False), ("main", 4, True)]
+          ("main", 4, False), ("main", 8, False), ("main", 4, True),
+          ("msaa x4", 1, False), ("msaa x8", 1, False)]
 
 
 def check(cond, what):
@@ -193,8 +214,8 @@ def graph_ms(launch, n=20, reps=10):
 
 def pass_inputs(r, cam):
     """-> {pass: (setup, bins, height, width, tile_h, tile_w, y0)} of
-    renderer r's main pass and shadow pass seen from `cam`, as a frame
-    computes them."""
+    renderer r's main pass (at the sample rate under MSAA) and shadow pass
+    seen from `cam`, as a frame computes them."""
     from ash_tpu_torch.render import frame
 
     cfg, scene, uni = r.prepare_frame(
@@ -205,8 +226,9 @@ def pass_inputs(r, cam):
         uni.light_space_matrix,
     )
     s = cfg.shadow_resolution
+    rw, rh = frame.raster_size(cfg)
     return {
-        "main": (setup, bins, cfg.height, cfg.width, cfg.tile_h, cfg.tile_w, 0),
+        "main": (setup, bins, rh, rw, cfg.tile_h, cfg.tile_w, 0),
         "shadow": (setup_s, bins_s, s, s, cfg.shadow_rows, cfg.shadow_tile, 0),
     }
 
@@ -547,6 +569,9 @@ def main() -> int:
     from ash_tpu_torch.render import RenderCommand, frame, golden_scenes
     from ash_tpu_torch.core import maths
     from ash_tpu_torch.render import bench_scene
+    from ash_tpu_torch.render.csm import CsmConfig
+    from ash_tpu_torch.render.diagnostics import DiagnosticsMode
+    from ash_tpu_torch.render.diagnostics.overlay import DiagnosticsOverlay
     from ash_tpu_torch.render.bench_scene import (
         build_bench_renderer,
         build_ibl_renderer,
@@ -599,6 +624,17 @@ def main() -> int:
     passes.update(cascade_inputs(r_casc, cam))
     del r_casc
     check(all(c in passes for c in CASCADES), "the rich frame has 3 cascades")
+    # The standard frame's main pass at the MSAA presets' sample rates; the
+    # renderers draw the SSAA frames of phase 4.
+    msaa_r = {}
+    for preset, size in MSAA_PRESETS.items():
+        msaa_r["ssaa", preset] = build_bench_renderer(
+            1920, 1080, 1000, "cuda", msaa_resolve="ssaa")[0]
+        msaa_r["ssaa", preset].set_msaa_preset(preset)
+        passes[f"msaa {preset}"] = pass_inputs(msaa_r["ssaa", preset],
+                                               cam)["main"]
+        check(passes[f"msaa {preset}"][2:4] == size[::-1],
+              f"msaa {preset}: the main pass is not {size}")
     for c in CASCADES:
         shape = (passes[c][1].tri_ids.shape[1], *passes[c][2:6])
         check(shape == (512, 1024, 1024, 32, 128),
@@ -629,7 +665,8 @@ def main() -> int:
     # The K-layer peel: (pass, layers, floor).
     floor4 = floor_for(passes)
     peel_cases = [("main", 2, None), ("main", 4, None), ("main", 8, None),
-                  ("main", 4, floor4), ("band", 4, None), ("shadow", 2, None)]
+                  ("main", 4, floor4), ("band", 4, None), ("shadow", 2, None),
+                  ("msaa x4", 2, None)]
     max_err_layers = 0.0
     for name, layers, floor in peel_cases:
         args = passes[name]
@@ -1354,6 +1391,144 @@ def main() -> int:
     check(occ_plain_equal, "occlusion: frame 3 with the kernel != plain-"
           "raster frame 3")
 
+    # MSAA (A15): the standard frame at x2, x4 and x8 SSAA and at x4 and x8
+    # edge resolve. Frame 1 renders the shadow map, so B1 runs [2, 1, 1].
+    msaa = {}
+    for mode, preset in MSAA_FRAMES:
+        path = f"msaa {mode} {preset}"
+        rm_ = msaa_r.get((mode, preset))
+        if rm_ is None:
+            rm_ = msaa_r[mode, preset] = build_bench_renderer(
+                1920, 1080, 1000, "cuda", msaa_resolve=mode)[0]
+            rm_.set_msaa_preset(preset)
+        raster_cuda.rasterize.launches = 0
+        raster_cuda.rasterize.layer_launches = 0
+        m_one, m_peel, m_outs = launches_per_frame(rm_, view, proj, pos, 3)
+        launches[path] = raster_cuda.rasterize.launches
+        layer_launches[path] = raster_cuda.rasterize.layer_launches
+        m_image = rm_.read_back().copy()
+        mo = m_outs[0]
+        check(m_one == [2, 1, 1] and m_peel == [0, 0, 0],
+              f"{path}: launches one-layer {m_one}, peel {m_peel}")
+        check(m_image.shape == (1080, 1920, 4)
+              and tuple(mo.depth.shape) == (1080, 1920),
+              f"{path}: image {m_image.shape}, depth {tuple(mo.depth.shape)}")
+        check(bool(torch.isfinite(mo.color).all()), f"{path}: non-finite")
+        check(int(mo.binning_overflow) == 0 and int(mo.shadow_overflow) == 0,
+              f"{path}: overflow")
+        check(all(o.image.equal(mo.image) for o in m_outs[1:]),
+              f"{path}: static frames differ")
+        check((mo.msaa_edge_overflow is None) == (mode == "ssaa"),
+              f"{path}: msaa_edge_overflow {mo.msaa_edge_overflow}")
+        rm_plain = build_bench_renderer(1920, 1080, 1000, "cuda",
+                                        msaa_resolve=mode)[0]
+        rm_plain.set_msaa_preset(preset)
+        m_plain_equal = bool(np.array_equal(
+            plain_frames(rm_plain, [(view, proj, pos)])[0], m_image))
+        del rm_plain
+        check(m_plain_equal, f"{path}: frame with the kernel != plain-raster "
+              "frame")
+        msaa[path] = dict(
+            image=m_image, one=m_one, covered=int(mo.covered_pixels),
+            edge_overflow=(None if mo.msaa_edge_overflow is None
+                           else int(mo.msaa_edge_overflow)),
+            psnr_native=ash_tpu_torch.psnr(m_image, image))
+    for preset in ("x4", "x8"):
+        msaa[f"msaa edge {preset}"]["psnr_ssaa"] = ash_tpu_torch.psnr(
+            msaa[f"msaa edge {preset}"]["image"],
+            msaa[f"msaa ssaa {preset}"]["image"])
+    # tests/test_edge_msaa.py's 64x64 scenes on the card: edge against SSAA.
+    edge_small = {}
+    for name, preset, lights, extra in (
+            ("x2", "x2", False, {}), ("x4 lights", "x4", True, {}),
+            ("x8", "x8", False, {}),
+            ("x4 csm", "x4", False, dict(
+                shadows_enabled=True, shadow_resolution=256,
+                csm=CsmConfig(cascade_count=2, resolution=256),
+                shadow_distance=20.0))):
+        imgs = {}
+        for mode in ("ssaa", "edge"):
+            cfg64 = dict(tile_h=8, tile_w=32, max_tris_per_tile=64,
+                         shadows_enabled=False, msaa_resolve=mode)
+            rs_ = ash_tpu_torch.Renderer(
+                ash_tpu_torch.HeadlessSurface(64, 64),
+                ash_tpu_torch.RendererConfig(**{**cfg64, **extra}),
+                device="cuda")
+            rs_.set_mesh(ash_tpu_torch.Mesh.create_cube())
+            rs_.set_msaa_preset(preset)
+            if lights:
+                rs_.add_point_light([1.5, 1.5, 3.0], color=(3, 1, 0),
+                                    intensity=5.0, radius=12.0)
+            c64 = ash_tpu_torch.Camera.new([3, 2, 4], [0, 0, 0], 1.0)
+            o64 = rs_.render_frame(c64.view_matrix(), c64.projection_matrix(),
+                                   c64.position)
+            imgs[mode] = o64.color.cpu().numpy()
+        edge_small[name] = ash_tpu_torch.psnr(imgs["edge"], imgs["ssaa"])
+        check(edge_small[name] >= 40.0 and int(o64.msaa_edge_overflow) == 0,
+              f"64x64 {name}: edge against SSAA {edge_small[name]:.2f} dB")
+
+    # Diagnostics (A17): example 02's loop (640x480, 30 frames), then the
+    # standard frame in overlay mode at a tile cap that drops triangles.
+    r02, _ = bench_scene.build_cube_example("cuda")
+    for i in range(30):
+        r02.render_frame(*bench_scene.cube_example_camera(i))
+    ex02 = r02.diagnostics()
+    check(ex02.frame_stats.total_frames == 30
+          and ex02.frame_stats.frame_time_ms > 0
+          and ex02.memory_stats.gpu_used_bytes > 0,
+          f"example 02: {ex02.frame_stats} {ex02.memory_stats}")
+    del r02
+    rov = build_bench_renderer(1920, 1080, 1000, "cuda",
+                               max_tris_per_tile=16)[0]
+    ov_out = rov.render_frame(view, proj, pos)
+    ov_off = rov.read_back().copy()
+    ov_dropped = int(ov_out.binning_overflow)
+    check(ov_dropped > 0, "overlay frame: the cap of 16 drops nothing")
+    rov.set_diagnostics_mode(DiagnosticsMode.OVERLAY_ONLY)
+    ov_lines = rov.diagnostics().overlay_lines()
+    rov.render_frame(view, proj, pos)
+    ov_img = rov.read_back().copy()
+    # The CPU composite of the same lines over the frame without
+    # diagnostics, and the taint: every pixel of the card's frame.
+    ov_want = DiagnosticsOverlay().composite(torch.from_numpy(ov_off.copy()),
+                                             ov_lines).numpy()
+    ov_want[-8:, -8:, :3] = (255, 0, 255)
+    if int(ov_out.shadow_overflow) > 0:
+        ov_want[-8:, -16:-8, :3] = (0, 255, 255)
+    ov_text_px = int((ov_want != ov_off).any(-1)[:-8].sum())
+    check(bool((ov_img[-8:, -8:, :3] == (255, 0, 255)).all()),
+          "overlay frame: no magenta block")
+    check(ov_text_px > 1000 and np.array_equal(ov_img, ov_want),
+          f"overlay frame: {int((ov_img != ov_want).any(-1).sum())} pixels "
+          "differ from the frame without diagnostics with the text patch "
+          "and the magenta block")
+    del rov
+
+    # Surfaces and profiling (A17): a FileStreamSurface takes card frames;
+    # profile_passes and frame_cost_analysis run on the standard frame.
+    os.makedirs(os.path.join(repo, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(repo, "build")) as tmp:
+        stream = os.path.join(tmp, "frames.rgba")
+        with ash_tpu_torch.FileStreamSurface(640, 480, stream) as fsurf:
+            rfs, _ = bench_scene.build_cube_example("cuda", surface=fsurf)
+            for i in range(3):
+                rfs.render_frame(*bench_scene.cube_example_camera(i))
+            last = rfs.read_back().copy()
+        raw = np.fromfile(stream, np.uint8)
+    check(raw.size == 3 * 480 * 640 * 4
+          and np.array_equal(raw.reshape(3, 480, 640, 4)[2], last),
+          f"FileStreamSurface: {raw.size} bytes, last frame equal: "
+          f"{np.array_equal(raw[-last.size:].reshape(last.shape), last)}")
+    del rfs
+    pp = r.profile_passes(view, proj, pos, n=10)
+    check(set(pp) == {"Vertex", "ShadowEnd", "Setup", "Binning", "Raster",
+                      "GBuffer", "SceneEnd"} and min(pp.values()) > 0,
+          f"profile_passes: {pp}")
+    fca = r.frame_cost_analysis(view, proj, pos)
+    check(fca["flops"] > 0 and fca["bytes_accessed"] > 0
+          and {"pass_raster", "pass_shade"} <= set(fca["programs"]),
+          f"frame_cost_analysis: {fca}")
+
     goldens = {}
     for name, scene_fn in golden_scenes.SCENES.items():
         golden = ash_tpu_torch.read_png(
@@ -1471,6 +1646,32 @@ def main() -> int:
     print(f"phase4 bf16 frame (bench.py --bf16): one-layer launches {bf_one}; "
           f"PSNR against the f32 frame {bf_psnr:.2f} dB (not identical); "
           f"equal to the plain-raster frame: {bf_plain_equal}", flush=True)
+    for path, m in msaa.items():
+        print(f"phase4 {path} frame: 1920x1080, sample rate "
+              f"{'x'.join(map(str, MSAA_PRESETS[path.split()[-1]]))}: "
+              f"one-layer launches per frame {m['one']}, peel 0; overflow "
+              f"0; covered samples {m['covered']}; msaa_edge_overflow "
+              f"{m['edge_overflow']}; equal to the plain-raster frame: True; "
+              f"PSNR against the 1x frame {m['psnr_native']:.2f} dB"
+              + (f", against the SSAA frame {m['psnr_ssaa']:.2f} dB"
+                 if "psnr_ssaa" in m else ""), flush=True)
+    print("phase4 msaa 64x64 scenes (tests/test_edge_msaa.py) on the card, "
+          "edge against SSAA: " + ", ".join(
+              f"{k} {v:.2f} dB" for k, v in edge_small.items()), flush=True)
+    print(f"phase4 example 02 (640x480, 30 frames): "
+          f"{ex02.frame_stats.format_line()} | "
+          f"{ex02.memory_stats.format_line()}", flush=True)
+    print(f"phase4 overlay frame (standard, max_tris_per_tile 16): overflow "
+          f"{ov_dropped}, shadow {int(ov_out.shadow_overflow)}; magenta "
+          f"block; text patch {ov_text_px} pixels; "
+          f"equal to the frame without diagnostics elsewhere: True",
+          flush=True)
+    print(f"phase4 surfaces and profiling: FileStreamSurface wrote 3 card "
+          f"frames ({raw.size} bytes); profile_passes (ms, n=10) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in pp.items())
+          + f"; frame_cost_analysis: {fca['flops']:.4g} flops, "
+          f"{fca['bytes_accessed']:.4g} bytes, programs "
+          f"{len(fca['programs'])}", flush=True)
     print(f"phase4 occlusion frame (standard + Hi-Z): one-layer launches "
           f"{occ_one}; visible draws {occ_visible} (frustum only "
           f"{int(out.visible_draws)}); frame 2's Hi-Z cull on the card / CPU "
@@ -1593,6 +1794,15 @@ def main() -> int:
     occ_ms, mem["occlusion"] = frame_ms_mem(
         lambda i: rocc.render_frame(view, proj, pos), 10)
     del r_inst, rlod, ribl, rbf, rocc
+    # The MSAA frames (static: the shadow map is cached).
+    msaa_ms, msaa_ops = {}, {}
+    for mode, preset in MSAA_FRAMES:
+        path = f"msaa {mode} {preset}"
+        step = (lambda i, rm_=msaa_r[mode, preset]:
+                rm_.render_frame(view, proj, pos))
+        msaa_ms[path], mem[path] = frame_ms_spread(step, 5)
+        msaa_ops[path] = device_ops_per_frame(step)
+    del msaa_r
     # Each kernel shape of the main path: the wrapper loop, the device time
     # of bare launches (and with every list empty), the plain raster (plain,
     # kernel, kernel, plain) and the work from the inputs.
@@ -1641,6 +1851,11 @@ def main() -> int:
           f"of 5); ibl frame {ibl_ms} ms; bf16 standard frame {bf_ms} ms "
           f"beside the f32 one {f32_ms} ms; standard frame with Hi-Z "
           f"{occ_ms} ms (medians of 10)", flush=True)
+    print(f"phase5 MSAA times on {card}: " + "; ".join(
+        f"{path} {msaa_ms[path][0]} ms (median of 5, min {msaa_ms[path][1]}, "
+        f"max {msaa_ms[path][2]}), {msaa_ops[path]:g} kernels and copies "
+        "per frame" for path in msaa_ms) + f"; the 1x frame {static_ms} ms",
+        flush=True)
     print("phase5 peak device memory (MiB): " + ", ".join(
         f"{k} {v:.1f}" for k, v in mem.items()), flush=True)
     for name in big_names:
@@ -1700,6 +1915,7 @@ def main() -> int:
                     max_err, ("main", 1, False),
                     [("main", 1, False), ("shadow", 1, False),
                      *((c, 1, False) for c in CASCADES),
+                     ("msaa x4", 1, False), ("msaa x8", 1, False),
                      *((n, 1, False) for n in big_names)]),
         kernel_line("raster_layers", "ash_tpu/ops/raster_pallas.py:138",
                     layer_launches, max_err_layers, ("main", 4, False),

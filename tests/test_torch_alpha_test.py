@@ -70,7 +70,8 @@ def _alpha_pools():
         h, w = px.shape[:2]
         data = port_core.TextureData(w, h, px)
         maps.append(port_core.texture.mip_chain(None, data.to_linear_f32()))
-    return ref_ts.build_pool(maps), texture_sample.build_pool(maps)
+    return (ref_ts.build_pool(maps),
+            texture_sample.build_pool(maps, device="cpu"))
 
 
 @pytest.fixture(scope="module")

@@ -67,19 +67,20 @@ def test_reference_names_are_exported_or_listed(package, reference):
             getattr(port, name)
     # The top level's lazily exported surfaces are accounted for too.
     for name in ("FileStreamSurface", "LiveViewSurface"):
-        with pytest.raises(NotImplementedError, match="A17"):
-            getattr(ash_tpu_torch, name)
+        assert getattr(ash_tpu_torch, name) is getattr(port_render, name)
+        assert name in ash_tpu_torch.__all__
 
 
 def test_unported_names_name_their_item():
-    assert port_render.UNPORTED_NAMES == {
-        "MsaaPreset": "A15, MSAA",
-        "FileStreamSurface": "A17, surfaces",
-        "LiveViewSurface": "A17, surfaces",
-        "TerminalSurface": "A17, surfaces",
-    }
-    with pytest.raises(NotImplementedError, match="A15"):
-        from ash_tpu_torch.render import MsaaPreset  # noqa: F401
+    """Every name of the reference's render package is ported (MSAA, A15,
+    and the surfaces, A17, were the last): none is left to refuse."""
+    assert port_render.UNPORTED_NAMES == {}
+    from ash_tpu_torch.render import (  # noqa: F401
+        FileStreamSurface,
+        LiveViewSurface,
+        MsaaPreset,
+        TerminalSurface,
+    )
 
 
 @pytest.mark.parametrize("method", REF_METHODS)
@@ -158,22 +159,39 @@ def test_xla_only_knob_is_validated(name, value):
 
 
 @pytest.mark.parametrize("name,value,item", [
-    ("msaa_edge_capacity", 0.25, "A15"),
-    ("msaa_resolve", "edge", "A15"), ("max_draws_per_chunk", 64, "A16"),
+    ("max_draws_per_chunk", 64, "A16"),
 ])
 def test_unported_option_raises_with_its_item(name, value, item):
     with pytest.raises(NotImplementedError, match=item):
         port_renderer.RendererConfig(**{name: value})
 
 
-def test_unported_names_are_a15_to_a17_only():
-    """After A14, the refusals name only MSAA (A15), chunked geometry (A16)
-    and the surfaces and diagnostics (A17)."""
+@pytest.mark.parametrize("name,value,field", [
+    ("msaa_resolve", "edge", "msaa_resolve"),
+    ("msaa_edge_capacity", 0.25, "msaa_edge_capacity"),
+])
+def test_a15_option_reaches_the_frame(name, value, field):
+    """The MSAA options that raised before A15 reach the frame."""
+    r = port_render.Renderer(
+        port_render.HeadlessSurface(24, 16),
+        port_renderer.RendererConfig(shadow_resolution=64, shadow_tile=64,
+                                     **{name: value}), device="cpu")
+    r.set_mesh(ash_tpu_torch.Mesh.create_cube())
+    r.set_msaa_preset("x2")
+    cam = ash_tpu_torch.Camera.new([3.0, 2.0, 4.0], [0, 0, 0], 1.5)
+    inputs = r.prepare_frame(cam.view_matrix(), cam.projection_matrix(),
+                             cam.position)
+    assert getattr(inputs.config, field) == value
+    assert (inputs.config.ssaa_x, inputs.config.ssaa_y) == (2, 1)
+
+
+def test_unported_items_are_a16_only():
+    """After A15 and A17, the refusals name only chunked geometry (A16)."""
     items = ({v.split(",")[0] for v in port_render.UNPORTED_NAMES.values()}
              | {v.split(",")[0] for v in port_renderer.UNPORTED_METHODS.values()}
              | {v[1].split(",")[0]
                 for v in port_renderer._UNPORTED_OPTIONS.values()})
-    assert items == {"A15", "A16", "A17"}
+    assert items == {"A16"}
 
 
 @pytest.mark.parametrize("name,value,field", [

@@ -52,7 +52,7 @@ def _pyramids(seed, sizes):
 def _pools(pyramids, **kw):
     """The same pyramids packed by both packages -> (reference, port)."""
     return (ref_ts.build_pool(pyramids, **kw),
-            texture_sample.build_pool(pyramids, **kw))
+            texture_sample.build_pool(pyramids, device="cpu", **kw))
 
 
 POOL_CASES = {
@@ -80,9 +80,22 @@ def test_build_pool_bit_for_bit(case):
                                       np.asarray(ref.min_level))
 
 
+@pytest.mark.parametrize("build", [
+    lambda: texture_sample.build_pool(_pyramids(3, [(8, 8)])),
+    lambda: BindlessTextureManager(budget_bytes=None),
+], ids=["build_pool", "BindlessTextureManager"])
+def test_texture_pool_defaults_to_the_card(build, monkeypatch):
+    """Without a device the pool and its manager go to the card, and never
+    fall back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        build()
+
+
 def test_build_pool_arena_overflow_raises():
     with pytest.raises(ValueError, match="arena"):
-        texture_sample.build_pool(_pyramids(2, [(16, 16)]), arena_texels=100)
+        texture_sample.build_pool(_pyramids(2, [(16, 16)]), arena_texels=100,
+                                  device="cpu")
 
 
 @pytest.mark.parametrize("streamed", [False, True])
@@ -180,7 +193,7 @@ def _textures(seed, sizes):
 
 def _managers(budget, sizes, seed=9):
     ref, port = RefManager(budget_bytes=budget), BindlessTextureManager(
-        budget_bytes=budget)
+        budget_bytes=budget, device="cpu")
     for px in _textures(seed, sizes):
         h, w = px.shape[:2]
         assert (ref.add_sampled_image(RefTextureData(w, h, px))
@@ -232,7 +245,7 @@ def _checker(size):
 
 
 def test_unbudgeted_pool_fully_resident():
-    mgr = BindlessTextureManager()
+    mgr = BindlessTextureManager(device="cpu")
     mgr.add_sampled_image(_checker(64))
     pool = mgr.pool()
     assert pool.min_level is None
@@ -241,7 +254,7 @@ def test_unbudgeted_pool_fully_resident():
 
 
 def test_budget_demotes_largest_textures():
-    mgr = BindlessTextureManager(budget_bytes=64 * 64 * 8 * 2)
+    mgr = BindlessTextureManager(budget_bytes=64 * 64 * 8 * 2, device="cpu")
     big = mgr.add_sampled_image(_checker(128))
     small = mgr.add_sampled_image(_checker(16))
     pool = mgr.pool()
@@ -257,13 +270,13 @@ def test_sampling_clamps_to_resident_mip():
     """With mip 0 not resident a LOD-0 sample returns mip 1's content: a
     1 px checker's mip 1 is uniform grey."""
     tex = TextureData.checkerboard(size=16, cell=1)
-    mgr = BindlessTextureManager(budget_bytes=10 * 10 * 8)
+    mgr = BindlessTextureManager(budget_bytes=10 * 10 * 8, device="cpu")
     idx = mgr.add_sampled_image(tex)
     pool = mgr.pool()
     assert int(pool.min_level[idx]) >= 1
     uv = torch.tensor([[3.5 / 16, 3.5 / 16]])
     out = texture_sample.sample_trilinear(pool, torch.tensor([idx]), uv)[0]
-    full = BindlessTextureManager()
+    full = BindlessTextureManager(device="cpu")
     fidx = full.add_sampled_image(tex)
     ref = texture_sample.sample_trilinear(full.pool(), torch.tensor([fidx]),
                                           uv)[0]
@@ -272,7 +285,7 @@ def test_sampling_clamps_to_resident_mip():
 
 def test_restream_keeps_shapes_and_promotes():
     budget = (64 * 64 + 32 * 32 + 1024) * 8
-    mgr = BindlessTextureManager(budget_bytes=budget)
+    mgr = BindlessTextureManager(budget_bytes=budget, device="cpu")
     a = mgr.add_sampled_image(_checker(64))
     b = mgr.add_sampled_image(_checker(64))
     p0 = mgr.pool()
@@ -289,7 +302,7 @@ def test_restream_keeps_shapes_and_promotes():
 
 
 def test_budget_too_small_raises():
-    mgr = BindlessTextureManager(budget_bytes=8)  # one texel
+    mgr = BindlessTextureManager(budget_bytes=8, device="cpu")  # one texel
     mgr.add_sampled_image(_checker(16))
     mgr.add_sampled_image(_checker(16))
     with pytest.raises(ResourceCreationError):
