@@ -5,7 +5,7 @@
         [--max-anisotropy A] [--rich [--render-scale S]]
         [--max-tris-per-tile K] [--animate] [--mega [--escalate]]
         [--occlusion] [--bf16] [--instancing] [--lod] [--ibl]
-        [--msaa x2|x4|x8 [--edge]] [--overlay]
+        [--msaa x2|x4|x8 [--edge]] [--overlay] [--bands N] [--example10]
 
 Renders the bench scene (render/bench_scene.py: 1000 cubes, 1920x1080,
 2048^2 shadow map), or with --glass the glass standard frame (every fourth
@@ -32,7 +32,12 @@ the shadow map re-renders in every frame of a LOD scene), --ibl example
 scene at an MSAA preset (x2 = 2x1, x4 = 2x2, x8 = 4x2 samples a pixel),
 shading every sample, or with --edge only the edge pixels' samples
 (RendererConfig.msaa_resolve="edge"); --overlay turns on the diagnostics
-overlay (the text patch and the overflow taint). It traces N static frames
+overlay (the text patch and the overflow taint). --bands N renders the
+chosen frame through parallel.make_sharded_frame over N bands on one card
+(mesh ["cuda:0"] * N, the renderer's own inputs, the shadow map rendered
+in bands every frame). --example10 renders example 10's chunked frame
+(10,000 instanced 98x49 spheres, 33 chunks of 312 draws, 1080p, 8x128
+tiles, K=2048, no shadows). It traces N static frames
 and N frames that re-render the shadow map (N animated frames with
 --animate) with `torch.profiler`. For each kind it prints the wall time
 per frame, the peak device memory, the device's busy and idle share of
@@ -56,10 +61,12 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from .parallel import make_sharded_frame, render_mesh
 from .render.diagnostics import DiagnosticsMode
 from .render.bench_scene import (
     animated_models_trs,
     build_bench_renderer,
+    build_mega_instancing_renderer,
     build_ibl_renderer,
     build_instancing_renderer,
     build_lod_renderer,
@@ -131,11 +138,15 @@ def main(argv=None) -> int:
     ap.add_argument("--msaa", choices=("x2", "x4", "x8"), default=None)
     ap.add_argument("--edge", action="store_true")
     ap.add_argument("--overlay", action="store_true")
+    ap.add_argument("--bands", type=int, default=0)
+    ap.add_argument("--example10", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_frame: needs a CUDA device", file=sys.stderr)
         return 1
-    if args.mega:
+    if args.example10:
+        r, _, cam, _ = build_mega_instancing_renderer(1920, 1080, "cuda")
+    elif args.mega:
         r, _, cam, _ = build_mega_renderer(1920, 1080, "cuda")
     elif args.instancing:
         r, _, cam, host_s = build_instancing_renderer(1920, 1080, "cuda")
@@ -181,8 +192,20 @@ def main(argv=None) -> int:
         r.render_frame(orbit_camera(cam, anim["extent"], clock[0]), proj,
                        cam.position)
 
-    def static(i):
-        r.render_frame(view, proj, pos)
+    if args.bands:
+        cfg, scene, uni, pool, lights, post, taa = r.prepare_frame(view, proj,
+                                                                   pos)
+        history = (None if taa is None else
+                   torch.zeros((cfg.height, cfg.width, 3), device="cuda"))
+        sharded = make_sharded_frame(
+            cfg, render_mesh(devices=["cuda:0"] * args.bands))
+
+        def static(i):
+            sharded(scene.buffers, uni, pool, post, taa, history,
+                    lights).image.cpu()
+    else:
+        def static(i):
+            r.render_frame(view, proj, pos)
 
     def shadow(i):
         r.shadow_feature.set_light_direction(lights[i % 2])
@@ -206,6 +229,8 @@ def main(argv=None) -> int:
     del out  # or the peak would count a second frame's outputs
     if args.animate:
         kinds = (("animated", animated),)
+    elif args.bands or args.example10:
+        kinds = (("static", static),)
     elif args.lod:
         kinds = (("near", static), ("far", lod_far))
     elif args.ibl:

@@ -52,6 +52,16 @@ Example 02's scene (`build_cube_example`, `cube_example_camera`): a red
 metallic cube under a camera orbiting at radius 5, 640x480, a 1024^2
 shadow map, as examples/02_cube.py draws it.
 
+The multi-device and chunked examples: `example_scene` is the port's copy
+of __graft_entry__._example_scene (the frame functions' inputs: scene
+buffers and uniforms on a device, with a texture pool and two lights when
+rich); `example05_config` is examples/05_multichip.py's frame, and
+`example09_config`, `example09_uniforms` and `example09_taa` are
+examples/09_animation_farm.py's orbit with TAA; `build_mega_instancing_
+renderer` is examples/10_mega_instancing.py's default scene (10,000
+instances of a 98x49 UV sphere, 96,040,000 triangles, 312 draws a chunk,
+8x128 tiles with K=2048, "nearest", no shadows, 1920x1080).
+
 The `fill_*` helpers take either package's core and RenderCommand, so the
 reference renderer can draw the same scene in a test.
 """
@@ -61,6 +71,7 @@ from __future__ import annotations
 import time
 
 import numpy as np
+import torch
 
 from .. import core as port_core
 from ..core import Camera, Material, maths
@@ -593,3 +604,199 @@ def cube_example_camera(i, width=640, height=480):
     proj = maths.perspective_rh(np.deg2rad(45), width / height, 0.5, 100.0)
     proj[1, 1] *= -1.0
     return view, proj, pos
+
+
+def example_scene(n_cubes: int = 8, rich: bool = False, lod: bool = False,
+                  device="cuda"):
+    """The port's copy of __graft_entry__._example_scene (seed 3, the same
+    cubes, camera 4:3 at (6, 4, 8), light and materials), built from this
+    package on `device` -> (SceneBuffers, FrameUniforms) for the frame
+    functions; rich=True adds a texture pool and two Forward+ point lights,
+    every even draw textured with a 16x16 checker and draw 1 at alpha 0.5,
+    two CSM cascades, and returns (scene, uniforms, {"pool", "lights"}).
+    lod=True makes every third draw a 16x12 sphere with two coarser levels
+    (8x6 below 5% coverage, 5x4 below 1%)."""
+    from ..core.texture import TextureData
+    from ..core.uniform import MaterialUniform
+    from .bindless import BindlessTextureManager
+    from .features import GpuLight, PointLight
+    from .frame import FrameUniforms
+    from .scene import DrawItem, build_models, build_scene
+    from .shadow_map import directional_light_matrix
+
+    meshes = {"Cube": port_core.Mesh.create_cube()}
+    if lod:
+        ball = port_core.Mesh.create_sphere("Ball", segments=16, rings=12)
+        ball.add_lod(port_core.Mesh.create_sphere("Ball_l1", segments=8,
+                                                  rings=6), 0.05)
+        ball.add_lod(port_core.Mesh.create_sphere("Ball_l2", segments=5,
+                                                  rings=4), 0.01)
+        meshes["Ball"] = ball
+    rng = np.random.default_rng(3)
+    extras, tex_index = {}, -1
+    if rich:
+        mgr = BindlessTextureManager(device=device)
+        checker = np.zeros((16, 16, 4), np.uint8)
+        yy, xx = np.mgrid[0:16, 0:16]
+        checker[..., 0] = ((yy // 4 + xx // 4) % 2) * 255
+        checker[..., 1] = 128
+        checker[..., 2] = 255 - checker[..., 0]
+        checker[..., 3] = 255
+        tex_index = mgr.add_sampled_image(TextureData(16, 16, checker))
+        extras["pool"] = mgr.pool()
+        extras["lights"] = torch.from_numpy(np.stack([
+            GpuLight.from_point_light(PointLight(
+                position=np.array(p, np.float32), intensity=3.0, radius=8.0,
+                color=np.array(c, np.float32))).flat()
+            for p, c in (((2.0, 2.0, 2.0), (1, 0.3, 0.2)),
+                         ((-2.0, 1.0, -1.0), (0.2, 0.4, 1.0)))
+        ]).astype(np.float32)).to(device)
+    items = []
+    for i in range(n_cubes):
+        m = np.eye(4, dtype=np.float32)
+        m[:3, 3] = (rng.random(3) - 0.5) * 8.0
+        m[:3, :3] *= 0.6
+        mu = MaterialUniform.default()
+        alpha = 0.5 if (rich and i == 1) else 1.0
+        mu.base_color_factor = np.array([*rng.random(3), alpha], np.float32)
+        if rich and i % 2 == 0:
+            mu.base_color_index = tex_index
+        key = "Ball" if (lod and i % 3 == 0) else "Cube"
+        items.append(DrawItem(mesh_key=key, model=m, material=mu))
+    built = build_scene(items, meshes, device)
+    models = build_models(items, built.buffers.num_draws)
+    cam = Camera.new([6.0, 4.0, 8.0], [0, 0, 0], 4 / 3)
+    view, proj = cam.view_matrix(), cam.projection_matrix()
+    ld = np.array([-0.35, -1.0, -0.25], np.float32)
+    host = dict(
+        view_proj=(proj @ view).astype(np.float32),
+        camera_pos=np.asarray(cam.position, np.float32),
+        light_direction=(ld / np.linalg.norm(ld)).astype(np.float32),
+        light_color=np.full(3, 1.5, np.float32),
+        ambient_color=np.full(3, 0.35, np.float32),
+        light_space_matrix=directional_light_matrix(ld, [0, 0, 0], 10.0),
+        models=models,
+        view=view.astype(np.float32),
+        projection=proj.astype(np.float32),
+    )
+    if rich:
+        host["cascade_matrices"] = np.stack([
+            directional_light_matrix(ld, [0, 0, 0], 6.0),
+            directional_light_matrix(ld, [0, 0, 0], 12.0),
+        ]).astype(np.float32)
+        host["cascade_splits"] = np.array([6.0, 30.0, 0.0, 0.0], np.float32)
+    uni = FrameUniforms(**{k: torch.from_numpy(np.asarray(v, np.float32))
+                           .to(device) for k, v in host.items()})
+    if rich:
+        return built.buffers, uni, extras
+    return built.buffers, uni
+
+
+def example05_config(n_devices: int):
+    """examples/05_multichip.py's FrameConfig for an n-band mesh: 512 x
+    max(16 n, 384), 16x128 tiles with K=64, a shadow map of whole 16-row
+    tiles per band; its scene is example_scene(n_cubes=12)."""
+    from .frame import FrameConfig
+
+    n = n_devices
+    return FrameConfig(
+        width=512, height=max(16 * n, 384), tile_h=16, tile_w=128,
+        max_tris_per_tile=64,
+        shadow_resolution=16 * n * max(1, 256 // (16 * n)),
+        shadow_tile=16, shadow_max_tris_per_tile=64,
+    )
+
+
+def example09_config():
+    """examples/09_animation_farm.py's FrameConfig: 256x192, 16x128 tiles
+    with K=64, a 256^2 shadow map, HDR post with 3 bloom mips, TAA."""
+    from .frame import FrameConfig
+
+    return FrameConfig(
+        width=256, height=192, tile_h=16, tile_w=128, max_tris_per_tile=64,
+        shadow_resolution=256, shadow_tile=64, shadow_max_tris_per_tile=64,
+        post_enabled=True, bloom_mips=3, reinhard=False, taa_enabled=True,
+    )
+
+
+def example09_uniforms(uni0, frame_idx: int, total: int, width=256,
+                       height=192):
+    """Frame `frame_idx` of example 09's orbit of `total` frames (radius 8,
+    height 4) as uniforms over example_scene(n_cubes=12)'s, on their
+    device."""
+    th = 2 * np.pi * frame_idx / total
+    pos = np.array([8 * np.cos(th), 4.0, 8 * np.sin(th) + 1e-4], np.float32)
+    cam = Camera.new(pos, [0, 0, 0], width / height)
+    view, proj = cam.view_matrix(), cam.projection_matrix()
+
+    def dev(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(
+            uni0.models.device)
+
+    return uni0._replace(view_proj=dev(proj @ view), camera_pos=dev(pos),
+                         view=dev(view), projection=dev(proj))
+
+
+def example09_taa(frame_idx: int):
+    """Example 09's TaaParams of frame `frame_idx`: history weight 0.9 (0 on
+    the first frame), colour clamp on, velocity rejection off, no jitter."""
+    from ..ops.taa import TaaParams
+
+    return TaaParams(
+        blend_factor=np.float32(0.0 if frame_idx == 0 else 0.9),
+        color_clamp=np.float32(1.0), velocity_rejection=np.float32(0.0),
+        jitter=np.zeros(2, np.float32), prev_jitter=np.zeros(2, np.float32))
+
+
+# examples/10_mega_instancing.py's default scene.
+MEGA_INSTANCES = 10_000
+MEGA_SPHERE = (98, 49)  # segments, rings: 4,950 vertices, 9,604 triangles
+
+
+def mega_instancing_config(tris_per_mesh: int, **cfg_overrides) -> dict:
+    """Example 10's RendererConfig keywords: 8x128 tiles, K=2048, no
+    shadows, the "nearest" drop policy, and about 3M triangles a chunk."""
+    return {**dict(tile_h=8, max_tris_per_tile=2048, shadows_enabled=False,
+                   max_draws_per_chunk=max(1, int(3e6 / tris_per_mesh)),
+                   binning_policy="nearest"), **cfg_overrides}
+
+
+def mega_instancing_commands(n: int = MEGA_INSTANCES):
+    """-> (commands, extent): example 10's instances on a cube grid of side
+    ceil(n^(1/3)), spaced 1.3 and scaled 0.45, mesh handle 0, material 1."""
+    side = int(round(n ** (1 / 3)))
+    while side**3 < n:
+        side += 1
+    base = np.eye(4, dtype=np.float32)
+    base[:3, :3] *= 0.45
+    cmds = []
+    for i in range(n):
+        m = base.copy()
+        z, rem = divmod(i, side * side)
+        y, x = divmod(rem, side)
+        m[:3, 3] = [(x - side / 2) * 1.3, (y - side / 2) * 1.3,
+                    (z - side / 2) * 1.3]
+        cmds.append(RenderCommand(mesh=0, transform=m, material=1))
+    return cmds, side * 1.3
+
+
+def build_mega_instancing_renderer(width, height, device, n=MEGA_INSTANCES,
+                                   **cfg_overrides):
+    """-> (renderer, surface, camera, triangles) of example 10's default
+    frame: n instances of the 98x49 UV sphere through the chunked path
+    (312 draws a chunk: 33 chunks at n = 10,000)."""
+    mesh = port_core.Mesh.create_sphere("heavy", segments=MEGA_SPHERE[0],
+                                        rings=MEGA_SPHERE[1])
+    tris = len(mesh.indices) // 3
+    surface = HeadlessSurface(width, height)
+    r = Renderer(surface, RendererConfig(
+        **mega_instancing_config(tris, **cfg_overrides)), device=device)
+    r.register_mesh_handle(0, mesh)
+    r.register_material_handle(1, Material(color=(0.3, 0.55, 0.8, 1.0),
+                                           roughness=0.5))
+    cmds, extent = mega_instancing_commands(n)
+    r.submit_render_commands(cmds)
+    cam = Camera.new([extent, extent * 0.8, extent * 1.4], [0, 0, 0],
+                     width / height)
+    cam.far = extent * 6
+    return r, surface, cam, n * tris

@@ -27,7 +27,11 @@ the second. The shadow pass is its own function, `shadow_program`
 (front-cull setup -> binning -> depth-only raster, with the alpha test's
 two-layer peel at a 0.1 cutoff; once per cascade with cascaded shadow
 maps), so the renderer can cache the map across frames of a static scene.
-Every raster goes through
+With a `BandSpec` (parallel/sharded.py) `render_band` and
+`shadow_program` render one horizontal band of the frame or of the shadow
+map: only the row offsets change (`band_extent`, `shadow_band`).
+`merge_band_outputs` and `merge_shadows` composite the renders of draw-list
+chunks by depth (the renderer's chunked frame). Every raster goes through
 ops/raster_cuda.py:rasterize: a CUDA kernel on the card.
 
 PyTorch runs eagerly, so there is no program cache: the FrameConfig only
@@ -40,6 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -327,6 +332,72 @@ def _keep_score(cfg: FrameConfig, setup):
     return None
 
 
+class BandSpec(NamedTuple):
+    """Screen-space banding: this call renders band `index` of `n`
+    horizontal bands of the frame (parallel/sharded.py). None = the full
+    frame."""
+
+    index: int
+    n: int
+
+
+def _band_unit(cfg: FrameConfig) -> int:
+    """Smallest presentation-row granularity a band may start at: its
+    render rows (u * ssaa_y) align to raster tiles and, with Forward+ on,
+    to light-culling tiles, so the bands' tile grids are disjoint."""
+    sy = ssaa_factors(cfg)[1]
+    need = cfg.tile_h
+    if cfg.lights_enabled:
+        need = need * cfg.light_tile_size // math.gcd(need, cfg.light_tile_size)
+    return need // math.gcd(need, sy)
+
+
+def band_rows(cfg: FrameConfig, n: int) -> int:
+    """Presentation rows per band (the height padded up to divide)."""
+    u = _band_unit(cfg)
+    return -(-cfg.height // (n * u)) * u
+
+
+def band_render_rows(cfg: FrameConfig, n: int) -> int:
+    """Internal rows per band under TAAU (render_scale != 1): the bands
+    split the scaled raster rows, padded up to divide and to align with the
+    raster and light tile grids (SSAA is exclusive here, so the band unit
+    is the render unit)."""
+    _, rh = internal_render_size(cfg.width, cfg.height, cfg.render_scale)
+    u = _band_unit(cfg)
+    return -(-rh // (n * u)) * u
+
+
+def band_extent(cfg: FrameConfig, band: Optional[BandSpec]):
+    """(y0r, render rows, presentation rows) of a band: its first global
+    render row and its row counts. At presentation scale 1 a band has
+    band_rows rows (times ssaa_y at the sample rate); under TAAU the bands
+    split the internal rows."""
+    rh = raster_size(cfg)[1]
+    if band is None:
+        return 0, rh, cfg.height if cfg.render_scale == 1.0 else rh
+    if cfg.render_scale == 1.0:
+        bhp = band_rows(cfg, band.n)
+        bhr = bhp * ssaa_factors(cfg)[1]
+    else:
+        bhr = bhp = band_render_rows(cfg, band.n)
+    return band.index * bhr, bhr, bhp
+
+
+def shadow_band(cfg: FrameConfig, band: Optional[BandSpec]):
+    """(rows, first row) of a band of the shadow map; raises when the map
+    does not divide into band.n bands of whole shadow-tile rows."""
+    s = cfg.shadow_resolution
+    if band is None:
+        return s, 0
+    if s % (band.n * cfg.shadow_rows) != 0:
+        raise ValueError(
+            f"shadow_resolution {s} must divide into {band.n} bands"
+            f" of {cfg.shadow_rows}-row tiles")
+    rows = s // band.n
+    return rows, band.index * rows
+
+
 def shadow_world(scene: SceneBuffers, models: torch.Tensor) -> torch.Tensor:
     """World positions for the shadow pass, computed with the same
     operations as geometry.transform_vertices' world transform."""
@@ -360,10 +431,13 @@ def models_from_trs(t: torch.Tensor, q: torch.Tensor,
 
 def shadow_pass_bins(cfg: FrameConfig, scene: SceneBuffers,
                      world: torch.Tensor, light_matrix: torch.Tensor,
-                     tri_valid: Optional[torch.Tensor] = None):
-    """Front-cull setup and binning of the shadow pass -> (setup, bins).
-    `tri_valid` (default: the scene's) is the LOD-masked validity."""
+                     tri_valid: Optional[torch.Tensor] = None,
+                     band: Optional[BandSpec] = None):
+    """Front-cull setup and binning of the shadow pass -> (setup, bins),
+    over the map's rows of `band` (default: the whole map). `tri_valid`
+    (default: the scene's) is the LOD-masked validity."""
     s = cfg.shadow_resolution
+    rows, sy0 = shadow_band(cfg, band)
     clip_l = geometry.transform_points(light_matrix, world)
     setup = geometry.triangle_setup(
         clip_l, scene.tri_v,
@@ -371,8 +445,9 @@ def shadow_pass_bins(cfg: FrameConfig, scene: SceneBuffers,
         cull_mode="front",
     )
     bins = _binner(cfg, scene.num_triangles)(
-        setup.bbox, setup.valid, s, s, cfg.shadow_rows, cfg.shadow_tile,
-        cfg.shadow_max_tris_per_tile, keep_score=_keep_score(cfg, setup),
+        setup.bbox, setup.valid, rows, s, cfg.shadow_rows, cfg.shadow_tile,
+        cfg.shadow_max_tris_per_tile, y0=sy0,
+        keep_score=_keep_score(cfg, setup),
     )
     return setup, bins
 
@@ -381,25 +456,31 @@ def shadow_program(cfg: FrameConfig, scene: SceneBuffers,
                    models: torch.Tensor, light_matrix: torch.Tensor,
                    pool: Optional[TexturePool] = None,
                    cascade_matrices: Optional[torch.Tensor] = None,
-                   tri_valid: Optional[torch.Tensor] = None):
+                   tri_valid: Optional[torch.Tensor] = None,
+                   band: Optional[BandSpec] = None):
     """The shadow pass: a depth-only raster of the scene from the light.
     With the alpha test it peels two layers and a textured surface whose
     base alpha is below 0.1 casts no shadow. Returns (shadow_map (S, S),
     shadow_overflow ()); with cfg.shadow_cascades > 1 one pass, and one
     launch of the raster, per cascade matrix: ((C, S, S), the largest
     overflow). `tri_valid` replaces the scene's triangle validity (a LOD
-    scene's camera-dependent mask)."""
+    scene's camera-dependent mask). With `band`, only that band's rows of
+    the map: (S / n, S) or (C, S / n, S), and its own overflow."""
     alpha_shadow = cfg.alpha_test and cfg.textured and pool is not None
     s = cfg.shadow_resolution
+    rows, sy0 = shadow_band(cfg, band)
 
     def depth_only(matrix):
-        setup, bins = shadow_pass_bins(cfg, scene, world, matrix, tri_valid)
-        vis = rasterize(setup, bins, s, s, cfg.shadow_rows, cfg.shadow_tile,
+        setup, bins = shadow_pass_bins(cfg, scene, world, matrix, tri_valid,
+                                       band)
+        vis = rasterize(setup, bins, rows, s, cfg.shadow_rows,
+                        cfg.shadow_tile, y0=sy0,
                         layers=2 if alpha_shadow else 1)
         if alpha_shadow:
             vis = resolve_alpha_test(
                 vis, setup, scene.tri_v, scene.tri_draw, scene.materials,
-                scene.uv, pool, cutoff_override=0.1, vert_uid=scene.vert_uid,
+                scene.uv, pool, cutoff_override=0.1, y0=sy0,
+                vert_uid=scene.vert_uid,
             )
         return vis.depth, bins.overflow
 
@@ -441,14 +522,15 @@ def lod_tri_mask(cfg: FrameConfig, scene: SceneBuffers, uni: FrameUniforms):
         return (scene.tri_lod.long() == sel[tri_draw]) & draw_live[tri_draw]
 
 
-def main_pass_bins(cfg: FrameConfig, scene: SceneBuffers, uni: FrameUniforms,
-                   tri_valid: Optional[torch.Tensor] = None,
-                   prev_depth: Optional[torch.Tensor] = None):
-    """Vertex stage, frustum and Hi-Z culling, back-cull setup and binning
-    of the main pass, at the internal raster size -> (verts, setup, bins,
-    visible_draws or None). `tri_valid` (default: the scene's) is the
-    LOD-masked validity; `prev_depth` is the previous frame's (H, W) depth
-    at the presentation size, whose pyramid the Hi-Z test reads when
+def main_pass_setup(cfg: FrameConfig, scene: SceneBuffers,
+                    uni: FrameUniforms,
+                    tri_valid: Optional[torch.Tensor] = None,
+                    prev_depth: Optional[torch.Tensor] = None):
+    """Vertex stage, frustum and Hi-Z culling and back-cull setup of the
+    main pass, at the internal raster size -> (verts, setup, visible_draws
+    or None). `tri_valid` (default: the scene's) is the LOD-masked
+    validity; `prev_depth` is the previous frame's (H, W) depth at the
+    presentation size, whose pyramid the Hi-Z test reads when
     cfg.occlusion_culling."""
     rw, rh = raster_size(cfg)
     with record_function("pass_vertex"):
@@ -474,10 +556,23 @@ def main_pass_bins(cfg: FrameConfig, scene: SceneBuffers, uni: FrameUniforms,
         setup = geometry.triangle_setup(
             tv.clip, scene.tri_v, tri_valid, rw, rh, cull_mode="back",
         )
+    return tv, setup, visible_draws
+
+
+def main_pass_bins(cfg: FrameConfig, scene: SceneBuffers, uni: FrameUniforms,
+                   tri_valid: Optional[torch.Tensor] = None,
+                   prev_depth: Optional[torch.Tensor] = None,
+                   band: Optional[BandSpec] = None):
+    """main_pass_setup and the binning -> (verts, setup, bins,
+    visible_draws or None). With `band`, the bins cover that band's rows
+    (band_extent); everything before the binning is the whole frame's."""
+    tv, setup, visible_draws = main_pass_setup(cfg, scene, uni, tri_valid,
+                                               prev_depth)
+    y0r, bhr, _ = band_extent(cfg, band)
     with record_function("pass_binning"):
         bins = _binner(cfg, scene.num_triangles)(
-            setup.bbox, setup.valid, rh, rw, cfg.tile_h,
-            cfg.tile_w, cfg.max_tris_per_tile,
+            setup.bbox, setup.valid, bhr, raster_size(cfg)[0], cfg.tile_h,
+            cfg.tile_w, cfg.max_tris_per_tile, y0=y0r,
             keep_score=_keep_score(cfg, setup),
         )
     return tv, setup, bins, visible_draws
@@ -501,12 +596,19 @@ def render_band(
     lights: Optional[torch.Tensor] = None,  # (L, 16) packed GpuLight rows
     prev_depth: Optional[torch.Tensor] = None,  # (H, W) last frame's depth
     ibl=None,  # ops/ibl.EnvironmentIBL, read when cfg.ibl_enabled
+    band: Optional[BandSpec] = None,
 ) -> BandOutputs:
     """Vertex stage -> LOD -> culling -> raster -> shade over the full
-    frame. `shadow` is the shadow pass's output; it must be given exactly
-    when cfg.shadow_enabled and not cfg.lod_enabled: a LOD scene's shadow
-    pass takes the camera-dependent level mask, so it runs here. `pool` is
-    sampled when cfg.textured, `lights` lit when cfg.lights_enabled."""
+    frame, or over the rows of `band` (band_extent): then only the row
+    offsets change, and the vertex stage, LOD and culling (Hi-Z over the
+    whole previous depth) are the full frame's. `shadow` is the shadow
+    pass's output, the whole map; it must be given exactly when
+    cfg.shadow_enabled and not cfg.lod_enabled: a LOD scene's shadow pass
+    takes the camera-dependent level mask, so it runs here, over the whole
+    map in every band. `pool` is sampled when cfg.textured, `lights` lit
+    when cfg.lights_enabled. In band mode the colour, depth and velocity
+    cover the band's rows and the scalars are the band's own
+    (parallel/sharded.py sums and maxes them)."""
     if not 2 <= cfg.transparency_layers <= 8:
         raise ValueError(
             f"transparency_layers {cfg.transparency_layers} outside [2, 8]"
@@ -517,6 +619,7 @@ def render_band(
     edge = edge_msaa(cfg)
     sx, sy = ssaa_factors(cfg)
     rw, rh = raster_size(cfg)
+    y0r, bhr, bhp = band_extent(cfg, band)
     tri_valid = scene.tri_valid
     if cfg.lod_enabled:
         tri_valid = tri_valid & lod_tri_mask(cfg, scene, uni)
@@ -526,15 +629,16 @@ def render_band(
                                     uni.cascade_matrices, tri_valid)
     shadow_map, shadow_overflow = shadow if shadow is not None else (None, None)
     tv, setup, bins, visible_draws = main_pass_bins(cfg, scene, uni,
-                                                    tri_valid, prev_depth)
+                                                    tri_valid, prev_depth,
+                                                    band)
     blend = cfg.alpha_blend and cfg.shading == "pbr"
     alpha_main = (cfg.alpha_test and cfg.textured and pool is not None
                   and not blend)
     with record_function("pass_raster"):
         peel_layers = (cfg.transparency_layers if blend
                        else 2 if alpha_main else 1)
-        vis = rasterize(setup, bins, rh, rw, cfg.tile_h, cfg.tile_w,
-                        layers=peel_layers)
+        vis = rasterize(setup, bins, bhr, rw, cfg.tile_h, cfg.tile_w,
+                        y0=y0r, layers=peel_layers)
         if blend:
             # Iterated peel: each pass keeps only surfaces strictly behind
             # the previous pass's deepest kept layer, so appending keeps the
@@ -542,13 +646,13 @@ def render_band(
             for _ in range(cfg.transparency_passes - 1):
                 floor, _ = vis.layer(vis.num_layers - 1)
                 vis = _concat_vis_layers(vis, rasterize(
-                    setup, bins, rh, rw, cfg.tile_h, cfg.tile_w,
+                    setup, bins, bhr, rw, cfg.tile_h, cfg.tile_w, y0=y0r,
                     layers=peel_layers, depth_floor=floor,
                 ))
         if alpha_main:
             vis = resolve_alpha_test(
                 vis, setup, scene.tri_v, scene.tri_draw, scene.materials,
-                scene.uv, pool, vert_uid=scene.vert_uid,
+                scene.uv, pool, y0=y0r, vert_uid=scene.vert_uid,
             )
 
     # Last frame's clip position of every vertex, for the motion vectors:
@@ -564,7 +668,7 @@ def render_band(
         with record_function("pass_gbuffer"):
             return interpolate_gbuffer(
                 tri_id, setup, scene.tri_v, scene.tri_draw, tv, scene.uv,
-                scene.color, vert_uid=scene.vert_uid,
+                scene.color, y0=y0r, vert_uid=scene.vert_uid,
                 prev_clip=prev_clip if motion else None,
                 fb_height=rh, fb_width=rw, **kw,
             )
@@ -580,6 +684,7 @@ def render_band(
                 lights, uni.view, torch.linalg.inv_ex(uni.projection).inverse,
                 vis.depth, rw, rh,
                 max_per_tile=cfg.max_lights_per_tile, tile=cfg.light_tile_size,
+                tile_y0=y0r // cfg.light_tile_size,
             )
             # The loop's trip count is the frame's largest tile count: one
             # host sync per frame, shared by every shaded layer. Slots past
@@ -626,14 +731,16 @@ def render_band(
             plan = msaa_edge.classify(vis.tri_id, vis.depth, sy, sx)
         gbuf = gbuffer(plan.primary_tid, deriv_step=(float(sx), float(sy)),
                        pixel_xy=msaa_edge.center_pixel_xy(
-                           cfg.height, cfg.width, sy, sx, 0, dev))
+                           bhp, cfg.width, sy, sx, y0r, dev))
         color_c = shade(gbuf, pixel_xy=msaa_edge.center_tile_xy(
-            cfg.height, cfg.width, sy, sx, dev))
+            bhp, cfg.width, sy, sx, dev))
         velocity = gbuf.velocity
-        cap = msaa_edge.edge_capacity(cfg.height * cfg.width,
+        # A worklist per band, sized by the band's pixels.
+        cap = msaa_edge.edge_capacity(bhp * cfg.width,
                                       cfg.msaa_edge_capacity, sx * sy)
         with record_function("pass_gbuffer"):
-            wl = msaa_edge.build_worklist(vis.tri_id, plan, cap, sy, sx)
+            wl = msaa_edge.build_worklist(vis.tri_id, plan, cap, sy, sx,
+                                          y0r=y0r)
         gbuf_e = gbuffer(wl.tid, motion=False, pixel_xy=(wl.px, wl.py))
         color_e = shade(gbuf_e, pixel_xy=(wl.tile_px, wl.tile_py))
         with record_function("pass_resolve"):
@@ -660,19 +767,66 @@ def render_band(
     if sx > 1 or sy > 1:
         # The resolve: the depth's min; under SSAA also the colour's and
         # the velocity's box mean (the edge path's are per pixel already).
-        h, w = cfg.height, cfg.width
+        h, w = bhp, cfg.width
         with record_function("pass_resolve"):
             depth = depth.reshape(h, sy, w, sx).amin((1, 3))
             if not edge:
                 color = color.reshape(h, sy, w, sx, 3).mean((1, 3))
                 if velocity is not None:
                     velocity = velocity.reshape(h, sy, w, sx, 2).mean((1, 3))
+    # Covered samples of the frame's rows only: a band's padding past the
+    # frame's last row is cropped away, so it counts nothing (the
+    # reference's band counts it; ROADMAP.md C).
+    in_frame = vis.tri_id[:max(rh - y0r, 0)]
     return BandOutputs(
         color=color, depth=depth, velocity=velocity, shadow_map=shadow_map,
-        covered=(vis.tri_id >= 0).sum(dtype=torch.int32),
+        covered=(in_frame >= 0).sum(dtype=torch.int32),
         overflow=bins.overflow, shadow_overflow=shadow_overflow,
         visible_draws=visible_draws, msaa_edge_overflow=msaa_edge_overflow,
     )
+
+
+def _max_or_either(a, b):
+    """The larger of two optional scalars (either alone when one is None)."""
+    if a is None or b is None:
+        return a if b is None else b
+    return torch.maximum(a, b)
+
+
+def merge_band_outputs(a: BandOutputs, b: BandOutputs) -> BandOutputs:
+    """Depth-test composite of two opaque chunk renders of the same frame
+    (b later in draw order: ties keep a, the submission-order rule of the
+    raster's depth test). Shadow maps take their min, overflows their max;
+    covered counts, visible draws and edge overflows sum (an overlap
+    counts once per chunk)."""
+    win_b = b.depth < a.depth
+    velocity = None
+    if a.velocity is not None and b.velocity is not None:
+        velocity = torch.where(win_b[..., None], b.velocity, a.velocity)
+    shadow_map = None
+    if a.shadow_map is not None and b.shadow_map is not None:
+        shadow_map = torch.minimum(a.shadow_map, b.shadow_map)
+
+    def total(x, y):
+        return x + y if x is not None and y is not None else None
+
+    return BandOutputs(
+        color=torch.where(win_b[..., None], b.color, a.color),
+        depth=torch.minimum(a.depth, b.depth),
+        velocity=velocity,
+        shadow_map=shadow_map,
+        covered=a.covered + b.covered,
+        overflow=torch.maximum(a.overflow, b.overflow),
+        shadow_overflow=_max_or_either(a.shadow_overflow, b.shadow_overflow),
+        visible_draws=total(a.visible_draws, b.visible_draws),
+        msaa_edge_overflow=total(a.msaa_edge_overflow, b.msaa_edge_overflow),
+    )
+
+
+def merge_shadows(a: tuple, b: tuple) -> tuple:
+    """Two chunks' (shadow_map, shadow_overflow) -> the scene's: depth maps
+    compose under min, the overflow is the larger."""
+    return torch.minimum(a[0], b[0]), torch.maximum(a[1], b[1])
 
 
 def _resize(img: torch.Tensor, height: int, width: int, mode: str):

@@ -12,7 +12,8 @@ updates (`update_transforms`, `update_transforms_trs`, `update_material`),
 (`set_diagnostics_mode`, `toggle_diagnostics`, `diagnostics`, the text
 overlay and the overflow taint), `request_swapchain_resize` /
 `wait_resize`, `frame_cost_analysis`, `profile_passes`,
-`render_frame(view, proj, camera_pos)` and `read_back`. State
+`render_frame(view, proj, camera_pos)` and `read_back`; a draw list longer
+than `max_draws_per_chunk` renders in chunks (`prepare_chunked_frame`). State
 is host registries, the bindless texture manager (a mesh's maps get pool indices
 when it is registered), the packed scene on the device (rebuilt when the
 draw list changes; a resubmit of the same handles only moves the models),
@@ -25,9 +26,9 @@ jitter sequence, last frame's unjittered matrices and models, and the
 history image, which stays on the device between frames; the previous
 frame's depth for Hi-Z occlusion culling; and the IBL bundle.
 
-Every reference option, method and feature that this port does not run yet
-raises NotImplementedError naming its ROADMAP.md item; none is silently
-ignored. The reference's XLA-only knobs are accepted and have no effect.
+Every reference option, method and feature runs (UNPORTED_METHODS here
+and render/__init__.py's UNPORTED_NAMES are empty). The reference's
+XLA-only knobs are accepted and have no effect.
 """
 
 from __future__ import annotations
@@ -71,8 +72,12 @@ from .frame import (
     FrameOutputs,
     FrameUniforms,
     PostParams,
+    finalize_frame,
     internal_render_size,
+    merge_band_outputs,
+    merge_shadows,
     models_from_trs,
+    render_band,
     render_frame_program,
     shadow_program,
 )
@@ -87,16 +92,6 @@ FRAME_LIGHT_DIR = np.array([-0.35, -1.0, -0.25], np.float32)
 FRAME_LIGHT_COLOR = np.full(3, 1.5, np.float32)
 FRAME_AMBIENT = np.full(3, 0.35, np.float32)
 
-
-def _unported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
-
-
-# Reference options the port does not run yet: (default, ROADMAP item). A
-# value other than the default raises.
-_UNPORTED_OPTIONS = {
-    "max_draws_per_chunk": (None, "A16, chunked geometry"),
-}
 
 # The reference's XLA compilation, tunnel and debugging knobs: accepted,
 # validated as the reference validates them, and without effect here.
@@ -171,6 +166,9 @@ class RendererConfig:
     # A byte budget for the texture pool: mip residency is then fitted to
     # it (render/bindless.py); None keeps every mip resident.
     texture_budget_bytes: Optional[int] = None
+    # Chunked geometry: a draw list longer than this renders in groups of
+    # this many draws, each through the frame's raster and shading stage,
+    # depth-composited (opaque scenes only; see _render_frame_chunked).
     max_draws_per_chunk: Optional[int] = None
     pipeline_mode: str = "tiered"
     cold_compile_effort: Optional[float] = -1.0
@@ -178,9 +176,6 @@ class RendererConfig:
     bg_compile: str = "subprocess"
 
     def __post_init__(self):
-        for name, (default, item) in _UNPORTED_OPTIONS.items():
-            if getattr(self, name) != default:
-                _unported(f"RendererConfig.{name}={getattr(self, name)!r}", item)
         if self.pipeline_mode not in ("tiered", "split", "fused"):
             raise ValueError(f"pipeline_mode {self.pipeline_mode!r} not in "
                              "('tiered', 'split', 'fused')")
@@ -298,6 +293,14 @@ class Renderer:
         self._ibl = None
 
         self._scene: Optional[BuiltScene] = None
+        # Chunked geometry (config.max_draws_per_chunk): the draw groups,
+        # their scenes (groups of equal meshes and materials share one
+        # scene's buffers), their models on the device, and last frame's
+        # models for TAA. _scene is None while they are set.
+        self._chunk_items: Optional[List[List[DrawItem]]] = None
+        self._chunk_scenes: Optional[List[BuiltScene]] = None
+        self._chunk_models: Optional[List[torch.Tensor]] = None
+        self._prev_chunk_models: Optional[List[torch.Tensor]] = None
         self._scene_dirty = True
         self._scene_epoch = 0  # one per scene build
         self._models: Optional[torch.Tensor] = None  # (D_pad, 4, 4), device
@@ -415,7 +418,8 @@ class Renderer:
                 self._mat_registry_version,
             )
             if (sig == self._submit_sig and not self._scene_dirty
-                    and self._scene is not None
+                    and (self._scene is not None
+                         or self._chunk_scenes is not None)
                     and len(self.draw_items) == len(commands)):
                 self.update_transforms(np.stack(
                     [np.asarray(c.transform, np.float32) for c in commands]))
@@ -474,6 +478,19 @@ class Renderer:
             if arr.shape != (n, 4, 4):
                 raise InvalidOperation(
                     f"transforms shape {arr.shape} != ({n}, 4, 4)")
+        if self._chunk_scenes is not None and not self._scene_dirty:
+            # A chunked scene: the items hold the models; every chunk's
+            # models go up again.
+            if isinstance(transforms, dict):
+                for i, m in rows.items():
+                    items[i].model = m
+            else:
+                for i, it in enumerate(items):
+                    it.model = arr[i]
+            self._upload_chunk_models()
+            self._models_epoch += 1
+            self._refresh_chunked_bounds()
+            return
         if self._scene is None or self._scene_dirty:
             if isinstance(transforms, dict):
                 for i, m in rows.items():
@@ -587,6 +604,11 @@ class Renderer:
             it = self.draw_items[i]
             it.material = self._material_uniform(
                 material, self.mesh_registry[it.mesh_key])
+        if self._chunk_scenes is not None and not self._scene_dirty:
+            # The packed rows live in the chunks' scenes, which groups may
+            # share: the next frame rebuilds the chunks from the items.
+            self._scene_dirty = True
+            return
         if self._scene is None or self._scene_dirty:
             return  # the pending build packs the items
         mats = np.zeros((self._scene.buffers.num_draws, MATERIAL_RECORD_SIZE),
@@ -887,7 +909,9 @@ class Renderer:
         fs.frame_time_min_ms = self.frame_profiler.min_ms
         fs.frame_time_max_ms = self.frame_profiler.max_ms
         fs.draw_calls = draw_calls
-        fs.triangles = self._scene.num_triangles if self._scene else 0
+        fs.triangles = (self._scene.num_triangles if self._scene
+                        else sum(c.num_triangles
+                                 for c in self._chunk_scenes or ()))
         fs.total_frames = self.frame_count
         ms = self.diagnostics_state.memory_stats
         # Refreshed while diagnostics show, else once per 60 frames.
@@ -1073,6 +1097,8 @@ class Renderer:
         self._sync_item_models()
         scene = build_scene(items, self.mesh_registry, self.device)
         self._scene = scene
+        self._chunk_items = self._chunk_scenes = None  # leaving chunked mode
+        self._chunk_models = self._prev_chunk_models = None
         self._scene_dirty = False
         self._scene_epoch += 1
         self._shadow_cache = None
@@ -1089,11 +1115,9 @@ class Renderer:
         self.shadow_feature.auto_fit_bounds(scene.scene_center, scene.scene_radius)
         self.shadow_feature.before_frame(FeatureFrameContext())
 
-    def prepare_frame(self, view, proj, camera_pos) -> FrameInputs:
-        """Bring the device scene up to date and upload the frame's
-        uniforms and any moved models; everything render_frame's device
-        work reads. With TAA on, each call takes the next jitter of the
-        sequence."""
+    def _begin_frame(self) -> List[DrawItem]:
+        """Adopt a new extent and run the feature hooks -> the frame's draw
+        items."""
         size = self._pending_resize or self.surface.physical_size()
         self._pending_resize = None
         if size != (self._width, self._height):
@@ -1116,6 +1140,19 @@ class Renderer:
             transform=self.transform,
         ))
         self._last_frame_time = now
+        return items
+
+    def _chunked(self) -> bool:
+        """Whether the draw list renders in chunks (max_draws_per_chunk)."""
+        cpd = self.config.max_draws_per_chunk
+        return cpd is not None and len(self.draw_items) > cpd
+
+    def prepare_frame(self, view, proj, camera_pos) -> FrameInputs:
+        """Bring the device scene up to date and upload the frame's
+        uniforms and any moved models; everything render_frame's device
+        work reads. With TAA on, each call takes the next jitter of the
+        sequence."""
+        items = self._begin_frame()
         if self._scene_dirty or self._scene is None:
             self._build_scene(items)
         elif not self.draw_items:
@@ -1250,19 +1287,17 @@ class Renderer:
             start += a.size
         return out
 
-    def _external_shadow(self, inputs: FrameInputs) -> tuple:
-        """Render (or reuse) the shadow map. The key covers everything the
-        shadow pass reads: the shadow-shaping config, the geometry (scene
-        epoch), the transforms (the models epoch on the multi-draw path,
-        the raw matrix on the single-mesh path), the materials and the
-        texture pool (the alpha test samples them) and the light matrix,
-        or with CSM the cascade matrices. Those are fitted to the
-        unjittered camera, so the TAA jitter alone keeps the map."""
+    def _shadow_key(self, cfg: FrameConfig) -> tuple:
+        """What the shadow pass reads: the shadow-shaping config, the
+        geometry (scene epoch), the transforms (the models epoch on the
+        multi-draw path, the raw matrix on the single-mesh path), the
+        materials and the texture pool (the alpha test samples them) and
+        the light matrix, or with CSM the cascade matrices. Those are fitted
+        to the unjittered camera, so the TAA jitter alone keeps the map."""
         if self.draw_items:
             mkey = self._models_epoch
         else:
             mkey = np.ascontiguousarray(self.transform.model_matrix()).tobytes()
-        cfg = inputs.config
         if cfg.shadow_cascades > 1:
             count = self.csm_manager.config.cascade_count
             lkey = self.csm_manager.gpu_data().light_matrices[:count].tobytes()
@@ -1280,18 +1315,26 @@ class Renderer:
                  cfg.binning_policy, cfg.textured, cfg.alpha_test)
         sampled = ((self._materials_epoch, self.bindless.version)
                    if cfg.alpha_test else None)
-        key = (shape, self._scene_epoch, mkey, lkey, sampled)
+        return (shape, self._scene_epoch, mkey, lkey, sampled)
+
+    def _cached_shadow(self, cfg: FrameConfig, render) -> tuple:
+        """The shadow map under _shadow_key: the cached one, or render()'s
+        (shadow_map, shadow_overflow), which is then kept."""
+        key = self._shadow_key(cfg)
         cache = self._shadow_cache
         if cache is not None and cache[0] == key:
             return cache[1], cache[2]
         self._shadow_cache = None  # free the stale map before the new one
-        sm, sof = shadow_program(
-            cfg, inputs.scene.buffers, inputs.uniforms.models,
-            inputs.uniforms.light_space_matrix, inputs.pool,
-            inputs.uniforms.cascade_matrices,
-        )
+        sm, sof = render()
         self._shadow_cache = (key, sm, sof)
         return sm, sof
+
+    def _external_shadow(self, inputs: FrameInputs) -> tuple:
+        """Render (or reuse) the shadow map of the frame's scene."""
+        uni = inputs.uniforms
+        return self._cached_shadow(inputs.config, lambda: shadow_program(
+            inputs.config, inputs.scene.buffers, uni.models,
+            uni.light_space_matrix, inputs.pool, uni.cascade_matrices))
 
     def render_frame(self, view, proj, camera_pos) -> FrameOutputs:
         """Render and present one frame. A LOD scene renders its shadow map
@@ -1302,6 +1345,8 @@ class Renderer:
         the stats text is blended onto the image on the device before its
         copy to the host."""
         start = time.perf_counter()
+        if self._chunked():
+            return self._render_frame_chunked(view, proj, camera_pos, start)
         inputs = self.prepare_frame(view, proj, camera_pos)
         cfg = inputs.config
         shadow = (
@@ -1333,6 +1378,12 @@ class Renderer:
             self._prev_depth = outputs.depth
         self._prev_view_proj = self._unjittered_view_proj
         self._prev_models = inputs.uniforms.models
+        return self._present(outputs, start)
+
+    def _present(self, outputs: FrameOutputs, start: float) -> FrameOutputs:
+        """Composite the overlay, copy the image to the host (a blocking
+        copy: the frame has ended on the device when it returns), present
+        it and update the diagnostics."""
         if self.diagnostics_state.mode.overlay_enabled:
             self.overlay.composite(outputs.image,
                                    self.diagnostics_state.overlay_lines())
@@ -1344,6 +1395,229 @@ class Renderer:
         self._update_diagnostics(len(self.draw_items) or 1,
                                  (time.perf_counter() - start) * 1e3)
         return outputs
+
+    # ------------------------------------------------------------------
+    # Chunked geometry
+    # ------------------------------------------------------------------
+
+    def _build_chunk_scenes(self, groups: List[List[DrawItem]]) -> list:
+        """A BuiltScene per group of draws. Groups with equal (mesh,
+        material) sequences share the first one's device buffers, which
+        hold nothing that depends on the models (those ride the uniforms),
+        so a fleet of instances keeps one copy of the expansion maps; only
+        the world box is the group's own, from the shared local bounds with
+        build_scene's corner arithmetic."""
+        by_sig, scenes = {}, []
+        signs = np.array([[x, y, z] for x in (-1, 1) for y in (-1, 1)
+                          for z in (-1, 1)], np.float32)
+        for g in groups:
+            sig = tuple((it.mesh_key, it.packed_material().tobytes())
+                        for it in g)
+            tmpl = by_sig.get(sig)
+            if tmpl is None:
+                by_sig[sig] = build_scene(g, self.mesh_registry, self.device)
+                scenes.append(by_sig[sig])
+                continue
+            corners = (tmpl.draw_center_host[:, None, :]
+                       + tmpl.draw_extents_host[:, None, :] * signs[None])
+            models = np.stack([np.asarray(it.model, np.float32) for it in g])
+            wc = (np.einsum("dij,dcj->dci", models[:, :3, :3], corners)
+                  + models[:, None, :3, 3]).reshape(-1, 3)
+            lo = wc.min(axis=0).astype(np.float32)
+            hi = wc.max(axis=0).astype(np.float32)
+            center = ((lo + hi) * 0.5).astype(np.float32)
+            scenes.append(dataclasses.replace(
+                tmpl, scene_center=center,
+                scene_radius=max(float(np.linalg.norm(hi - center)), 1e-3),
+                scene_lo=lo, scene_hi=hi))
+        return scenes
+
+    def _upload_chunk_models(self) -> None:
+        """Every chunk's (D_pad, 4, 4) models from its items, on the device
+        (the previous frame's stay for TAA's motion vectors)."""
+        self._chunk_models = [
+            torch.from_numpy(build_models(g, s.buffers.num_draws)).to(
+                self.device)
+            for g, s in zip(self._chunk_items, self._chunk_scenes)]
+
+    def _fit_chunked_bounds(self, lo: np.ndarray, hi: np.ndarray) -> None:
+        center = ((lo + hi) * 0.5).astype(np.float32)
+        self.shadow_feature.auto_fit_bounds(
+            center, max(float(np.linalg.norm(hi - center)), 1e-3))
+
+    def _refresh_chunked_bounds(self) -> None:
+        """_refresh_scene_bounds for a chunked scene: the union of every
+        chunk's draws' world boxes (the same affine box arithmetic, so the
+        volume equals the unchunked scene's), unless set_scene_bounds
+        pinned it."""
+        if self.shadow_feature.bounds_pinned:
+            return
+        los, his = [], []
+        for g, sc in zip(self._chunk_items, self._chunk_scenes):
+            m = np.stack([np.asarray(it.model, np.float32) for it in g])
+            c = sc.draw_center_host[:len(g)]
+            e = sc.draw_extents_host[:len(g)]
+            wc = np.einsum("dij,dj->di", m[:, :3, :3], c) + m[:, :3, 3]
+            we = np.einsum("dij,dj->di", np.abs(m[:, :3, :3]), e)
+            los.append((wc - we).min(axis=0))
+            his.append((wc + we).max(axis=0))
+        self._fit_chunked_bounds(np.min(los, axis=0), np.max(his, axis=0))
+
+    def prepare_chunked_frame(self, view, proj, camera_pos) -> List[FrameInputs]:
+        """prepare_frame for a draw list longer than max_draws_per_chunk:
+        bring the chunks up to date (groups of that many draws, rebuilt
+        when the draw list changed) and upload the frame's uniforms once
+        -> one FrameInputs per chunk, each with its chunk's scene and
+        models. Refuses what the chunked frame cannot composite, with the
+        reference's messages."""
+        items = self._begin_frame()
+        self._sync_item_models()
+        if (self.lighting_feature.point_lights
+                or self.lighting_feature.spot_lights):
+            raise InvalidOperation(
+                "chunked geometry does not support Forward+ lights (tile "
+                "light culling needs the whole frame's depth)")
+        if self.msaa != MsaaPreset.OFF or self._render_scale != 1.0:
+            raise InvalidOperation(
+                "chunked geometry is exclusive with SSAA/render_scale")
+        if self.occlusion_culling:
+            raise InvalidOperation(
+                "chunked geometry does not support occlusion culling")
+        if self.csm_manager is not None:
+            raise InvalidOperation(
+                "chunked geometry supports the single shadow map only")
+        cpd = int(self.config.max_draws_per_chunk)
+        if (self._scene_dirty or self._chunk_scenes is None
+                or sum(map(len, self._chunk_items)) != len(items)):
+            groups = [items[i:i + cpd] for i in range(0, len(items), cpd)]
+            scenes = self._build_chunk_scenes(groups)
+            if any(sc.has_lods for sc in scenes):
+                raise InvalidOperation(
+                    "chunked geometry does not support LOD chains")
+            self._chunk_items, self._chunk_scenes = groups, scenes
+            self._upload_chunk_models()
+            self._prev_chunk_models = None
+            self._scene = None
+            self._scene_dirty = False
+            self._scene_epoch += 1
+            self._models_epoch += 1
+            self._material_flags = self._material_scan(items)
+            self._shadow_cache = None
+            # The union of the chunks' world boxes is the unchunked scene's
+            # box, so the auto-fitted shadow volume, and the image, are the
+            # unchunked frame's.
+            self._fit_chunked_bounds(
+                np.min([sc.scene_lo for sc in scenes], axis=0),
+                np.max([sc.scene_hi for sc in scenes], axis=0))
+            self.shadow_feature.before_frame(FeatureFrameContext())
+        any_cutoff, blend = self._material_flags
+        if blend:
+            raise InvalidOperation(
+                "chunked geometry is opaque-only (alpha blending composites "
+                "across the whole scene's depth order)")
+
+        view = np.asarray(view, np.float32)
+        proj = np.asarray(proj, np.float32)
+        self._unjittered_view_proj = (proj @ view).astype(np.float32)
+        taa_params = None
+        if self._taa_active():
+            self.temporal_aa.begin_frame()
+            proj = self.temporal_aa.jitter_projection(proj, self._width,
+                                                      self._height)
+            p = self.temporal_aa.params()
+            taa_params = TaaParams(
+                blend_factor=(0.0 if self._taa_history is None
+                              else float(p["blend_factor"])),
+                color_clamp=float(p["color_clamp"]),
+                velocity_rejection=float(p["velocity_rejection"]),
+                jitter=p["jitter"], prev_jitter=p["prev_jitter"])
+        pool = self.bindless.pool()
+        cfg = self._frame_config(False, textured=pool is not None,
+                                 alpha_test=pool is not None and any_cutoff,
+                                 lights_enabled=False)
+        light_dir = FRAME_LIGHT_DIR / np.linalg.norm(FRAME_LIGHT_DIR)
+        parts = {
+            "view_proj": proj @ view,
+            "camera_pos": np.asarray(camera_pos, np.float32).reshape(3),
+            "light_direction": light_dir,
+            "light_color": FRAME_LIGHT_COLOR,
+            "ambient_color": FRAME_AMBIENT,
+            "light_space_matrix": self.shadow_feature.light_space_matrix(),
+            "view": view,
+            "projection": proj,
+        }
+        if taa_params is not None:
+            parts["prev_view_proj"] = (
+                self._prev_view_proj if self._prev_view_proj is not None
+                else self._unjittered_view_proj)
+        base = FrameUniforms(models=None, **self._upload(parts))
+        post = PostParams(
+            exposure=np.float32(self.tonemapping_exposure),
+            gamma=np.float32(self.tonemapping_gamma),
+            bloom_intensity=np.float32(self.bloom_intensity),
+            bloom_threshold=np.float32(self.bloom_threshold),
+            bloom_soft_knee=np.float32(0.5),
+        )
+        prev = self._prev_chunk_models
+        chunks = []
+        for ci, (sc, m) in enumerate(zip(self._chunk_scenes,
+                                         self._chunk_models)):
+            prev_m = None
+            if taa_params is not None:
+                prev_m = (prev[ci] if prev is not None
+                          and prev[ci].shape == m.shape else m)
+            chunks.append(FrameInputs(
+                cfg, sc, base._replace(models=m, prev_models=prev_m), pool,
+                None, post, taa_params))
+        return chunks
+
+    def _render_frame_chunked(self, view, proj, camera_pos,
+                              start: float) -> FrameOutputs:
+        """A draw list longer than max_draws_per_chunk renders in groups of
+        that many draws: each group through render_band, the groups
+        depth-composited (frame.merge_band_outputs: for opaque geometry the
+        winner the unchunked depth test picks), their shadow maps
+        min-merged and cached under the unchunked key, and the post chain
+        once on the merged frame. It bounds the frame's transient memory by
+        a chunk's triangles. The reference fences each chunked frame before
+        the next; here the frame already ends in a blocking copy of its
+        image (_present), so nothing else waits."""
+        chunks = self.prepare_chunked_frame(view, proj, camera_pos)
+        first = chunks[0]
+        cfg, taa_params = first.config, first.taa_params
+        shadow = None
+        if cfg.shadow_enabled:
+            shadow_pool = first.pool if cfg.alpha_test else None
+
+            def render_shadow():
+                acc = None
+                for c in chunks:
+                    pair = shadow_program(cfg, c.scene.buffers,
+                                          c.uniforms.models,
+                                          c.uniforms.light_space_matrix,
+                                          shadow_pool)
+                    acc = pair if acc is None else merge_shadows(acc, pair)
+                return acc
+
+            shadow = self._cached_shadow(cfg, render_shadow)
+        acc = None
+        for c in chunks:
+            bo = render_band(cfg, c.scene.buffers, c.uniforms, shadow,
+                             c.pool, None, None, self._ibl)
+            acc = bo if acc is None else merge_band_outputs(acc, bo)
+        history = None
+        if taa_params is not None:
+            history = self._taa_history
+            if history is None:  # the first TAA frame blends with weight 0
+                history = torch.zeros(
+                    (self._height, self._width, 3), dtype=torch.float32,
+                    device=self.device)
+        outputs = finalize_frame(cfg, acc, first.post, taa_params, history)
+        if outputs.history is not None:
+            self._taa_history = outputs.history
+        self._prev_view_proj = self._unjittered_view_proj
+        self._prev_chunk_models = list(self._chunk_models)
+        return self._present(outputs, start)
 
     # ------------------------------------------------------------------
     # Introspection

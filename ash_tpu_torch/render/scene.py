@@ -98,6 +98,10 @@ class BuiltScene:
     scene_center: np.ndarray
     scene_radius: float
     has_lods: bool = False
+    # The world AABB that scene_center and scene_radius fit (the chunked
+    # frame unions its chunks' boxes).
+    scene_lo: Optional[np.ndarray] = None  # (3,)
+    scene_hi: Optional[np.ndarray] = None  # (3,)
     # Host LOD tables for Renderer.lod_stats (no device readback): per draw,
     # the triangle count of each level and the levels' coverage thresholds.
     lod_level_triangles: Optional[np.ndarray] = None  # (D, MAX_LOD_LEVELS)
@@ -252,6 +256,8 @@ def pack_scene(draw_items: List[DrawItem], meshes: Dict[str, Mesh]):
         scene_center=center,
         scene_radius=max(float(np.linalg.norm(hi - center)), 1e-3),
         has_lods=has_lods,
+        scene_lo=lo.astype(np.float32),
+        scene_hi=hi.astype(np.float32),
         lod_level_triangles=level_tris,
         lod_thresholds_host=thresholds,
         draw_center_host=centers,

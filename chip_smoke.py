@@ -2,8 +2,9 @@
 """Drive the PyTorch port's standard, glass, textured, lit, rich, animated
 and 1M-triangle frames, examples 02, 06 and 07's frames, the bf16 standard
 frame, the standard frame with Hi-Z occlusion culling, with MSAA and with
-the diagnostics overlay, the file sink and the profilers on one NVIDIA
-GPU.
+the diagnostics overlay, the file sink and the profilers, the sharded
+frames, the frame farms (example 09) and example 10's chunked frame on one
+NVIDIA GPU.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It needs one CUDA device and `nvcc`; it exits non-zero without a result when
@@ -33,7 +34,9 @@ fails. Phases, one stdout line each:
    InstancingManager, 786,432 triangles): its main pass at 8x128 tiles and
    K=2048 and its shadow pass; and the standard frame's main pass at the
    MSAA presets' sample rates (3840x1080, 3840x2160, 7680x2160; the peel
-   at 2 layers at 3840x2160);
+   at 2 layers at 3840x2160); and band 1 of the sharded frame's 4, its
+   main pass (1920x320 from row 320) and its shadow pass (2048x512 from
+   row 512), as render_band and shadow_program bin them;
 4. the slice: the standard frame (1000 instanced PBR cubes, bench.py's
    recipe) rendered at 1920x1080 through ash_tpu_torch.Renderer: the
    one-layer kernel runs twice on frame 1 and once per static frame after
@@ -117,7 +120,8 @@ fails. Phases, one stdout line each:
    frames (median, min and max of 5, kernels and copies per frame); then,
    at each kernel shape of the main path (1080p one layer, 2048^2 one
    layer, the three 1024^2 cascades, 1080p K = 2, 4, 8 and K = 4 under a
-   floor, the x4 and x8 MSAA main passes, the mega frame's four passes and
+   floor, the x4 and x8 MSAA main passes, the two band passes, the mega
+   frame's four passes and
    the instancing frame's two,
    which add the time with only the heaviest tile's list left): the
    wrapper-loop time (50 calls of raster_cuda.rasterize, host work
@@ -125,7 +129,21 @@ fails. Phases, one stdout line each:
    device time (`graph_ms`: a CUDA graph of bare launches), the device time
    with every tile's list empty (the clear, the stores, the pre-pass and
    the launches alone), the plain raster's time, the pairs the kernel
-   evaluates, its bound and its share of the bound (`work`).
+   evaluates, its bound and its share of the bound (`work`);
+6. multi-device rendering (A18) and chunked geometry (A16), each path's
+   launch counts from 0: the standard, rich and rich render_scale=0.5
+   frames through make_sharded_frame over four bands on one card (mesh
+   ["cuda:0"] * 4; with more cards also the standard frame over cuda:0..n-1),
+   each equal to the single-device frame of the same inputs (u8, scalars,
+   the gathered shadow map, the history); example 09's farm (4 frames a
+   batch, two batches chained through the TAA ring's history) and a (2, 2)
+   frames x bands mesh, each frame equal to the frame rendered alone;
+   example 10's chunked frame (96,040,000 triangles, 33 chunks) for 2
+   frames, B1 on chunk 0 against the plain raster (one call) and timed,
+   and the first 3 chunks against the same draws unchunked: recorded at
+   the example's caps, equal at caps over the largest tile counts
+   (max_tile_counts), where neither side drops a triangle. Each with frame
+   ms, kernels and copies, device busy and idle share, and peak memory.
 
 Then one JSON line on the kernels and, last, the device JSON line.
 """
@@ -165,7 +183,8 @@ MSAA_FRAMES = [("ssaa", "x2"), ("ssaa", "x4"), ("ssaa", "x8"),
 SHAPES = [("main", 1, False), ("shadow", 1, False),
           *((c, 1, False) for c in CASCADES), ("main", 2, False),
           ("main", 4, False), ("main", 8, False), ("main", 4, True),
-          ("msaa x4", 1, False), ("msaa x8", 1, False)]
+          ("msaa x4", 1, False), ("msaa x8", 1, False),
+          ("band 1/4", 1, False), ("shadow band 1/4", 1, False)]
 
 
 def check(cond, what):
@@ -212,24 +231,29 @@ def graph_ms(launch, n=20, reps=10):
     return start.elapsed_time(end) / (n * reps)
 
 
-def pass_inputs(r, cam):
+def pass_inputs(r, cam, band=None):
     """-> {pass: (setup, bins, height, width, tile_h, tile_w, y0)} of
     renderer r's main pass (at the sample rate under MSAA) and shadow pass
-    seen from `cam`, as a frame computes them."""
+    seen from `cam`, as a frame computes them; with `band` (a
+    frame.BandSpec), over that band's rows as a sharded frame bins them."""
     from ash_tpu_torch.render import frame
 
     cfg, scene, uni = r.prepare_frame(
         cam.view_matrix(), cam.projection_matrix(), cam.position)[:3]
-    _, setup, bins, _ = frame.main_pass_bins(cfg, scene.buffers, uni)
+    _, setup, bins, _ = frame.main_pass_bins(cfg, scene.buffers, uni,
+                                             band=band)
     setup_s, bins_s = frame.shadow_pass_bins(
         cfg, scene.buffers, frame.shadow_world(scene.buffers, uni.models),
-        uni.light_space_matrix,
+        uni.light_space_matrix, band=band,
     )
+    y0, rows, _ = frame.band_extent(cfg, band)
+    s_rows, sy0 = frame.shadow_band(cfg, band)
     s = cfg.shadow_resolution
-    rw, rh = frame.raster_size(cfg)
     return {
-        "main": (setup, bins, rh, rw, cfg.tile_h, cfg.tile_w, 0),
-        "shadow": (setup_s, bins_s, s, s, cfg.shadow_rows, cfg.shadow_tile, 0),
+        "main": (setup, bins, rows, frame.raster_size(cfg)[0], cfg.tile_h,
+                 cfg.tile_w, y0),
+        "shadow": (setup_s, bins_s, s_rows, s, cfg.shadow_rows,
+                   cfg.shadow_tile, sy0),
     }
 
 
@@ -420,23 +444,6 @@ def frame_ms_spread(step, n):
             torch.cuda.max_memory_allocated() / 2**20)
 
 
-def device_ops_per_frame(step, n=2):
-    """Kernels and copies the device ran per frame over n frames of step,
-    from torch.profiler."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(n):
-            step(i)
-        torch.cuda.synchronize()
-    work = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    return sum(e.count for e in work) / n
-
-
 def frame_ms_mem(step, n):
     """(frame_ms(step, n), peak device MiB over those frames)."""
     import torch
@@ -555,6 +562,503 @@ def compare_layers(got, want, layers):
     return tid_bad, depth_bad, err, covered
 
 
+def busy_profile(step, n=2):
+    """(wall ms, device busy ms, idle share, kernels and copies) per frame
+    over n frames of step under torch.profiler, as profile_frame.py reads
+    them (busy: the kernels' and copies' own device time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            step(i)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    work = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    busy = sum(e.self_device_time_total for e in work) / 1e3
+    return wall / n, busy / n, 1.0 - busy / wall, sum(e.count for e in work) / n
+
+
+def counted(fn):
+    """Zero the kernels' launch counts, run fn() -> (its result, one-layer
+    launches, peel launches)."""
+    from ash_tpu_torch.ops import raster_cuda
+
+    raster_cuda.rasterize.launches = 0
+    raster_cuda.rasterize.layer_launches = 0
+    out = fn()
+    return (out, raster_cuda.rasterize.launches,
+            raster_cuda.rasterize.layer_launches)
+
+
+def u8_diff(a, b):
+    """(largest u8 difference, pixels that differ) of two RGBA8 images."""
+    a = np.asarray(a.cpu() if hasattr(a, "cpu") else a).astype(np.int16)
+    b = np.asarray(b.cpu() if hasattr(b, "cpu") else b).astype(np.int16)
+    d = np.abs(a - b)
+    return int(d.max()), int((d.max(-1) > 0).sum())
+
+
+def same_scalars(got, want, fields=("covered_pixels", "binning_overflow",
+                                    "shadow_overflow", "visible_draws",
+                                    "msaa_edge_overflow")):
+    """The fields of two FrameOutputs that differ, as {field: (got, want)}."""
+    bad = {}
+    for f in fields:
+        g, w = getattr(got, f), getattr(want, f)
+        g = None if g is None else int(g)
+        w = None if w is None else int(w)
+        if g != w:
+            bad[f] = (g, w)
+    return bad
+
+
+def single_frame(inputs, history=None):
+    """The frame of prepare_frame's `inputs` on one device, its shadow map
+    rendered here: the counterpart of a sharded frame of the same inputs."""
+    from ash_tpu_torch.render import frame
+
+    cfg, sc, uni, pool, lights, post, taa = inputs
+    shadow = None
+    if cfg.shadow_enabled and not cfg.lod_enabled:
+        shadow = frame.shadow_program(cfg, sc.buffers, uni.models,
+                                      uni.light_space_matrix, pool,
+                                      uni.cascade_matrices)
+    return frame.render_frame_program(cfg, sc.buffers, uni, shadow, pool,
+                                      lights, post, taa, history)
+
+
+def sharded_paths(card, view, proj, pos, launches, layer_launches, mem):
+    """A18's screen bands on the card: the standard frame, the rich frame
+    and the rich frame at render_scale 0.5, each sharded over four bands on
+    cuda:0 (mesh ["cuda:0"] * 4), against the same inputs' single-device
+    frame (u8 and scalars equal, the gathered shadow map bit for bit); and
+    with more than one card the standard frame over cuda:0..n-1. Then
+    times: frame ms (median, min, max of 5, the image copied to the host),
+    kernels and copies, device busy and idle share, peak MiB. -> result
+    rows by path."""
+    import torch
+
+    from ash_tpu_torch.parallel import make_sharded_frame, render_mesh
+    from ash_tpu_torch.render.bench_scene import build_bench_renderer
+
+    cases = [("sharded standard x4", {}, ["cuda:0"] * 4),
+             ("sharded rich x4", dict(rich=True), ["cuda:0"] * 4),
+             ("sharded rich 0.5 x4", dict(rich=True, render_scale=0.5,
+                                          max_tris_per_tile=HALF_SCALE_TILE_CAP),
+              ["cuda:0"] * 4)]
+    if torch.cuda.device_count() > 1:
+        n = torch.cuda.device_count()
+        cases.append((f"sharded standard cuda:0..{n - 1}", {},
+                      [f"cuda:{i}" for i in range(n)]))
+    rows = {}
+    for path, kw, devices in cases:
+        r = build_bench_renderer(1920, 1080, 1000, "cuda", **kw)[0]
+        inputs = r.prepare_frame(view, proj, pos)
+        cfg, sc, uni, pool, lights, post, taa = inputs
+        history = None
+        if taa is not None:
+            history = torch.zeros((cfg.height, cfg.width, 3),
+                                  device=uni.models.device)
+        fn = make_sharded_frame(cfg, render_mesh(devices=devices))
+
+        def sharded():
+            return fn(sc.buffers, uni, pool, post, taa, history, lights)
+
+        out, b1, b2 = counted(sharded)
+        launches[path], layer_launches[path] = b1, b2
+        want = single_frame(inputs, history)
+        n = len(devices)
+        per_band = cfg.shadow_cascades + 1
+        check(b1 == n * per_band and b2 == 0,
+              f"{path}: one-layer launches {b1}, peel {b2}, want "
+              f"{n * per_band} and 0")
+        most, px = u8_diff(out.image, want.image)
+        bad = same_scalars(out, want)
+        same_map = bool(torch.equal(out.shadow_map, want.shadow_map))
+        check(out.image.shape == want.image.shape and most == 0 and not bad
+              and same_map and bool(torch.isfinite(out.color).all()),
+              f"{path}: against the single-device frame: largest u8 "
+              f"difference {most} at {px} pixels, scalars {bad}, shadow map "
+              f"equal {same_map}")
+        if history is not None:
+            check(bool(torch.equal(out.history, want.history)),
+                  f"{path}: history != the single-device frame's")
+        del want
+
+        def step(i):
+            fn(sc.buffers, uni, pool, post, taa, history, lights).image.cpu()
+
+        ms, mem[path] = frame_ms_spread(step, 5)
+        wall, busy, idle, ops = busy_profile(step)
+        rows[path] = dict(
+            launches=(b1, b2), covered=int(out.covered_pixels),
+            overflow=(int(out.binning_overflow), int(out.shadow_overflow)),
+            ms=ms, wall=wall, busy=busy, idle=idle, ops=ops,
+            rows_per_band=frame_rows(cfg, n))
+        print(f"phase6 {path}: {cfg.width}x{cfg.height}, {n} bands of "
+              f"{rows[path]['rows_per_band']} rows on {devices}: one-layer "
+              f"launches {b1} ({cfg.shadow_cascades} shadow band(s) and the "
+              f"main pass per band), peel {b2}; covered {int(out.covered_pixels)}"
+              f", overflow (main, shadow) {rows[path]['overflow']}; equal to "
+              f"the single-device frame (u8, scalars, shadow map"
+              f"{', history' if history is not None else ''}): True; frame "
+              f"{ms[0]} ms (median of 5, min {ms[1]}, max {ms[2]}) on {card}; "
+              f"under the profiler {wall:.2f} ms, device busy {busy:.2f} ms, "
+              f"idle {100 * idle:.1f}%, {ops:g} kernels and copies per frame; "
+              f"peak {mem[path]:.1f} MiB", flush=True)
+        del r, inputs, out, fn, sc, uni, pool, lights
+    return rows
+
+
+def frame_rows(cfg, n):
+    """Rows per band of an n-band frame (internal rows under TAAU)."""
+    from ash_tpu_torch.render import frame
+
+    return frame.band_extent(cfg, frame.BandSpec(0, n))[1]
+
+
+def farm_paths(card, launches, layer_launches, mem):
+    """A18's frame farm on the card: example 09 (12 cubes at 256x192, HDR
+    post, TAA) as 4 frames a batch on mesh ["cuda:0"] * 4, two batches
+    chained through history0 (8 frames of the orbit), each frame against
+    the same frame rendered alone with the history carried (u8, covered
+    and history equal); then a (2, 2) mesh of cuda:0, frames x bands, over
+    example 09's scene without TAA against single frames. Times per batch.
+    -> result rows by path."""
+    import dataclasses
+
+    import torch
+
+    from ash_tpu_torch.parallel import (
+        batch_uniforms,
+        make_frame_parallel,
+        make_frame_parallel_banded,
+        render_mesh,
+    )
+    from ash_tpu_torch.render import bench_scene, frame
+
+    scene, uni0 = bench_scene.example_scene(n_cubes=12, device="cuda")
+    cfg = bench_scene.example09_config()
+    n, total = 4, 8
+    unis, prev = [], bench_scene.example09_uniforms(uni0, 0, total)
+    for i in range(total):
+        u = bench_scene.example09_uniforms(uni0, i, total)
+        unis.append(u._replace(prev_view_proj=prev.view_proj,
+                               prev_models=u.models))
+        prev = u
+    taas = [bench_scene.example09_taa(i) for i in range(total)]
+    farm = make_frame_parallel(cfg, render_mesh(devices=["cuda:0"] * n,
+                                                axis="fp"))
+
+    def batches():
+        outs, history = [], None
+        for b in range(0, total, n):
+            o = farm(scene, batch_uniforms(unis[b:b + n]),
+                     taa_batch=batch_uniforms(taas[b:b + n]),
+                     history0=history)
+            outs.append(o)
+            history = o.history[n - 1]
+        return outs
+
+    outs, b1, b2 = counted(batches)
+    path = "farm example 09"
+    launches[path], layer_launches[path] = b1, b2
+    check(b1 == 2 * total and b2 == 0,
+          f"{path}: one-layer launches {b1}, peel {b2}, want {2 * total}, 0")
+    history = torch.zeros((cfg.height, cfg.width, 3), device=scene.tri_v.device)
+    equal = []
+    for i in range(total):
+        o = outs[i // n]
+        sm = frame.shadow_program(cfg, scene, unis[i].models,
+                                  unis[i].light_space_matrix)
+        want = frame.render_frame_program(cfg, scene, unis[i], sm,
+                                          taa_params=taas[i], history=history)
+        history = want.history
+        equal.append(bool(torch.equal(o.image[i % n], want.image)
+                          and torch.equal(o.history[i % n], want.history)
+                          and int(o.covered_pixels[i % n])
+                          == int(want.covered_pixels)))
+    check(all(equal), f"{path}: frame i != the same frame alone: {equal}")
+    moving = sum(not torch.equal(outs[0].image[i], outs[0].image[i + 1])
+                 for i in range(n - 1))
+    check(moving == n - 1, f"{path}: the orbit does not move the image")
+
+    def farm_step(i):
+        batches()[-1].image.cpu()
+
+    ms, mem[path] = frame_ms_spread(farm_step, 3)
+    wall, busy, idle, ops = busy_profile(farm_step, 1)
+    rows = {path: dict(launches=(b1, b2), ms=ms, wall=wall, busy=busy,
+                       idle=idle, ops=ops, frames=total, equal=equal)}
+    print(f"phase6 {path}: {cfg.width}x{cfg.height}, 12 cubes, TAA ring: "
+          f"{total // n} batches of {n} frames on ['cuda:0'] * {n}: one-layer "
+          f"launches {b1} (shadow and main pass a frame), peel {b2}; frame i "
+          f"equal to frame i rendered alone with the history carried (u8, "
+          f"history, covered): {equal}; {total} frames in {ms[0]} ms (median "
+          f"of 3, min {ms[1]}, max {ms[2]}), {ms[0] / total:.3f} ms a frame, on "
+          f"{card}; under the profiler {wall:.2f} ms, device busy "
+          f"{busy:.2f} ms, idle {100 * idle:.1f}%, {ops:g} kernels and copies "
+          f"per {total} frames; peak {mem[path]:.1f} MiB", flush=True)
+
+    cfg2 = dataclasses.replace(cfg, taa_enabled=False)
+    mesh2 = render_mesh(devices=[["cuda:0"] * 2] * 2, axis=("fp", "sp"))
+    banded = make_frame_parallel_banded(cfg2, mesh2)
+    plain = [u._replace(prev_view_proj=None, prev_models=None)
+             for u in unis[:2]]
+    out2, b1, b2 = counted(lambda: banded(scene, batch_uniforms(plain)))
+    path = "farm banded 2x2"
+    launches[path], layer_launches[path] = b1, b2
+    check(b1 == 8 and b2 == 0, f"{path}: one-layer launches {b1}, peel {b2}")
+    equal2 = []
+    for i in range(2):
+        sm = frame.shadow_program(cfg2, scene, plain[i].models,
+                                  plain[i].light_space_matrix)
+        want = frame.render_frame_program(cfg2, scene, plain[i], sm)
+        equal2.append(bool(torch.equal(out2.image[i], want.image))
+                      and not same_scalars(
+                          frame.FrameOutputs(*(None if x is None else x[i]
+                                               for x in out2)), want))
+    check(all(equal2), f"{path}: frame i != the frame alone: {equal2}")
+
+    def banded_step(i):
+        banded(scene, batch_uniforms(plain)).image.cpu()
+
+    ms2, mem[path] = frame_ms_spread(banded_step, 5)
+    wall, busy, idle, ops = busy_profile(banded_step)
+    rows[path] = dict(launches=(b1, b2), ms=ms2, wall=wall, busy=busy,
+                      idle=idle, ops=ops, frames=2, equal=equal2)
+    print(f"phase6 {path}: 2 frames x 2 bands of {frame_rows(cfg2, 2)} rows "
+          f"on cuda:0, example 09's scene without TAA: one-layer launches "
+          f"{b1} (a shadow band and a main band per device), peel {b2}; "
+          f"equal to each frame alone (u8, scalars): {equal2}; 2 frames in "
+          f"{ms2[0]} ms (median of 5, min {ms2[1]}, max {ms2[2]}) on {card}; "
+          f"under the profiler {wall:.2f} ms, device busy {busy:.2f} ms, idle "
+          f"{100 * idle:.1f}%, {ops:g} kernels and copies; peak "
+          f"{mem[path]:.1f} MiB", flush=True)
+    return rows
+
+
+def pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def max_tile_counts(setup, cfg):
+    """(largest fine-tile count, largest coarse-tile count) of the bins
+    ops/binning.py builds from `setup`'s bboxes for cfg's main pass: each
+    valid triangle counted in every tile of its bbox's tile range, as
+    bin_triangles tests it, on the fine grid and on the two-level binner's
+    coarse grid of 4x2 fine tiles over the padded grid. A 2D difference
+    array sums them in O(triangles) memory, where the binner itself needs
+    tiles x candidates."""
+    import torch
+
+    from ash_tpu_torch.ops.binning import grid_shape
+
+    def largest(height, width, th, tw):
+        ty, tx = grid_shape(height, width, th, tw)
+        b = setup.bbox
+        ok = (setup.valid & (b[:, 3] >= 0) & (b[:, 1] < height)
+              & (b[:, 2] >= 0.0) & (b[:, 0] < width))
+        b = b[ok]
+
+        def index(c, size, hi):
+            return torch.floor(c / size).clamp(0, hi).long()
+
+        x0, x1 = index(b[:, 0], tw, tx - 1), index(b[:, 2], tw, tx - 1)
+        y0, y1 = index(b[:, 1], th, ty - 1), index(b[:, 3], th, ty - 1)
+        d = torch.zeros((ty + 1, tx + 1), dtype=torch.int64, device=b.device)
+        one = torch.ones_like(x0)
+        for ys, xs, v in ((y0, x0, one), (y0, x1 + 1, -one),
+                          (y1 + 1, x0, -one), (y1 + 1, x1 + 1, one)):
+            d.index_put_((ys, xs), v, accumulate=True)
+        return int(d.cumsum(0).cumsum(1)[:ty, :tx].max())
+
+    h, w = cfg.height, cfg.width
+    ty, tx = grid_shape(h, w, cfg.tile_h, cfg.tile_w)
+    ty_p, tx_p = -(-ty // 4) * 4, -(-tx // 2) * 2
+    return (largest(h, w, cfg.tile_h, cfg.tile_w),
+            largest(ty_p * cfg.tile_h, tx_p * cfg.tile_w, cfg.tile_h * 4,
+                    cfg.tile_w * 2))
+
+
+def chunked_paths(card, launches, layer_launches, mem, timed):
+    """A16's chunked frame on the card: example 10's default scene (10,000
+    instances of the 98x49 UV sphere, 96,040,000 triangles, 312 draws a
+    chunk: 33 chunks, 8x128 tiles, K=2048, "nearest", no shadows, 1080p)
+    for 2 frames: one B1 launch a chunk, overflow and covered recorded.
+    B1 against the plain raster on chunk 0's main pass (one plain call),
+    timed. Then the first 3 chunks (936 draws) chunked against the same
+    draws unchunked, with the caps raised (escalate_tile_capacities on
+    both) until neither drops a triangle: equal u8 images. At the
+    example's own caps the nearest K of each chunk are kept, not of the
+    scene, so there the two are recorded (overflow, PSNR), not held.
+    -> (result row, max |depth err| of the kernel check)."""
+    import statistics
+
+    import torch
+
+    import ash_tpu_torch
+    from ash_tpu_torch.ops import raster, raster_cuda
+    from ash_tpu_torch.render import bench_scene, frame
+
+    t0 = time.perf_counter()
+    r, _, cam, tris = bench_scene.build_mega_instancing_renderer(
+        1920, 1080, "cuda")
+    submit_s = time.perf_counter() - t0
+    fargs = (cam.view_matrix(), cam.projection_matrix(), cam.position)
+    chunks = r.prepare_chunked_frame(*fargs)
+    c0 = chunks[0]
+    cfg = c0.config
+    _, setup, bins, _ = frame.main_pass_bins(cfg, c0.scene.buffers,
+                                             c0.uniforms)
+    args = (setup, bins, cfg.height, cfg.width, cfg.tile_h, cfg.tile_w)
+    name = f"example 10 chunk K={bins.tri_ids.shape[1]}"
+    per_chunk = r.config.max_draws_per_chunk
+    n_chunks = -(-len(r.draw_items) // per_chunk)
+    check((cfg.tile_h, cfg.tile_w, bins.tri_ids.shape[1], len(chunks))
+          == (8, 128, 2048, n_chunks),
+          f"example 10: {len(chunks)} chunks, tiles "
+          f"{cfg.tile_h}x{cfg.tile_w}, K {bins.tri_ids.shape[1]}")
+    got = raster_cuda.rasterize(*args)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = raster.rasterize(*args)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    tid_bad = int((got.tri_id != want.tri_id).sum())
+    depth_bad = int((got.depth != want.depth).sum())
+    err = float((got.depth - want.depth).abs().max())
+    check(tid_bad == 0 and depth_bad == 0, f"kernel != plain on {name}")
+    launch, _, _ = raster_cuda.launcher(*args)
+    empty = bins._replace(counts=torch.zeros_like(bins.counts))
+    launch_empty, _, _ = raster_cuda.launcher(setup, empty, *args[2:])
+    row = work(*args)
+    row.update(wrapper_ms=cuda_ms(lambda: raster_cuda.rasterize(*args), 10),
+               device_ms=statistics.mean([graph_ms(launch), graph_ms(launch)]),
+               clear_ms=graph_ms(launch_empty), plain_ms=plain_ms,
+               size=f"{cfg.width}x{cfg.height}")
+    row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+    timed[name, 1, False] = row
+    print(f"phase6 kernel {name} {cfg.width}x{cfg.height} tiles 8x128 "
+          f"(example 10, chunk 0 "
+          f"of {len(chunks)}): tri_id mismatches {tid_bad}, depth mismatches "
+          f"{depth_bad}, max |depth err| {err}, covered "
+          f"{int((got.tri_id >= 0).sum())}, max tile count "
+          f"{int(bins.counts.max())}, overflow {int(bins.overflow)}; device "
+          f"{row['device_ms']} ms (every list empty {row['clear_ms']} ms), "
+          f"wrapper loop {row['wrapper_ms']} ms, plain {plain_ms} ms (one "
+          f"call); pairs evaluated {row['pairs_tested']} (in the bbox "
+          f"{row['pairs_needed']}); bound {row['bound_ms']} ms by "
+          f"{row['bound_by']}, {100 * row['share_of_bound']:.1f}% of it",
+          flush=True)
+    del chunks, c0, setup, bins, got, want, launch, launch_empty, empty, args
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, outs = [], []
+
+    def two_frames():
+        for _ in range(2):
+            s0 = torch.cuda.Event(enable_timing=True)
+            s1 = torch.cuda.Event(enable_timing=True)
+            s0.record()
+            o = r.render_frame(*fargs)
+            s1.record()
+            s1.synchronize()
+            times.append(s0.elapsed_time(s1))
+            outs.append(o)
+
+    _, b1, b2 = counted(two_frames)
+    path = "chunked example 10"
+    launches[path], layer_launches[path] = b1, b2
+    mem[path] = torch.cuda.max_memory_allocated() / 2**20
+    image = r.read_back().copy()
+    o = outs[-1]
+    check(b1 == 2 * n_chunks and b2 == 0, f"{path}: one-layer launches {b1} "
+          f"in 2 frames, peel {b2}, want {2 * n_chunks} and 0")
+    check(image.shape == (cfg.height, cfg.width, 4) and int(o.covered_pixels) > 0
+          and bool(torch.isfinite(o.color).all())
+          and outs[0].image.equal(o.image),
+          f"{path}: frame {image.shape}, covered {int(o.covered_pixels)}")
+    wall, busy, idle, ops = busy_profile(lambda i: r.render_frame(*fargs), 1)
+    result = dict(tris=tris, chunks=len(r._chunk_scenes),
+                  shared=len({id(s.buffers.position)
+                              for s in r._chunk_scenes}),
+                  submit_s=submit_s, times=times, launches=(b1, b2),
+                  covered=int(o.covered_pixels),
+                  overflow=int(o.binning_overflow), wall=wall, busy=busy,
+                  idle=idle, ops=ops)
+    del r, outs, o
+
+    # The first 3 chunks, chunked against unchunked.
+    cut = 3 * per_chunk
+    torch.cuda.empty_cache()
+    pair = {k: bench_scene.build_mega_instancing_renderer(
+        cfg.width, cfg.height, "cuda", n=cut, max_draws_per_chunk=c)[0]
+        for k, c in (("chunked", per_chunk), ("unchunked", None))}
+    imgs, own = {}, {}
+    for k, rend in pair.items():
+        out = rend.render_frame(*fargs)
+        imgs[k] = rend.read_back().copy()
+        own[k] = int(out.binning_overflow)
+    own_psnr = ash_tpu_torch.psnr(imgs["chunked"], imgs["unchunked"])
+    own_diff = u8_diff(imgs["chunked"], imgs["unchunked"])
+    # Caps that drop nothing on either side: the largest fine and coarse
+    # tile counts of every chunk's and of the unchunked main pass.
+    counts = {}
+    for k, rend in pair.items():
+        inputs = (rend.prepare_chunked_frame(*fargs) if k == "chunked"
+                  else [rend.prepare_frame(*fargs)])
+        counts[k] = [max_tile_counts(frame.main_pass_setup(
+            c.config, c.scene.buffers, c.uniforms)[1], c.config)
+            for c in inputs]
+        del inputs
+    fine = max(f for v in counts.values() for f, _ in v)
+    coarse = max(c for v in counts.values() for _, c in v)
+    caps = dict(max_tris_per_tile=pow2(fine),
+                binning_coarse_cap=pow2(max(coarse, fine)))
+    print(f"phase6 example 10 cut to {cut} draws: largest (fine, coarse) "
+          f"tile counts {counts}; drop-free caps {caps}", flush=True)
+    for k, rend in pair.items():
+        for name, value in caps.items():
+            setattr(rend.config, name, value)
+        out = rend.render_frame(*fargs)
+        imgs[k] = rend.read_back().copy()
+        check(int(out.binning_overflow) == 0, f"example 10 cut, {k}: "
+              f"overflow {int(out.binning_overflow)} at the caps {caps}")
+    drop_free = u8_diff(imgs["chunked"], imgs["unchunked"])
+    check(drop_free == (0, 0), f"example 10 cut to {cut} draws: chunked != "
+          f"unchunked at the drop-free caps {caps}: {drop_free}")
+    result.update(cut=cut, own_overflow=own, own_psnr=own_psnr,
+                  own_diff=own_diff, counts=counts, caps=caps)
+    del pair, imgs
+    print(f"phase6 {path}: {cfg.width}x{cfg.height}, {tris} triangles in "
+          f"{result['chunks']} "
+          f"chunks sharing {result['shared']} scene buffers; submit "
+          f"{submit_s:.2f} s on the host; one-layer launches {b1} in 2 frames "
+          f"(one a chunk), peel {b2}; frames {times} ms (CUDA events) on "
+          f"{card}; covered {result['covered']}, overflow "
+          f"{result['overflow']} (the nearest 2048 a tile a chunk kept); "
+          f"under the profiler {wall:.1f} ms, device busy {busy:.1f} ms, "
+          f"idle {100 * idle:.1f}%, {ops:g} kernels and copies per frame; "
+          f"peak {mem[path]:.1f} MiB. Cut to {cut} draws (3 chunks): at the "
+          f"example's caps overflow {own}, chunked against unchunked "
+          f"{own_psnr:.2f} dB (largest u8 difference, pixels {own_diff}), "
+          f"recorded; at the caps {caps}, overflow 0 on both sides: chunked "
+          f"equal to unchunked: True", flush=True)
+    return result, err
+
+
 def main() -> int:
     import torch
 
@@ -618,6 +1122,10 @@ def main() -> int:
     )
     passes["band"] = (setup, bins_band, band_h, cfg.width, cfg.tile_h,
                       cfg.tile_w, band_y0)
+    # Band 1 of the sharded frame's 4 (make_sharded_frame), main and shadow
+    # pass, as render_band and shadow_program bin them.
+    for k, v in pass_inputs(r, cam, frame.BandSpec(1, 4)).items():
+        passes[{"main": "band 1/4", "shadow": "shadow band 1/4"}[k]] = v
     # The rich frame's cascade passes, from a renderer of their own: taking
     # the inputs advances the TAA jitter.
     r_casc, _, _, _ = build_bench_renderer(1920, 1080, 1000, "cuda", rich=True)
@@ -666,7 +1174,7 @@ def main() -> int:
     floor4 = floor_for(passes)
     peel_cases = [("main", 2, None), ("main", 4, None), ("main", 8, None),
                   ("main", 4, floor4), ("band", 4, None), ("shadow", 2, None),
-                  ("msaa x4", 2, None)]
+                  ("msaa x4", 2, None), ("band 1/4", 2, None)]
     max_err_layers = 0.0
     for name, layers, floor in peel_cases:
         args = passes[name]
@@ -1766,11 +2274,11 @@ def main() -> int:
 
     animated_frame(0)
     anim_ms, mem["animated"] = frame_ms_spread(animated_frame, 30)
-    anim_ops = device_ops_per_frame(animated_frame)
+    anim_ops = busy_profile(animated_frame)[3]
     rmega.render_frame(*margs)
     mega_ms, mem["mega, drop-free caps"] = frame_ms_spread(
         lambda i: rmega.render_frame(*margs), 8)
-    mega_ops = device_ops_per_frame(lambda i: rmega.render_frame(*margs))
+    mega_ops = busy_profile(lambda i: rmega.render_frame(*margs))[3]
     del rmega
     rbase, _, _, _ = build_mega_renderer(1920, 1080, "cuda")
     rbase.render_frame(*margs)
@@ -1801,7 +2309,7 @@ def main() -> int:
         step = (lambda i, rm_=msaa_r[mode, preset]:
                 rm_.render_frame(view, proj, pos))
         msaa_ms[path], mem[path] = frame_ms_spread(step, 5)
-        msaa_ops[path] = device_ops_per_frame(step)
+        msaa_ops[path] = busy_profile(step)[3]
     del msaa_r
     # Each kernel shape of the main path: the wrapper loop, the device time
     # of bare launches (and with every list empty), the plain raster (plain,
@@ -1884,6 +2392,17 @@ def main() -> int:
               f"{row['bound_by']}, {100 * row['share_of_bound']:.1f}% of it",
               flush=True)
 
+    # 6. A18 and A16's chunked frame: the sharded frames, the farms, and
+    # example 10 chunked; each path's counts from 0.
+    sharded = sharded_paths(card, view, proj, pos, launches, layer_launches,
+                            mem)
+    farms = farm_paths(card, launches, layer_launches, mem)
+    chunked, chunk_err = chunked_paths(card, launches, layer_launches, mem,
+                                       timed)
+    max_err = max(max_err, chunk_err)
+    chunk_shape = next(k for k in timed if k[0].startswith("example 10"))
+    del sharded, farms, chunked
+
     foreign = sorted(m for m in sys.modules if m in ("jax", "ash_tpu")
                      or m.startswith(("jax.", "ash_tpu.")))
     check(not foreign, f"the port loaded jax or ash_tpu: {foreign[:5]}")
@@ -1916,7 +2435,8 @@ def main() -> int:
                     [("main", 1, False), ("shadow", 1, False),
                      *((c, 1, False) for c in CASCADES),
                      ("msaa x4", 1, False), ("msaa x8", 1, False),
-                     *((n, 1, False) for n in big_names)]),
+                     ("band 1/4", 1, False), ("shadow band 1/4", 1, False),
+                     *((n, 1, False) for n in big_names), chunk_shape]),
         kernel_line("raster_layers", "ash_tpu/ops/raster_pallas.py:138",
                     layer_launches, max_err_layers, ("main", 4, False),
                     [("main", 2, False), ("main", 4, False),

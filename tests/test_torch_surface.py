@@ -162,8 +162,14 @@ def test_xla_only_knob_is_validated(name, value):
     ("max_draws_per_chunk", 64, "A16"),
 ])
 def test_unported_option_raises_with_its_item(name, value, item):
-    with pytest.raises(NotImplementedError, match=item):
-        port_renderer.RendererConfig(**{name: value})
+    """Named for the refusal naming its ROADMAP item (here A16) that this
+    option met before chunked geometry was ported: it now reaches the
+    renderer, whose frame renders in chunks of that many draws."""
+    cfg = port_renderer.RendererConfig(**{name: value})
+    r = port_render.Renderer(port_render.HeadlessSurface(24, 16), cfg,
+                             device="cpu")
+    assert getattr(r.config, name) == value
+    assert item == "A16" and not r._chunked()
 
 
 @pytest.mark.parametrize("name,value,field", [
@@ -186,12 +192,12 @@ def test_a15_option_reaches_the_frame(name, value, field):
 
 
 def test_unported_items_are_a16_only():
-    """After A15 and A17, the refusals name only chunked geometry (A16)."""
-    items = ({v.split(",")[0] for v in port_render.UNPORTED_NAMES.values()}
-             | {v.split(",")[0] for v in port_renderer.UNPORTED_METHODS.values()}
-             | {v[1].split(",")[0]
-                for v in port_renderer._UNPORTED_OPTIONS.values()})
-    assert items == {"A16"}
+    """Named for the state after A15 and A17, when the refusals named only
+    chunked geometry (A16). With A16 ported nothing refuses: no name, no
+    method and no option is left unported."""
+    assert port_render.UNPORTED_NAMES == {}
+    assert port_renderer.UNPORTED_METHODS == {}
+    assert not hasattr(port_renderer, "_UNPORTED_OPTIONS")
 
 
 @pytest.mark.parametrize("name,value,field", [
