@@ -69,7 +69,9 @@ def _stack(outs: list, home: torch.device) -> FrameOutputs:
 
 
 def _shadow(cfg: FrameConfig, scene, uni, pool):
-    """The frame's shadow map, or None where render_band takes none."""
+    """The frame's shadow map, or None: without shadows, or for a LOD
+    frame, which renders its whole map inside render_band under its level
+    mask (one device renders the whole frame here, as in the reference)."""
     if not cfg.shadow_enabled or cfg.lod_enabled:
         return None
     return shadow_program(cfg, scene, uni.models, uni.light_space_matrix,

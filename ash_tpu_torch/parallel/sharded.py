@@ -12,7 +12,9 @@ reference tests' eight-device cases in one process.
   each band's device gets its own copy (a no-op on a repeated device).
 - The shadow pass renders band-wise (`shadow_program(band=)`), and the whole
   map, every cascade of it, is gathered to every band's device: each band
-  needs all of it for its PCF.
+  needs all of it for its PCF. A LOD scene's bands render under the level
+  mask (`lod_tri_mask`), computed once per device, as the reference's
+  bands render under theirs.
 - Each band bins, rasterizes and shades its own rows (`render_band(band=)`):
   the bands' tile grids are disjoint, so the raster needs no exchange.
 - The scalars reduce as the reference's psum and pmax do: covered pixels
@@ -41,6 +43,7 @@ from ..render.frame import (
     FrameOutputs,
     FrameUniforms,
     finalize_frame,
+    lod_tri_mask,
     raster_size,
     render_band,
     shadow_program,
@@ -121,13 +124,18 @@ def render_bands(cfg: FrameConfig, devices: Sequence[torch.device],
     inputs = {d: to_device((scene, uni, pool, lights, prev_depth, ibl), d)
               for d in dict.fromkeys(devices)}
     shadows = dict.fromkeys(devices)
-    if cfg.shadow_enabled and not cfg.lod_enabled:
+    if cfg.shadow_enabled:
+        # A LOD scene's map takes the level mask. It reads only the models,
+        # view_proj and the scene, so one mask per device serves its bands.
+        masks = {d: (sc.tri_valid & lod_tri_mask(cfg, sc, u)
+                     if cfg.lod_enabled else None)
+                 for d, (sc, u, *_) in inputs.items()}
         parts = []
         for i, d in enumerate(devices):
             sc, u, pl = inputs[d][:3]
             parts.append(shadow_program(
                 cfg, sc, u.models, u.light_space_matrix, pl,
-                u.cascade_matrices, band=BandSpec(i, n)))
+                u.cascade_matrices, masks[d], band=BandSpec(i, n)))
         # The all-gather: the rows of every band's map, on every device.
         for d in shadows:
             shadows[d] = (

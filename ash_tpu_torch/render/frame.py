@@ -602,10 +602,11 @@ def render_band(
     frame, or over the rows of `band` (band_extent): then only the row
     offsets change, and the vertex stage, LOD and culling (Hi-Z over the
     whole previous depth) are the full frame's. `shadow` is the shadow
-    pass's output, the whole map; it must be given exactly when
-    cfg.shadow_enabled and not cfg.lod_enabled: a LOD scene's shadow pass
-    takes the camera-dependent level mask, so it runs here, over the whole
-    map in every band. `pool` is sampled when cfg.textured, `lights` lit
+    pass's output, the whole map. A shadowed frame without LOD must be
+    given it. A LOD frame may be given it (rendered under the level mask,
+    as parallel/sharded.py renders it in bands); without it the frame
+    renders the whole map here under its own mask. A frame without
+    shadows takes none. `pool` is sampled when cfg.textured, `lights` lit
     when cfg.lights_enabled. In band mode the colour, depth and velocity
     cover the band's rows and the scalars are the band's own
     (parallel/sharded.py sums and maxes them)."""
@@ -613,9 +614,10 @@ def render_band(
         raise ValueError(
             f"transparency_layers {cfg.transparency_layers} outside [2, 8]"
         )
-    if (shadow is not None) != (cfg.shadow_enabled and not cfg.lod_enabled):
-        raise ValueError("shadow map given iff cfg.shadow_enabled and not "
-                         "cfg.lod_enabled")
+    if shadow is not None and not cfg.shadow_enabled:
+        raise ValueError("shadow map given but cfg.shadow_enabled is False")
+    if shadow is None and cfg.shadow_enabled and not cfg.lod_enabled:
+        raise ValueError("a shadowed frame without LOD needs its shadow map")
     edge = edge_msaa(cfg)
     sx, sy = ssaa_factors(cfg)
     rw, rh = raster_size(cfg)
@@ -623,7 +625,7 @@ def render_band(
     tri_valid = scene.tri_valid
     if cfg.lod_enabled:
         tri_valid = tri_valid & lod_tri_mask(cfg, scene, uni)
-        if cfg.shadow_enabled:
+        if cfg.shadow_enabled and shadow is None:
             shadow = shadow_program(cfg, scene, uni.models,
                                     uni.light_space_matrix, pool,
                                     uni.cascade_matrices, tri_valid)

@@ -3,7 +3,8 @@
 and 1M-triangle frames, examples 02, 06 and 07's frames, the bf16 standard
 frame, the standard frame with Hi-Z occlusion culling, with MSAA and with
 the diagnostics overlay, the file sink and the profilers, the sharded
-frames, the frame farms (example 09) and example 10's chunked frame on one
+frames (example 07's LOD scene among them), the frame farms (example 09),
+example 10's chunked frame and the frame loop's host profile on one
 NVIDIA GPU.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
@@ -144,7 +145,18 @@ fails. Phases, one stdout line each:
    the example's caps, equal at caps over the largest tile counts
    (max_tile_counts), where neither side drops a triangle. Each with frame
    ms, kernels and copies, device busy and idle share, and peak memory;
-7. the benchmark (benchmark/run.py) in this process on its standard cell
+7. the frame loop's host profile (ash_tpu_torch.host_profile) of the
+   animated and the standard frame at 1920x1080, 60 frames each: the
+   reference tool's buckets must add up to the loop's host time and the
+   split of render_frame to the traced render_frame time, every pass_*
+   scope of the frame must show with its CUDA runtime launches, and
+   pass_raster (and the animated frame's pass_shadow) one ctypes raster
+   call a frame; then example 07's LOD scene through make_sharded_frame
+   over four bands on cuda:0, equal to its single frame bit for bit (u8,
+   scalars, the gathered shadow map) with each band's shadow raster S/4
+   rows and none of S, and pass_shadow's device time beside the single
+   frame's;
+8. the benchmark (benchmark/run.py) in this process on its standard cell
    (the standard frame at 1920x1080) with 3 timed and 2 traced frames:
    its result line must be well formed (every end-to-end metric with its
    unit and sample count, the card's name and power limit, the per-layer
@@ -1069,15 +1081,196 @@ def chunked_paths(card, launches, layer_launches, mem, timed):
     return result, err
 
 
+HOST_PROFILE_FRAMES = 60
+# The scopes of a frame of the bench scene; the animated frame adds the
+# shadow pass (the standard frame's map is cached after frame 0).
+FRAME_PASSES = {"pass_vertex", "pass_cull", "pass_setup", "pass_binning",
+                "pass_raster", "pass_gbuffer", "pass_shade", "pass_pack"}
+
+
+def host_profile_phase(card, kind, launches, layer_launches):
+    """Phase 7, part 1: ash_tpu_torch.host_profile of the animated and the
+    standard frame at 1920x1080, 60 frames each (the tool's own lines go to
+    a buffer): the buckets add up to the loop's host time, the spans to
+    the traced render_frame within 1% (the tool raises otherwise), every
+    pass_* scope of the frame shows, with its CUDA runtime calls, and
+    pass_raster (and the animated pass_shadow) makes one ctypes raster
+    call a frame. One line per scene; each path's launches counted from 0.
+    -> {scene: the tool's JSON object}."""
+    import io
+
+    from ash_tpu_torch import host_profile
+
+    lines = {}
+    for static in (False, True):
+        loop = host_profile.FrameLoop("cuda", 1000, static=static)
+        path = f"host_profile {loop.scene}"
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            line, b1, b2 = counted(
+                lambda: host_profile.measure(loop, HOST_PROFILE_FRAMES))
+        launches[path], layer_launches[path] = b1, b2
+        # Warm-up frames 1-2, then the timed and the traced loop.
+        per = 1 if static else 2
+        want_b1 = 2 + per + 2 * HOST_PROFILE_FRAMES * per
+        check(b1 == want_b1 and b2 == 0,
+              f"{path}: one-layer launches {b1}, peel {b2}, want {want_b1}")
+        check(line["card"] == card and line["device_name"] == kind
+              and line["frames"] == HOST_PROFILE_FRAMES,
+              f"{path}: the device or the frame count")
+        b = line["buckets_ms"]
+        host = sum(v for k, v in b.items() if k != "device_drain")
+        check(abs(host - line["host_ms"]) <= 1e-9 * line["host_ms"],
+              f"{path}: buckets sum to {host} ms, host {line['host_ms']} ms")
+        split = line["render_frame_split"]
+        passes = split["passes"]
+        want = FRAME_PASSES | (set() if static else {"pass_shadow"})
+        check(set(passes) == want,
+              f"{path}: scopes {sorted(passes)}, want {sorted(want)}")
+        check(all(p["kernel_launches"] > 0 for n, p in passes.items()
+                  if n != "pass_raster"),
+              f"{path}: a scope without CUDA runtime launches: "
+              f"{ {n: p['kernel_launches'] for n, p in passes.items()} }")
+        raster_calls = {n: p["raster_calls"] for n, p in passes.items()
+                        if p["raster_calls"]}
+        check(raster_calls == {"pass_raster": 1.0,
+                               **({} if static else {"pass_shadow": 1.0})},
+              f"{path}: ctypes raster calls a frame {raster_calls}")
+        spans = [split["prepare"], *passes.values(), split["between_passes"],
+                 split["image_copy"], split["present_rest"]]
+        calls = sum(x["kernel_launches"] + x["copies"] + x["raster_calls"]
+                    for x in spans)
+        top = sorted(passes.items(), key=lambda kv: -kv[1]["ms"])[:3]
+        print(f"phase7 {path} ({HOST_PROFILE_FRAMES} frames, {card}): loop "
+              f"{line['loop_ms']:.3f} ms/frame, host {line['host_ms']:.3f}; "
+              "buckets " + ", ".join(f"{k} {v:.3f}" for k, v in b.items())
+              + f"; traced loop {line['traced_loop_ms']:.3f} ms/frame; "
+              f"render_frame split: prepare {split['prepare']['ms']:.3f} "
+              f"(upload {split['prepare']['upload_ms']:.3f}), passes "
+              + ", ".join(f"{n} {p['ms']:.3f}" for n, p in top)
+              + f", between passes {split['between_passes']['ms']:.3f}, "
+              f"image copy wait {split['image_copy']['ms']:.3f}, rest "
+              f"{split['present_rest']['ms']:.3f}; sum {split['sum_ms']:.3f} "
+              f"against the traced render_frame "
+              f"{line['traced_render_frame_ms']:.3f}; {calls:g} launches, "
+              f"copies and raster calls a frame", flush=True)
+        lines[loop.scene] = line
+        del loop
+    return lines
+
+
+def scope_device_ms(step, scope, n=3):
+    """(device span, kernel time) of `scope` a frame over n frames of step
+    under torch.profiler, in ms. The span is the scope's GPU range, which
+    holds the ctypes raster kernel too; the kernel time counts only the
+    kernels of PyTorch's ops in it (as profile_frame.py reads them)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            step(i)
+        torch.cuda.synchronize()
+    span = kern = 0.0
+    for e in prof.key_averages():
+        if e.key != scope:
+            continue
+        if e.device_type == DeviceType.CUDA and e.is_user_annotation:
+            span += e.device_time_total
+        elif e.device_type == DeviceType.CPU:
+            kern += e.device_time_total
+    return span / 1e3 / n, kern / 1e3 / n
+
+
+def lod_sharded_phase(card, launches, layer_launches):
+    """Phase 7, part 2: example 07's LOD scene (distance 15) through
+    make_sharded_frame over ["cuda:0"] * 4 against the same inputs' single
+    frame: the image, the gathered shadow map and the scalars bit for bit;
+    each band's shadow raster covers S/4 rows and none covers S (the single
+    frame renders the whole map once); pass_shadow's device ms beside the
+    single frame's. -> the result row."""
+    import torch
+
+    from ash_tpu_torch.ops import raster_cuda
+    from ash_tpu_torch.parallel import make_sharded_frame, render_mesh
+    from ash_tpu_torch.render.bench_scene import build_lod_renderer, lod_camera
+
+    path, n = "sharded lod x4", 4
+    r, _ = build_lod_renderer(1920, 1080, "cuda")
+    cam = lod_camera(15.0, 1920, 1080)
+    inputs = r.prepare_frame(cam.view_matrix(), cam.projection_matrix(),
+                             cam.position)
+    cfg, sc, uni, pool, lights, post, taa = inputs
+    s = cfg.shadow_resolution
+    check(cfg.lod_enabled and cfg.shadow_enabled and s != cfg.width,
+          f"{path}: not a shadowed LOD frame of a {cfg.width}-wide target")
+    fn = make_sharded_frame(cfg, render_mesh(devices=["cuda:0"] * n))
+    shapes = []
+
+    def observe(ins, outs):
+        shapes.append(tuple(outs[0].shape))
+
+    def sharded():
+        return fn(sc.buffers, uni, pool, post, taa, None, lights)
+
+    raster_cuda.rasterize.observers.append(observe)
+    try:
+        out, b1, b2 = counted(sharded)
+        band_shapes, shapes[:] = list(shapes), []
+        want = single_frame(inputs)
+        single_shapes = list(shapes)
+    finally:
+        raster_cuda.rasterize.observers.remove(observe)
+    launches[path], layer_launches[path] = b1, b2
+    shadow_rows = [h for _, h, w in band_shapes if w == s]
+    check(shadow_rows == [s // n] * n and b1 == 2 * n and b2 == 0,
+          f"{path}: shadow rasters of {shadow_rows} rows, one-layer launches "
+          f"{b1}, peel {b2}; want {n} of {s // n} rows, {2 * n} and 0")
+    check([h for _, h, w in single_shapes if w == s] == [s],
+          f"{path}: the single frame's shadow rasters {single_shapes}")
+    most, px = u8_diff(out.image, want.image)
+    bad = same_scalars(out, want)
+    same_map = bool(torch.equal(out.shadow_map, want.shadow_map))
+    check(most == 0 and not bad and same_map
+          and bool(torch.equal(out.image, want.image))
+          and bool(torch.isfinite(out.color).all()),
+          f"{path}: against the single frame: largest u8 difference {most} "
+          f"at {px} pixels, scalars {bad}, shadow map equal {same_map}")
+    ms = frame_ms_spread(lambda i: sharded().image.cpu(), 5)[0]
+    single_ms = frame_ms_spread(lambda i: single_frame(inputs).image.cpu(),
+                                5)[0]
+    span, kern = scope_device_ms(lambda i: sharded(), "pass_shadow")
+    single_span, single_kern = scope_device_ms(
+        lambda i: single_frame(inputs), "pass_shadow")
+    row = dict(launches=(b1, b2), shadow_rows=shadow_rows,
+               covered=int(out.covered_pixels),
+               overflow=(int(out.binning_overflow), int(out.shadow_overflow)),
+               ms=ms, single_ms=single_ms, pass_shadow_span_ms=span,
+               pass_shadow_kernel_ms=kern, single_span_ms=single_span,
+               single_kernel_ms=single_kern)
+    print(f"phase7 {path} (example 07's LOD scene, distance 15, 1920x1080, "
+          f"{s}^2 map, {n} bands on cuda:0): one-layer launches {b1}, peel "
+          f"{b2}; shadow rasters of {shadow_rows} rows (the single frame: "
+          f"one of {s}); covered {row['covered']}, overflow (main, shadow) "
+          f"{row['overflow']}; equal to the single frame (u8, scalars, "
+          f"shadow map): True; pass_shadow device span {span:.3f} ms a frame "
+          f"(PyTorch kernels {kern:.3f}) against the single frame's "
+          f"{single_span:.3f} ({single_kern:.3f}); frame {ms[0]:.2f} ms "
+          f"(median of 5) against {single_ms[0]:.2f} on {card}", flush=True)
+    return row
+
+
 def benchmark_phase(card, kind):
-    """Phase 7: benchmark/run.py's standard cell, short, in this process."""
+    """Phase 8: benchmark/run.py's standard cell, short, in this process."""
     from benchmark import run as bench_run
 
     t0 = time.perf_counter()
     line = bench_run.run_cell("standard-1080p-1000obj", "cuda", timed=3,
                               traced=2)
     seconds = time.perf_counter() - t0
-    print(f"phase7 benchmark standard-1080p-1000obj ({seconds:.1f} s): "
+    print(f"phase8 benchmark standard-1080p-1000obj ({seconds:.1f} s): "
           f"{json.dumps(line)}", flush=True)
     check(line["card"] == card and line["device_name"] == kind
           and line["device"] == "cuda", "benchmark line: the device")
@@ -1108,7 +1301,7 @@ def benchmark_phase(card, kind):
     line = bench_run.run_cell("standard-1080p-1000obj", "cuda", timed=1,
                               traced=0, control="bf16")
     checks = line["checks"]
-    print(f"phase7 benchmark control bf16: PSNR {checks['reference_psnr_db']}"
+    print(f"phase8 benchmark control bf16: PSNR {checks['reference_psnr_db']}"
           f" dB, share beyond the float tolerance "
           f"{[c['share_beyond'] for c in checks['reference_colour']]}",
           flush=True)
@@ -2460,6 +2653,10 @@ def main() -> int:
     max_err = max(max_err, chunk_err)
     chunk_shape = next(k for k in timed if k[0].startswith("example 10"))
     del sharded, farms, chunked
+    # 7. The frame loop's host profile, and the LOD scene's banded shadow
+    # pass; each path's counts from 0.
+    host_profile_phase(card, kind, launches, layer_launches)
+    lod_sharded_phase(card, launches, layer_launches)
     benchmark_phase(card, kind)
 
     foreign = sorted(m for m in sys.modules if m in ("jax", "ash_tpu")

@@ -46,6 +46,7 @@ def test_import_loads_no_jax():
         "import sys\n"
         "import ash_tpu_torch\n"
         "import ash_tpu_torch.render.bench_scene, ash_tpu_torch.ops.raster_cuda\n"
+        "import ash_tpu_torch.host_profile\n"
         + _FOREIGN
     )
     assert _fresh_interpreter(code) == "[]"

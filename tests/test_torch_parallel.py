@@ -6,10 +6,12 @@ inputs, in the cases of tests/test_parallel.py: shadows, no shadows, a
 height that does not divide, textures with Forward+ lights and the HDR post
 chain, TAA with motion vectors, CSM with the alpha test, frustum and Hi-Z
 culling with LOD over two frames, LOD at a far camera, edge MSAA, and TAAU
-at render_scale 0.5 and 0.3; at n = 2, 4 and 8. Then the band helpers
-against ash_tpu's over a grid of configs, the public surface against the
-reference's, and make_sharded_frame on the rich example against ash_tpu's
-own over JAX's 8 virtual CPU devices.
+at render_scale 0.5 and 0.3; at n = 2, 4 and 8. A LOD scene's shadow pass
+runs in bands (a raster of S/n rows a band, none of S) and gives the single
+frame's map, also in the (2 x 2) farm. Then the band helpers against
+ash_tpu's over a grid of configs, the public surface against the
+reference's, and make_sharded_frame on the rich and the LOD examples
+against ash_tpu's own over JAX's 8 virtual CPU devices.
 
 Tolerances:
 
@@ -239,6 +241,102 @@ def test_sharded_lod_selects_coarser_level(lod_example):
     assert not torch.equal(on.image, off.image)
 
 
+def _shadow_rasters(monkeypatch, cfg):
+    """Spy on the frame's raster: the row count of every shadow-pass call
+    (the shadow tiles' width tells them from the main pass's)."""
+    assert cfg.shadow_tile != cfg.tile_w
+    rows = []
+    real = frame.rasterize
+
+    def spy(setup, bins, height, width, tile_h, tile_w, *a, **kw):
+        if tile_w == cfg.shadow_tile:
+            rows.append(height)
+        return real(setup, bins, height, width, tile_h, tile_w, *a, **kw)
+
+    monkeypatch.setattr(frame, "rasterize", spy)
+    return rows
+
+
+def test_sharded_lod_shadow_renders_in_bands(lod_example, monkeypatch):
+    """A LOD frame over 4 bands renders the shadow map only in bands: one
+    raster of S/4 rows a band and none of S, where the single frame renders
+    the whole map once."""
+    scene, uni, _ = lod_example
+    cfg = _config(lod_enabled=True)
+    s = cfg.shadow_resolution
+    rows = _shadow_rasters(monkeypatch, cfg)
+    make_sharded_frame(cfg, mesh(4))(scene, uni)
+    assert rows == [s // 4] * 4
+    rows.clear()
+    single(cfg, scene, uni)
+    assert rows == [s]
+
+
+@pytest.mark.parametrize("case", ["lod", "csm_alpha", "culling"])
+def test_sharded_lod_banded_shadow_matches_single(lod_example, case):
+    """The banded LOD shadow pass gives the single frame's image, gathered
+    map and scalars bit for bit: the plain LOD frame; two cascades with the
+    alpha test (a two-layer peel a cascade a band); frustum and Hi-Z
+    culling with textures and lights."""
+    scene, uni, extras = lod_example
+    pool, lights, prev_depth = None, None, None
+    if case == "lod":
+        cfg = _config(lod_enabled=True)
+    elif case == "csm_alpha":
+        cfg = _config(lod_enabled=True, textured=True, alpha_test=True,
+                      shadow_cascades=2)
+        lsm = uni.light_space_matrix
+        uni = uni._replace(
+            cascade_matrices=torch.stack(
+                [lsm, lsm @ torch.diag(torch.tensor([0.5, 0.5, 1.0, 1.0]))]),
+            cascade_splits=torch.tensor([5.0, 50.0, 0.0, 0.0]))
+        pool = extras["pool"]
+    else:
+        cfg = _config(lod_enabled=True, textured=True, lights_enabled=True,
+                      frustum_culling=True, occlusion_culling=True)
+        pool, lights = extras["pool"], extras["lights"]
+        prev_depth = torch.ones((cfg.height, cfg.width))
+    got = make_sharded_frame(cfg, mesh(4))(scene, uni, pool=pool,
+                                           lights=lights,
+                                           prev_depth=prev_depth)
+    want = single(cfg, scene, uni, pool, lights=lights,
+                  prev_depth=prev_depth)
+    assert_same_frame(got, want)
+    assert torch.equal(got.image, want.image)
+    assert int(got.covered_pixels) > 0
+
+
+def test_banded_farm_lod_matches_sequential(lod_example):
+    """The (2 x 2) farm on the LOD example: each frame's bands render their
+    rows of the map under the frame's own level mask, and each frame equals
+    the frame rendered alone."""
+    from ash_tpu_torch.parallel import (batch_uniforms,
+                                        make_frame_parallel_banded)
+
+    scene, uni, _ = lod_example
+    cfg = dataclasses.replace(_config(lod_enabled=True),
+                              max_tris_per_tile=128,
+                              shadow_max_tris_per_tile=128)
+    # A nearer camera selects finer levels: frame 1's map has more
+    # triangles than frame 0's.
+    near = Camera.new([4.0, 3.0, 5.0], [0, 0, 0], 1.0)
+    view, proj = near.view_matrix(), near.projection_matrix()
+    unis = [uni, uni._replace(
+        view_proj=torch.from_numpy((proj @ view).astype(np.float32)),
+        view=torch.from_numpy(view.astype(np.float32)),
+        projection=torch.from_numpy(proj.astype(np.float32)),
+        camera_pos=torch.from_numpy(np.asarray(near.position, np.float32)))]
+    m = render_mesh(devices=[["cpu"] * 2] * 2, axis=("fp", "sp"))
+    out = make_frame_parallel_banded(cfg, m)(scene, batch_uniforms(unis))
+    for i, u in enumerate(unis):
+        want = single(cfg, scene, u)
+        assert torch.equal(out.image[i], want.image), f"frame {i}"
+        assert torch.equal(out.shadow_map[i], want.shadow_map), f"frame {i}"
+        assert int(out.covered_pixels[i]) == int(want.covered_pixels)
+        assert int(out.shadow_overflow[i]) == int(want.shadow_overflow) == 0
+    assert not torch.equal(out.shadow_map[0], out.shadow_map[1])
+
+
 def test_sharded_edge_msaa_matches_single(example):
     """Edge MSAA: a worklist per band, the overflow summed."""
     scene, uni = example
@@ -285,6 +383,12 @@ def test_shadow_bands_must_divide(example):
     cfg = dataclasses.replace(_config(), shadow_tile=128)
     with pytest.raises(ValueError, match="must divide into 8 bands"):
         make_sharded_frame(cfg, mesh(8))(scene, uni)
+    # A LOD scene's map is banded too, so it is refused the same way.
+    lod_scene, lod_uni = bench_scene.example_scene(n_cubes=2, lod=True,
+                                                   device="cpu")
+    lod_cfg = dataclasses.replace(cfg, lod_enabled=True)
+    with pytest.raises(ValueError, match="must divide into 8 bands"):
+        make_sharded_frame(lod_cfg, mesh(8))(lod_scene, lod_uni)
 
 
 def test_band_helpers_match_reference():
@@ -406,4 +510,44 @@ def test_sharded_rich_matches_ash_tpu(rich_example, rich_reference):
     flips = float((err > DEPTH_ATOL).mean())
     print(f"measured shadow map against ash_tpu: max abs err {err.max():.3e}, "
           f"{100 * flips:.3f}% of texels over {DEPTH_ATOL}")
+    assert flips <= MAX_FLIPS
+
+
+def test_sharded_lod_matches_ash_tpu(lod_example):
+    """make_sharded_frame on the LOD example (textures, lights, bloom,
+    shadows, the level mask in every pass) over 8 bands against ash_tpu's
+    over JAX's 8 virtual CPU devices, whose bands also render their rows of
+    the map under the mask. The tolerances of the rich case above: the u8
+    image within 1 LSB, the scalars equal, the gathered map within 1e-5 but
+    for at most 0.5% of its texels. The sphere's small triangles amplify
+    the reference's FMA contraction in the setup (ROADMAP.md C, PR 7), so
+    more texels pass 1e-5 than in the rich case (measured 0.165%, and
+    0.122% over the rich case's largest error, 1.61e-5); the port's
+    banded map is its single frame's bit for bit (the tests above)."""
+    import __graft_entry__ as ge
+
+    scene, uni, extras = lod_example
+    rscene, runi, rextras = ge._example_scene(n_cubes=6, rich=True, lod=True)
+    for f in scene._fields:
+        np.testing.assert_array_equal(getattr(scene, f).numpy(),
+                                      np.asarray(getattr(rscene, f)), f)
+    kw = dict(textured=True, lights_enabled=True, post_enabled=True,
+              bloom_mips=3, reinhard=False, lod_enabled=True)
+    ref_cfg = ref_frame.FrameConfig(**dataclasses.asdict(_config(**kw)))
+    ref = ref_parallel.make_sharded_frame(ref_cfg, ref_parallel.render_mesh(8))(
+        rscene, jax.tree.map(jnp.asarray, runi), pool=rextras["pool"],
+        post=ref_frame.PostParams.default(),
+        lights=jnp.asarray(rextras["lights"]))
+    ref = jax.tree.map(np.asarray, ref)
+    got = make_sharded_frame(_config(**kw), mesh(8))(
+        scene, uni, pool=extras["pool"], post=PostParams.default(),
+        lights=extras["lights"])
+    assert_images_match(got.image.numpy(), ref.image)
+    for f in ("covered_pixels", "binning_overflow", "shadow_overflow"):
+        assert int(getattr(got, f)) == int(getattr(ref, f)), f
+    err = np.abs(got.shadow_map.numpy() - ref.shadow_map)
+    flips = float((err > DEPTH_ATOL).mean())
+    print(f"measured LOD shadow map against ash_tpu: max abs err "
+          f"{err.max():.3e}, {100 * flips:.3f}% of texels over {DEPTH_ATOL}, "
+          f"{100 * float((err > 1.61e-5).mean()):.3f}% over 1.61e-5")
     assert flips <= MAX_FLIPS
