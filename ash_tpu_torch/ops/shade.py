@@ -12,8 +12,8 @@ min(spec, 10/max(0.04, F0)), kD = (1-F)(1-metallic), 16-tap PCF on the
 geometric normal, ambient times occlusion, emissive, and optional in-shader
 Reinhard (off when the HDR post chain follows). With a texture pool the
 five maps (base colour, normal, metallic-roughness, occlusion, emissive)
-are sampled with anisotropic filtering, and the normal map goes through the
-Gram-Schmidt TBN frame.
+are sampled with anisotropic filtering (ops/texture_cuda.py: a CUDA kernel
+on the card), and the normal map goes through the Gram-Schmidt TBN frame.
 `resolve_alpha_test` lets cut-out pixels fall through to the second peel
 layer; `pixel_alpha` and `composite_over` blend the shaded layers of a depth
 peel. With an environment, split-sum image-based lighting replaces the flat
@@ -29,8 +29,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import shadow as shadow_ops
-from . import texture_sample
+from . import texture_cuda, texture_sample
 from .geometry import TransformedVerts, TriangleSetup, _cross, transform_points
+from .texture_sample import Footprint, sample_footprint
 
 PI = 3.14159265359
 
@@ -227,7 +228,8 @@ def resolve_alpha_test(
         cutoff = torch.where(base_idx >= 0, cutoff_override, 0.0)
     else:
         cutoff = mat[..., 17]
-    alpha = texture_sample.sample_trilinear(pool, base_idx, uv, None)[..., 3]
+    alpha = texture_cuda.sample_trilinear(pool, base_idx, uv, None,
+                                          mask=mask)[..., 3]
     alpha = alpha * mat[..., 3]
     discard = mask & (cutoff > 0.0) & (alpha < cutoff)
     return VisibilityBuffer(
@@ -249,8 +251,8 @@ def pixel_alpha(
     alpha = mat[..., 3]
     if pool is not None:
         base_idx = mat[..., 12].to(torch.int32)
-        alpha = texture_sample.sample_trilinear(
-            pool, base_idx, gbuf.uv, None)[..., 3] * alpha
+        alpha = texture_cuda.sample_trilinear(
+            pool, base_idx, gbuf.uv, None, mask=gbuf.mask)[..., 3] * alpha
     cutoff = mat[..., 17]
     alpha = torch.where((cutoff > 0.0) & (alpha < cutoff), 0.0, alpha)
     return torch.where(gbuf.mask, alpha, 0.0)
@@ -265,15 +267,6 @@ def composite_over(
     always-on blend state)."""
     a = front_alpha[..., None]
     return front_color * a + back_color * (1.0 - a)
-
-
-class Footprint(NamedTuple):
-    """A map's screen footprint at each pixel: its LOD and, with
-    anisotropic filtering, its tap count and major-axis step in uv."""
-
-    lod: torch.Tensor  # (...,)
-    n_taps: Optional[torch.Tensor] = None  # (...,) f32 in [1, max_aniso]
-    major_uv: Optional[torch.Tensor] = None  # (..., 2)
 
 
 def map_footprint(pool, index, ddx, ddy, max_aniso: int = 1) -> Footprint:
@@ -297,32 +290,6 @@ def map_footprint(pool, index, ddx, ddy, max_aniso: int = 1) -> Footprint:
         n_taps=n_taps,
         major_uv=torch.where((lu >= lv)[..., None], ddx, ddy),
     )
-
-
-def sample_footprint(pool, index, uv, fp: Footprint,
-                     trips: Optional[int] = None) -> torch.Tensor:
-    """Sample texture `index` over its footprint -> (..., 4).
-
-    The anisotropic taps are spread along the major axis and averaged. The
-    loop runs `trips` times, which must be at least the largest n_taps of
-    every pixel whose value is used: a tap beyond a pixel's n_taps adds
-    exactly 0, so any such trip count gives the same bits. None takes the
-    largest n_taps of all pixels (one host sync)."""
-    if fp.n_taps is None:
-        return texture_sample.sample_trilinear(pool, index, uv, fp.lod)
-    if trips is None:
-        trips = int(fp.n_taps.max())
-    acc = torch.zeros(uv.shape[:-1] + (4,), dtype=torch.float32,
-                      device=uv.device)
-    for i in range(trips):
-        live = float(i) < fp.n_taps
-        # Tap position along the major axis; taps beyond a pixel's n_taps
-        # collapse onto the centre and weigh 0.
-        frac = torch.where(live, (float(i) + 0.5) / fp.n_taps - 0.5, 0.0)
-        tap = texture_sample.sample_trilinear(
-            pool, index, uv + fp.major_uv * frac[..., None], fp.lod)
-        acc = acc + tap * torch.where(live, 1.0, 0.0)[..., None]
-    return acc / fp.n_taps[..., None]
 
 
 def _sample_map(pool, index, uv, ddx, ddy, max_aniso: int = 1,
@@ -434,9 +401,11 @@ def shade_pbr(
     final composite stay f32, and so does the result. PyTorch rounds each
     operation to bf16.
 
-    With a pool, all five maps' anisotropic tap counts are taken first and
-    their largest over the covered pixels sets one trip count for every
-    map: one host sync per call. The light loop runs min(largest tile
+    With a pool, the five maps are sampled through ops/texture_cuda.py: on
+    the card one kernel launch a map, each pixel running its own tap count
+    (no host sync); on the CPU the plain sampler, whose trip count is the
+    map's largest tap count (one host sync a map). Uncovered pixels'
+    samples are 0. The light loop runs min(largest tile
     count, K) slots (a host sync), or all K slots when tile_light_counts
     is None; slots past a tile's count hold -1 and add nothing."""
     if dtype == torch.float32:
@@ -465,15 +434,12 @@ def shade_pbr(
         idx = {name: mat[..., col].to(torch.int32) for name, col in (
             ("base", 12), ("normal", 13), ("mr", 14), ("occ", 15),
             ("emis", 16))}
-        fps = {name: map_footprint(pool, i, gbuf.uv_ddx, gbuf.uv_ddy,
-                                   max_anisotropy) for name, i in idx.items()}
-        trips = None
-        if max_anisotropy > 1:
-            taps = torch.stack([fp.n_taps for fp in fps.values()]).amax(0)
-            trips = int(torch.where(gbuf.mask, taps, 0.0).max())
 
         def sample(name):
-            return sample_footprint(pool, idx[name], gbuf.uv, fps[name], trips)
+            fp = map_footprint(pool, idx[name], gbuf.uv_ddx, gbuf.uv_ddy,
+                               max_anisotropy)
+            return texture_cuda.sample_footprint(pool, idx[name], gbuf.uv, fp,
+                                                 mask=gbuf.mask)
 
         base_color = cast(sample("base"))[..., :3] * base_factor[..., :3]
 

@@ -5,8 +5,11 @@ All registered textures live in one flat array of texels; a per-texture mip
 table stores (offset, width, height) per level. A texture handle is an
 int32 index into the table, and -1 means "no texture: white". Sampling is
 the reference sampler's: REPEAT addressing, bilinear min/mag filtering and
-linear filtering between mips (trilinear). Anisotropic filtering is built
-on it in ops/shade.py (`_sample_map`).
+linear filtering between mips (trilinear). `sample_footprint` builds
+anisotropic filtering on it (the loop of ash_tpu/ops/shade.py:_sample_map)
+over the footprints that ops/shade.py:map_footprint computes. Both are the
+plain versions of csrc/texture.cu's kernel: ops/texture_cuda.py runs them
+for CPU tensors, and the kernel is held to them bit for bit.
 
 Texels are stored bfloat16: the sources are 8-bit images, so bf16's 8-bit
 mantissa loses nothing they had, and it halves the gathers' bytes.
@@ -167,3 +170,38 @@ def sample_trilinear(
     c1 = _bilinear_at_level(pool, safe_idx, l1, u, v)
     color = c0 * (1 - f) + c1 * f
     return torch.where((idx >= 0)[..., None], color, torch.ones_like(color))
+
+
+class Footprint(NamedTuple):
+    """A map's screen footprint at each pixel: its LOD and, with
+    anisotropic filtering, its tap count and major-axis step in uv."""
+
+    lod: torch.Tensor  # (...,)
+    n_taps: Optional[torch.Tensor] = None  # (...,) f32 in [1, max_aniso]
+    major_uv: Optional[torch.Tensor] = None  # (..., 2)
+
+
+def sample_footprint(pool, index, uv, fp: Footprint,
+                     trips: Optional[int] = None) -> torch.Tensor:
+    """Sample texture `index` over its footprint -> (..., 4).
+
+    The anisotropic taps are spread along the major axis and averaged. The
+    loop runs `trips` times, which must be at least the largest n_taps of
+    every pixel whose value is used: a tap beyond a pixel's n_taps adds
+    exactly 0, so any such trip count gives the same bits. None takes the
+    largest n_taps of all pixels (one host sync)."""
+    if fp.n_taps is None:
+        return sample_trilinear(pool, index, uv, fp.lod)
+    if trips is None:
+        trips = int(fp.n_taps.max())
+    acc = torch.zeros(uv.shape[:-1] + (4,), dtype=torch.float32,
+                      device=uv.device)
+    for i in range(trips):
+        live = float(i) < fp.n_taps
+        # Tap position along the major axis; taps beyond a pixel's n_taps
+        # collapse onto the centre and weigh 0.
+        frac = torch.where(live, (float(i) + 0.5) / fp.n_taps - 0.5, 0.0)
+        tap = sample_trilinear(
+            pool, index, uv + fp.major_uv * frac[..., None], fp.lod)
+        acc = acc + tap * torch.where(live, 1.0, 0.0)[..., None]
+    return acc / fp.n_taps[..., None]

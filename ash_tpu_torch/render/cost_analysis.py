@@ -11,10 +11,11 @@ analysis over the programs a frame dispatches).
   products, convolutions), and one per output element for a pointwise op;
 - programs: the `pass_*` scopes that ran, in order of first entry.
 
-The raster kernels launch through ctypes, which the dispatcher does not
-see: `ops/raster_cuda.rasterize` reports each launch's inputs and outputs,
-counted as bytes (their visibility test is not an aten op, so it adds no
-flops). On the CPU the plain raster's aten ops are counted instead.
+The raster and texture kernels launch through ctypes, which the dispatcher
+does not see: `ops/raster_cuda.rasterize` and `ops/texture_cuda` report each
+launch's inputs and outputs, counted as bytes (their work is not an aten
+op, so it adds no flops). On the CPU the plain versions' aten ops are
+counted instead.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
-from ..ops import raster_cuda
+from ..ops import raster_cuda, texture_cuda
 
 _ENTER = torch.ops.profiler._record_function_enter_new.default
 
@@ -60,15 +61,17 @@ class FrameCost(TorchDispatchMode):
                               if isinstance(t, torch.Tensor))
         return out
 
-    def _raster_launch(self, inputs, outputs) -> None:
+    def _kernel_launch(self, inputs, outputs) -> None:
         self.bytes_accessed += _tensor_bytes(inputs) + _tensor_bytes(outputs)
 
     def __enter__(self):
-        raster_cuda.rasterize.observers.append(self._raster_launch)
+        raster_cuda.rasterize.observers.append(self._kernel_launch)
+        texture_cuda.observers.append(self._kernel_launch)
         return super().__enter__()
 
     def __exit__(self, *exc):
-        raster_cuda.rasterize.observers.remove(self._raster_launch)
+        raster_cuda.rasterize.observers.remove(self._kernel_launch)
+        texture_cuda.observers.remove(self._kernel_launch)
         return super().__exit__(*exc)
 
     def result(self) -> Dict:

@@ -13,10 +13,11 @@ CUDA is absent, when the repository is not beside it, or when any phase
 fails. Phases, one stdout line each:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build: compiles ash_tpu_torch/csrc/raster.cu, which holds both kernels
-   (the one-layer raster and the K-layer depth peel, and the pre-pass that
-   computes their candidate rectangles), and prints each instantiation's
-   registers and spills (none may spill);
+2. build: compiles ash_tpu_torch/csrc/raster.cu, which holds both raster
+   kernels (the one-layer raster and the K-layer depth peel, and the
+   pre-pass that computes their candidate rectangles), and csrc/texture.cu
+   (the texture sampler), one nvcc each, started together, and prints each
+   instantiation's registers and spills (none may spill);
 3. kernels against plain: each CUDA kernel and the plain PyTorch raster on
    the same CUDA tensors at the main path's shapes; tri_id and depth of
    every layer must be equal bit for bit. One layer: the 1080p main pass
@@ -50,7 +51,9 @@ fails. Phases, one stdout line each:
    standard frame (four meshes with five 256x256 maps, anisotropy 16, every
    fourth cube alpha-tested): the peel runs at 2 layers in the shadow pass
    and the main pass of frame 1 and in the main pass after, the one-layer
-   kernel never; it equals its plain-raster frame, the alpha test takes the
+   kernel never, and the texture kernel 5 times a frame for the maps and
+   once for the alpha test (twice on frame 1, with the shadow pass); it
+   equals its plain-raster frame, the alpha test takes the
    second layer at some pixels, the frame differs from the same frame
    without the cutoff, and a frame with a new light direction re-renders
    the alpha-tested shadow map. Then the lit standard frame (bench.py's 32
@@ -164,11 +167,26 @@ fails. Phases, one stdout line each:
    frame, no overflow, B1 launched, the three check frames at PSNR >= 40
    dB and through the float check against benchmark/reference/); then
    the same cell shaded in bfloat16 (the control), whose check frames keep
-   PSNR >= 40 dB and must fail the float check.
+   PSNR >= 40 dB and must fail the float check;
+9. the texture kernel (csrc/texture.cu): the 1080p textured frame's own
+   sampler calls at anisotropy 16 and 1 (frame 1: the shadow pass's alpha
+   test at 2048^2, the main pass's at 1920x1080, the five maps), recorded
+   from the entry points, through the kernel and the plain sampler: bit
+   for bit on covered pixels and 0 elsewhere; each call's device time (50
+   bare launches), the entry's time and the plain sampler's, in turns,
+   beside its bound (bytes: a covered element's inputs and output once, an
+   uncovered one's mask and output, and the mip levels the covered
+   elements select once; operations: 115 f32 operations a footprint tap,
+   104 a trilinear one, over the taps the covered pixels need); frames 2 and 3
+   of each anisotropy with the kernel (5 map and 1 alpha-test launches a
+   frame, counted from 0) against the same frames with the plain sampler
+   patched in (u8 and colour, bit for bit), and pass_shade's and
+   pass_raster's device span beside the plain sampler's pass_shade.
 
 Then one JSON line on the kernels and, last, the device JSON line.
 """
 
+import concurrent.futures
 import contextlib
 import json
 import math
@@ -388,7 +406,7 @@ def frame_ms(step, n):
 def ptxas_usage(log):
     """{kernel: (registers, spill bytes)} from nvcc's -Xptxas -v log;
     raster_warp_kernel<L, HAS_FLOOR> is named by its L and floor, the
-    rectangles' pre-pass "rects"."""
+    rectangles' pre-pass "rects", csrc/texture.cu's sampler "texture"."""
     usage, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"raster_warp_kernelILi(\d+)ELb([01])E", ln)
@@ -397,6 +415,8 @@ def ptxas_usage(log):
             spill = None
         elif "Compiling entry function" in ln and "candidate_rects_kernel" in ln:
             name, spill = "rects", None
+        elif "Compiling entry function" in ln and "sample_kernel" in ln:
+            name, spill = "texture", None
         elif name and "spill stores" in ln:
             spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill", ln))
         elif name and "Used" in ln and "registers" in ln:
@@ -1310,6 +1330,235 @@ def benchmark_phase(card, kind):
           and line["correct"] is False, "benchmark control: not refused")
 
 
+# f32 operations of one tap of csrc/texture.cu: two bilinear levels of 46
+# (the texel coordinates, floors, weights and three 4-channel lerps), the
+# trilinear blend (12); a footprint tap adds its position (7) and the sum
+# (4).
+OPS_TRILINEAR_TAP = 104
+OPS_FOOTPRINT_TAP = 115
+TEXTURE_MAPS = ("base", "normal", "mr", "occ", "emis")
+# A textured frame 1's sampler calls, in order: the shadow pass's alpha
+# test, the main pass's, then shade_pbr's five maps.
+SAMPLER_CALLS = [("alpha", "alpha test shadow"), ("alpha", "alpha test main"),
+                 *(("map", m) for m in TEXTURE_MAPS)]
+
+
+def sampler_calls(rend, view, proj, pos):
+    """Render frame 1 of `rend` with the texture entry points wrapped ->
+    [(name, pool, index, uv, footprint or None, mask)] in call order, named
+    as SAMPLER_CALLS names a textured frame 1's calls."""
+    from ash_tpu_torch.ops import texture_cuda
+
+    calls = []
+    real_fp = texture_cuda.sample_footprint
+    real_tri = texture_cuda.sample_trilinear
+
+    def footprint(pool, index, uv, fp, mask):
+        calls.append(("map", pool, index, uv, fp, mask))
+        return real_fp(pool, index, uv, fp, mask)
+
+    def trilinear(pool, idx, uv, lod, mask):
+        calls.append(("alpha", pool, idx, uv, None, mask))
+        return real_tri(pool, idx, uv, lod, mask)
+
+    with mock.patch.object(texture_cuda, "sample_footprint", footprint), \
+            mock.patch.object(texture_cuda, "sample_trilinear", trilinear):
+        rend.render_frame(view, proj, pos)
+    kinds = [c[0] for c in calls]
+    check(kinds == [k for k, _ in SAMPLER_CALLS],
+          f"textured frame 1: sampler calls {kinds}")
+    return [(name, *c[1:]) for (_, name), c in zip(SAMPLER_CALLS, calls)]
+
+
+def plain_sample(pool, index, uv, fp, mask):
+    """The plain sampler on the same tensors; the footprint's trip count is
+    the largest tap count over the covered elements (one host sync)."""
+    import torch
+
+    from ash_tpu_torch.ops import texture_sample
+
+    if fp is None:
+        return texture_sample.sample_trilinear(pool, index, uv, None)
+    trips = None
+    if fp.n_taps is not None:
+        trips = int(torch.where(mask, fp.n_taps, 0.0).max())
+    return texture_sample.sample_footprint(pool, index, uv, fp, trips)
+
+
+def texture_work(pool, index, uv, fp, mask):
+    """(bound ms, "bytes" or "operations", bytes, operations, taps) of one
+    sampler launch at the memory rate and the f32 rate. Bytes: a covered
+    element reads its inputs (index, uv, mask and the footprint's tensors)
+    and writes 16; an uncovered one reads its mask and writes 16; the mip
+    table entries of the levels the covered elements select, and the
+    texels of those levels (textures the covered elements name), are read
+    once. Operations: the taps these inputs need (covered elements with a
+    texture, n_taps each)."""
+    import torch
+
+    n = index.numel()
+    ins = [index, uv, *(t for t in (fp if fp is not None else ())
+                        if t is not None)]
+    per_element = sum(t.element_size() * (t.numel() // n) for t in ins)
+    nbytes = n * (mask.element_size() + 16) + int(mask.sum()) * per_element
+    # The kernel's two levels an element (texture_sample.sample_trilinear).
+    tex = index.clamp_min(0).long()
+    levels = pool.levels[tex]
+    lod = fp.lod if fp is not None else torch.zeros_like(uv[..., 0])
+    floor_level = (pool.min_level[tex].to(torch.float32)
+                   if pool.min_level is not None else torch.zeros_like(lod))
+    lod = torch.minimum(torch.maximum(lod, floor_level),
+                        (levels - 1).to(torch.float32))
+    l0 = torch.floor(lod).to(torch.int32)
+    max_mips = pool.table.shape[1]
+    live = mask & (index >= 0)
+
+    def entries(where):
+        keys = [tex * max_mips + lv.clamp(0, max_mips - 1).long()
+                for lv in (l0, torch.minimum(l0 + 1, levels - 1))]
+        return torch.cat([k[where] for k in keys]).unique()
+
+    read = entries(mask)
+    sizes = pool.table.view(-1, 3)[entries(live)].long()
+    per_texture = 4 * (1 + (pool.min_level is not None))
+    nbytes += (read.numel() * 12 + int(tex[mask].unique().numel()) * per_texture
+               + int((sizes[:, 1] * sizes[:, 2]).sum()) * 8)
+    if fp is not None and fp.n_taps is not None:
+        taps = float(torch.where(live, fp.n_taps, 0.0).sum())
+        ops = taps * OPS_FOOTPRINT_TAP
+    else:
+        taps = float(live.sum())
+        ops = taps * OPS_TRILINEAR_TAP
+    t_bytes, t_ops = nbytes / MEM_RATE * 1e3, ops / F32_RATE * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, ops, taps)
+
+
+def texture_phase(card, view, proj, pos, tex_launches):
+    """Phase 9: the texture kernel (csrc/texture.cu) against the plain
+    sampler at the 1080p textured frame's own inputs (its frame 1: the
+    shadow and main passes' alpha tests and the five maps) at anisotropy 16
+    and 1, bit for bit on covered elements and 0 elsewhere; each launch
+    timed (CUDA events, plain, kernel, kernel, plain) beside its bound;
+    frames 2 and 3 with the kernel (launches counted from 0) against the
+    same frames with the plain sampler patched in. -> ({shape: its
+    numbers}, the largest |kernel - plain| on covered elements)."""
+    import torch
+
+    from ash_tpu_torch.ops import texture_cuda, texture_sample
+    from ash_tpu_torch.render.bench_scene import build_bench_renderer
+
+    def counts():
+        return [texture_cuda.launches[k] for k in ("footprint", "trilinear")]
+
+    def sample(pool, index, uv, fp, mask):
+        if fp is None:
+            return texture_cuda.sample_trilinear(pool, index, uv, None, mask)
+        return texture_cuda.sample_footprint(pool, index, uv, fp, mask=mask)
+
+    def plain_footprint(pool, index, uv, fp, mask):
+        return plain_sample(pool, index, uv, fp, mask)
+
+    def plain_trilinear(pool, idx, uv, lod, mask):
+        return texture_sample.sample_trilinear(pool, idx, uv, lod)
+
+    rows, max_err = {}, 0.0
+    for aniso in (16, 1):
+        rend = build_bench_renderer(1920, 1080, 1000, "cuda", textured=True,
+                                    max_anisotropy=aniso)[0]
+        for name, pool, index, uv, fp, mask in sampler_calls(rend, view, proj,
+                                                             pos):
+            got = sample(pool, index, uv, fp, mask)
+            want = plain_sample(pool, index, uv, fp, mask)
+            bad = int((got.view(torch.int32) != want.view(torch.int32))[
+                mask].sum())
+            nonzero = int((got[~mask] != 0).sum())
+            err = float((got - want)[mask].abs().max())
+            max_err = max(max_err, err)
+            check(bad == 0 and nonzero == 0,
+                  f"texture kernel != plain sampler on {name} (anisotropy "
+                  f"{aniso}): {bad} covered values differ, {nonzero} "
+                  f"uncovered values not 0")
+            launch, _ = texture_cuda.launcher(
+                pool, index, uv, mask, *((fp.lod, fp.n_taps, fp.major_uv)
+                                         if fp is not None else ()))
+            kern, plain = [], []
+            for order in ("plain", "kernel", "kernel", "plain"):
+                if order == "kernel":
+                    kern.append(cuda_ms(launch, 50))
+                else:
+                    plain.append(cuda_ms(
+                        lambda: plain_sample(pool, index, uv, fp, mask), 3))
+            bound, bound_by, nbytes, ops, taps = texture_work(
+                pool, index, uv, fp, mask)
+            row = dict(size="x".join(map(str, index.shape[::-1])),
+                       device_ms=statistics.mean(kern),
+                       plain_ms=statistics.mean(plain),
+                       wrapper_ms=cuda_ms(
+                           lambda: sample(pool, index, uv, fp, mask), 20),
+                       bound_ms=bound, bound_by=bound_by, bytes=nbytes,
+                       operations=ops, covered=int(mask.sum()), taps=taps,
+                       max_abs_err=err)
+            row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+            rows[f"aniso {aniso} {name}"] = row
+            print(f"phase9 texture kernel {name}, anisotropy {aniso} "
+                  f"({row['size']}, {row['covered']} covered, {taps:g} "
+                  f"taps): covered values unequal to the plain sampler 0, "
+                  f"max |err| {err}; device {row['device_ms']} ms (mean of 50 "
+                  f"launches), entry {row['wrapper_ms']} ms, plain "
+                  f"{row['plain_ms']} ms; bound {row['bound_ms']} ms by "
+                  f"{bound_by} ({nbytes} bytes, {ops:g} f32 operations), "
+                  f"{100 * row['share_of_bound']:.1f}% of it", flush=True)
+        # Frames 2 and 3 (frame 1 was sampler_calls') with the kernel, its
+        # launches counted from 0; the same frames with the plain sampler
+        # patched in, which launches nothing.
+        path = f"textured aniso{aniso}"
+        for k in texture_cuda.launches:
+            texture_cuda.launches[k] = 0
+        frames = []
+        for _ in range(2):
+            rend.render_frame(view, proj, pos)
+            frames.append((rend.read_back().copy(),
+                           rend.last_outputs().color.clone()))
+        launched = counts()
+        if aniso == 1:  # phase 4 counted the anisotropy-16 frame
+            tex_launches[path] = launched
+        check(launched == [10, 2], f"{path}: texture launches (footprint, "
+              f"trilinear) {launched}, want [10, 2]")
+        plain = build_bench_renderer(1920, 1080, 1000, "cuda", textured=True,
+                                     max_anisotropy=aniso)[0]
+        with mock.patch.object(texture_cuda, "sample_footprint",
+                               plain_footprint), \
+                mock.patch.object(texture_cuda, "sample_trilinear",
+                                  plain_trilinear):
+            plain.render_frame(view, proj, pos)
+            for image, color in frames:
+                plain.render_frame(view, proj, pos)
+                check(np.array_equal(plain.read_back(), image)
+                      and torch.equal(
+                          plain.last_outputs().color.view(torch.int32),
+                          color.view(torch.int32)),
+                      f"{path}: a frame with the kernel != the frame with "
+                      "the plain sampler")
+            plain_shade = scope_device_ms(
+                lambda i: plain.render_frame(view, proj, pos), "pass_shade",
+                n=2)[0]
+        check(counts() == launched, f"{path}: the plain frames launched the "
+              "texture kernel")
+        shade_ms = scope_device_ms(lambda i: rend.render_frame(view, proj, pos),
+                                   "pass_shade")[0]
+        raster_ms = scope_device_ms(
+            lambda i: rend.render_frame(view, proj, pos), "pass_raster")[0]
+        del rend, plain, frames
+        print(f"phase9 {path} frame: frames 2 and 3 with the kernel equal "
+              f"the plain sampler's (u8 and colour); texture launches "
+              f"(footprint, trilinear) {launched}; device span a static "
+              f"frame: pass_shade {shade_ms:.3f} ms (the plain sampler's "
+              f"{plain_shade:.3f}), pass_raster {raster_ms:.3f} ms ({card})",
+              flush=True)
+    return rows, max_err
+
+
 def main() -> int:
     import torch
 
@@ -1321,6 +1570,7 @@ def main() -> int:
 
     import ash_tpu_torch
     from ash_tpu_torch.ops import _build, binning, raster, raster_cuda
+    from ash_tpu_torch.ops import texture_cuda
     from ash_tpu_torch.render import RenderCommand, frame, golden_scenes
     from ash_tpu_torch.core import maths
     from ash_tpu_torch.render import bench_scene
@@ -1347,14 +1597,20 @@ def main() -> int:
     print(f"phase1 device: {card} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | {kind}", flush=True)
 
-    # 2. Build.
+    # 2. Build: one nvcc per source, started together.
     t0 = time.perf_counter()
-    lib = _build.build("raster")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        lib, tex_lib = pool.map(_build.build, ["raster", "texture"])
     build_s = time.perf_counter() - t0
     usage = ptxas_usage(lib.with_suffix(".log").read_text())
     check(len(usage) == 16, f"{len(usage)} kernels, want 15 raster "
           "instantiations and the rectangles' pre-pass")
-    print(f"phase2 build: {lib.name} (both kernels) in {build_s:.3f} s; "
+    tex_usage = ptxas_usage(tex_lib.with_suffix(".log").read_text())
+    check(list(tex_usage) == ["texture"],
+          f"texture library kernels {list(tex_usage)}")
+    usage.update(tex_usage)
+    print(f"phase2 build: {lib.name} (both raster kernels) and "
+          f"{tex_lib.name} (the texture sampler) in {build_s:.3f} s; "
           + "; ".join(f"{k}: {r} registers, {sp} spill bytes"
                       for k, (r, sp) in sorted(usage.items())), flush=True)
     spills = {k: sp for k, (_, sp) in usage.items() if sp}
@@ -1668,12 +1924,21 @@ def main() -> int:
 
     # The textured standard frame: the alpha test peels two layers in the
     # shadow pass and the main pass, so only the peel kernel runs.
+    # Its samples go through the texture kernel: five maps a frame and the
+    # alpha test of the main pass, and of the shadow pass on frame 1.
     rt, _, _, _ = build_bench_renderer(1920, 1080, 1000, "cuda", textured=True)
     raster_cuda.rasterize.launches = 0
     raster_cuda.rasterize.layer_launches = 0
+    for k in texture_cuda.launches:
+        texture_cuda.launches[k] = 0
     t_one, t_peel, t_outs = launches_per_frame(rt, view, proj, pos, 4)
     launches["textured"] = raster_cuda.rasterize.launches
     layer_launches["textured"] = raster_cuda.rasterize.layer_launches
+    tex_launches = {"textured": [texture_cuda.launches["footprint"],
+                                 texture_cuda.launches["trilinear"]]}
+    check(tex_launches["textured"] == [20, 5],
+          f"textured: texture launches (footprint, trilinear) "
+          f"{tex_launches['textured']}, want [20, 5]")
     timage = rt.read_back().copy()
     tout = t_outs[0]
     check(t_peel == [2, 1, 1, 1], f"textured: peel launches per frame {t_peel}")
@@ -2333,8 +2598,9 @@ def main() -> int:
           f"{int(tout.binning_overflow)} shadow {int(tout.shadow_overflow)}; "
           f"covered {int(tout.covered_pixels)}; equal to the plain-raster "
           f"frame: {tequal}; pixels where the alpha test took layer 2: "
-          f"{fell}; PSNR against alpha_cutoff=0 {nocut_psnr:.2f} dB",
-          flush=True)
+          f"{fell}; PSNR against alpha_cutoff=0 {nocut_psnr:.2f} dB; "
+          f"texture kernel launches (footprint, trilinear) in 4 frames "
+          f"{tex_launches['textured']}", flush=True)
     print(f"phase4 lit frame: one-layer launches per frame {l_one}, peel "
           f"{l_peel}; overflow main {int(lout.binning_overflow)} shadow "
           f"{int(lout.shadow_overflow)}; equal to the plain-raster frame: "
@@ -2658,6 +2924,9 @@ def main() -> int:
     host_profile_phase(card, kind, launches, layer_launches)
     lod_sharded_phase(card, launches, layer_launches)
     benchmark_phase(card, kind)
+    # 9. The texture kernel at the textured frame's inputs, its frames
+    # against the plain sampler's, the anisotropy-1 path counted from 0.
+    tex_rows, tex_err = texture_phase(card, view, proj, pos, tex_launches)
 
     foreign = sorted(m for m in sys.modules if m in ("jax", "ash_tpu")
                      or m.startswith(("jax.", "ash_tpu.")))
@@ -2685,6 +2954,31 @@ def main() -> int:
                          for n, k, f in shapes},
         }
 
+    # The texture kernel's main shape: the anisotropy-16 frame's five maps,
+    # summed (the sampling of one pass_shade).
+    tex_main = {k: sum(tex_rows[f"aniso 16 {m}"][k] for m in TEXTURE_MAPS)
+                for k in ("device_ms", "plain_ms", "wrapper_ms", "bound_ms")}
+    tex_by = max((tex_rows[f"aniso 16 {m}"] for m in TEXTURE_MAPS),
+                 key=lambda row: row["bound_ms"])["bound_by"]
+    texture_line = {
+        "name": "texture_sample",
+        "route": "cuda",
+        "source": "ash_tpu_torch/csrc/texture.cu",
+        # jax.numpy, not a TPU kernel: XLA fuses the reference's sampler.
+        "replaces": "ash_tpu/ops/shade.py:348",
+        "launches": sum(map(sum, tex_launches.values())),
+        "launches_by_path": tex_launches,
+        "max_abs_err": tex_err,
+        "ms": tex_main["device_ms"],
+        "plain_ms": tex_main["plain_ms"],
+        "bound_ms": tex_main["bound_ms"],
+        "bound_by": tex_by,  # that of the map with the largest bound
+        # No PyTorch call samples a REPEAT-wrapped mip pool anisotropically.
+        "library_ms": None,
+        "device_ms": tex_main["device_ms"],
+        "wrapper_ms": tex_main["wrapper_ms"],
+        "by_shape": tex_rows,
+    }
     print(json.dumps({"kernels": [
         kernel_line("raster", "ash_tpu/ops/raster_pallas.py:106", launches,
                     max_err, ("main", 1, False),
@@ -2697,6 +2991,7 @@ def main() -> int:
                     layer_launches, max_err_layers, ("main", 4, False),
                     [("main", 2, False), ("main", 4, False),
                      ("main", 8, False), ("main", 4, True)]),
+        texture_line,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
