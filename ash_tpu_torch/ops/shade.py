@@ -31,7 +31,7 @@ import torch
 from . import shadow as shadow_ops
 from . import texture_cuda, texture_sample
 from .geometry import TransformedVerts, TriangleSetup, _cross, transform_points
-from .texture_sample import Footprint, sample_footprint
+from .texture_sample import _norm, map_footprint, sample_footprint
 
 PI = 3.14159265359
 
@@ -68,10 +68,6 @@ def fresnel_schlick(cos_theta, f0):
     t2 = t * t
     t5 = t2 * t2 * t
     return f0 + (1.0 - f0) * t5[..., None]
-
-
-def _norm(v):
-    return torch.linalg.vector_norm(v, dim=-1)
 
 
 def _normalize(v, eps=1e-8):
@@ -269,29 +265,6 @@ def composite_over(
     return front_color * a + back_color * (1.0 - a)
 
 
-def map_footprint(pool, index, ddx, ddy, max_aniso: int = 1) -> Footprint:
-    """The footprint of texture `index` (level 0's size) under the uv
-    derivatives. With max_aniso > 1 it is the footprint assembly of the
-    reference sampler's anisotropic filtering: n_taps = ceil(major /
-    minor) taps, at the mip where n_taps minor footprints cover the major
-    axis."""
-    base = pool.table[index.clamp_min(0).long(), 0]  # (..., 3): offset, w, h
-    tw = base[..., 1].to(torch.float32)
-    th = base[..., 2].to(torch.float32)
-    lu = _norm(torch.stack([ddx[..., 0] * tw, ddx[..., 1] * th], -1))
-    lv = _norm(torch.stack([ddy[..., 0] * tw, ddy[..., 1] * th], -1))
-    rho_max = torch.maximum(lu, lv).clamp_min(1e-8)
-    if max_aniso <= 1:
-        return Footprint(lod=torch.log2(rho_max).clamp_min(0.0))
-    rho_min = torch.minimum(lu, lv).clamp_min(1e-8)
-    n_taps = torch.ceil(rho_max / rho_min).clamp(1.0, float(max_aniso))
-    return Footprint(
-        lod=torch.log2(rho_max / n_taps).clamp_min(0.0),
-        n_taps=n_taps,
-        major_uv=torch.where((lu >= lv)[..., None], ddx, ddy),
-    )
-
-
 def _sample_map(pool, index, uv, ddx, ddy, max_aniso: int = 1,
                 trips: Optional[int] = None):
     """Sample a map with its analytic LOD and anisotropic filtering;
@@ -401,9 +374,10 @@ def shade_pbr(
     final composite stay f32, and so does the result. PyTorch rounds each
     operation to bf16.
 
-    With a pool, the five maps are sampled through ops/texture_cuda.py: on
-    the card one kernel launch a map, each pixel running its own tap count
-    (no host sync); on the CPU the plain sampler, whose trip count is the
+    With a pool, the five maps are sampled through
+    ops/texture_cuda.sample_maps: on the card one kernel launch computes
+    the five footprints and samples, each pixel running its own tap count
+    (no host sync); on the CPU the plain sampler, whose trip count is each
     map's largest tap count (one host sync a map). Uncovered pixels'
     samples are 0. The light loop runs min(largest tile
     count, K) slots (a host sync), or all K slots when tile_light_counts
@@ -431,17 +405,16 @@ def shade_pbr(
     occlusion = None
     emissive = emissive_factor[..., :3]
     if pool is not None:
-        idx = {name: mat[..., col].to(torch.int32) for name, col in (
-            ("base", 12), ("normal", 13), ("mr", 14), ("occ", 15),
-            ("emis", 16))}
+        names = ("base", "normal", "mr", "occ", "emis")
+        indices = mat[..., 12:17].to(torch.int32)
+        idx = dict(zip(names, indices.unbind(-1)))
+        # Each sample leaves the dict where it is used, so the ones used up
+        # early (base colour, occlusion) are freed there.
+        samples = dict(zip(names, texture_cuda.sample_maps(
+            pool, indices, gbuf.uv, gbuf.uv_ddx, gbuf.uv_ddy, max_anisotropy,
+            gbuf.mask)))
 
-        def sample(name):
-            fp = map_footprint(pool, idx[name], gbuf.uv_ddx, gbuf.uv_ddy,
-                               max_anisotropy)
-            return texture_cuda.sample_footprint(pool, idx[name], gbuf.uv, fp,
-                                                 mask=gbuf.mask)
-
-        base_color = cast(sample("base"))[..., :3] * base_factor[..., :3]
+        base_color = cast(samples.pop("base"))[..., :3] * base_factor[..., :3]
 
         # TBN with a safe fallback tangent, Gram-Schmidt and the backface
         # flip, then normal mapping.
@@ -454,7 +427,7 @@ def shade_pbr(
         g = cast(gbuf.normal)
         t = _normalize(t - _dot(t, g)[..., None] * g) * flip
         b = _cross(n, t) * cast(gbuf.tangent[..., 3:4])
-        map_sample = cast(sample("normal")[..., :3])
+        map_sample = cast(samples.pop("normal")[..., :3])
         mn = map_sample * 2.0 - 1.0
         mn = torch.cat([mn[..., :2] * cast(mat[..., 11, None]), mn[..., 2:]], -1)
         mapped = t * mn[..., 0:1] + b * mn[..., 1:2] + n * mn[..., 2:3]
@@ -462,18 +435,18 @@ def shade_pbr(
               & (idx["normal"] >= 0))
         normal = torch.where(ok[..., None], _normalize(mapped), n)
 
-        mr = cast(sample("mr"))
+        mr = cast(samples.pop("mr"))
         has_mr = idx["mr"] >= 0
         metallic = torch.where(has_mr, metallic * mr[..., 2], metallic)
         roughness = torch.where(
             has_mr, (roughness * mr[..., 1]).clamp_min(0.04), roughness)
 
-        occ = cast(sample("occ")[..., 0])
+        occ = cast(samples.pop("occ")[..., 0])
         occlusion = torch.where(idx["occ"] >= 0,
                                 1.0 + (occ - 1.0) * cast(mat[..., 10]), 1.0)
 
         # Emissive's sample stays f32, as in the reference.
-        es = sample("emis")[..., :3]
+        es = samples.pop("emis")[..., :3]
         emissive = torch.where((idx["emis"] >= 0)[..., None],
                                emissive * es, emissive)
 

@@ -1,27 +1,29 @@
-"""Texture sampling's entry point: the CUDA kernel of csrc/texture.cu on the
+"""Texture sampling's entry points: the CUDA kernel of csrc/texture.cu on the
 card.
 
 Replaces the eager, tap-by-tap sampler on the textured frame's path (the
 port of ash_tpu/ops/shade.py:_sample_map, jax.numpy over
 ash_tpu/ops/texture_sample.py:sample_trilinear; not a TPU kernel). Every
-texture sample of a frame goes through here: shade_pbr's five maps, the
-alpha test (`resolve_alpha_test`) and the blend's alpha (`pixel_alpha`).
+texture sample of a frame goes through here: `sample_maps` takes shade_pbr's
+five maps, footprints and anisotropic samples together, in one launch;
+`sample_trilinear` takes the alpha test's sample (`resolve_alpha_test`) and
+the blend's alpha (`pixel_alpha`).
 
 - CUDA tensors launch the hand-written kernel (built by ops/_build.py at
   first use) or raise; nothing falls back. Each element runs its own tap
   count, so no trip count is taken from the device (no host sync).
-- CPU tensors run the plain versions, ops/texture_sample.py's
-  sample_footprint and sample_trilinear, which are the kernel's reference.
+- CPU tensors run the plain versions, ops/texture_sample.py's sample_maps
+  and sample_trilinear, which are the kernel's reference.
 
 Every caller passes the G-buffer's mask: elements where it is False are
 written 0 on either device (the kernel skips them), and every caller
 discards them.
 
-`launches["footprint"]` and `launches["trilinear"]` count the kernel's
-launches through each entry (and nothing else), so a run can show that its
-frames went through the kernel. Each callable in `observers` is handed
-every launch's input and output tensors (render/cost_analysis.py counts
-their bytes).
+`launches["maps"]` and `launches["trilinear"]` count the kernel's launches
+through each entry (and nothing else), so a run can show that its frames
+went through the kernel. Each callable in `observers` is handed every
+launch's input and output tensors (render/cost_analysis.py counts their
+bytes).
 """
 
 from __future__ import annotations
@@ -36,16 +38,23 @@ from .texture_sample import TexturePool
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
-launches = {"footprint": 0, "trilinear": 0}
+# The maps a shade_pbr call samples: base colour, normal, metallic-roughness,
+# occlusion, emissive.
+MAPS = 5
+
+launches = {"maps": 0, "trilinear": 0}
 observers = []
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load("texture")
-    lib.ash_sample_footprint.argtypes = (
-        [_P, _I, _P, _I, _I] + [_P] * 9 + [_I] * 2 + [_P])
-    lib.ash_sample_footprint.restype = _I
+    pool_args = [_P, _I, _P, _I, _I, _P, _P]
+    lib.ash_sample_maps.argtypes = (pool_args + [_P] * 5 + [_I, _P]
+                                    + [_I] * 2 + [_P])
+    lib.ash_sample_maps.restype = _I
+    lib.ash_sample_trilinear.argtypes = pool_args + [_P] * 5 + [_I] * 2 + [_P]
+    lib.ash_sample_trilinear.restype = _I
     return lib
 
 
@@ -61,20 +70,14 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"texture kernel: {name} must be contiguous")
 
 
-def check_inputs(pool: TexturePool, index, uv, mask, lod=None, n_taps=None,
-                 major_uv=None) -> None:
-    """Raise ValueError unless the inputs are what the kernel takes: one
-    device, the pool's dtypes and shapes, int32 `index` of the elements'
-    shape S (one dimension or more), f32 `uv` S + (2,), bool `mask` S, f32
-    `lod` S, f32 `n_taps` S with f32 `major_uv` S + (2,) (both or neither),
-    every tensor contiguous. Both devices check, so a CPU run shows
-    what the card would refuse."""
+def _check_elements(pool: TexturePool, uv, mask, outputs: int):
+    """Check the pool, `uv` and `mask` -> (device, the elements' shape S)."""
     device = uv.device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"texture kernel: unsupported device {device}")
-    shape = tuple(index.shape)
+    shape = tuple(uv.shape[:-1])
     if not shape:
-        raise ValueError("texture kernel: index needs a dimension")
+        raise ValueError("texture kernel: the elements need a dimension")
     n_tex, max_mips = pool.table.shape[0], pool.table.shape[1]
     _check("pool.texels", pool.texels, torch.bfloat16,
            (pool.texels.shape[0], 4), device)
@@ -82,88 +85,138 @@ def check_inputs(pool: TexturePool, index, uv, mask, lod=None, n_taps=None,
     _check("pool.levels", pool.levels, torch.int32, (n_tex,), device)
     if pool.min_level is not None:
         _check("pool.min_level", pool.min_level, torch.int32, (n_tex,), device)
-    _check("index", index, torch.int32, shape, device)
     _check("uv", uv, torch.float32, shape + (2,), device)
     _check("mask", mask, torch.bool, shape, device)
-    if lod is not None:
-        _check("lod", lod, torch.float32, shape, device)
-    if (n_taps is None) != (major_uv is None):
-        raise ValueError("texture kernel: n_taps and major_uv go together")
-    if n_taps is not None:
-        _check("n_taps", n_taps, torch.float32, shape, device)
-        _check("major_uv", major_uv, torch.float32, shape + (2,), device)
-    if (index.numel() * 4 >= 2**31 or pool.texels.shape[0] >= 2**31
+    if (mask.numel() * outputs * 4 >= 2**31 or pool.texels.shape[0] >= 2**31
             or n_tex * max_mips * 3 >= 2**31):
         raise ValueError("texture kernel: 32-bit index range exceeded")
+    return device, shape
 
 
-def launcher(pool: TexturePool, index, uv, mask, lod=None, n_taps=None,
-             major_uv=None):
-    """Check the inputs on a CUDA device, allocate the (..., 4) output and
-    return (launch, out): `launch()` runs the kernel once on the current
-    stream into `out` and counts nothing. The entry points count; this
-    split lets a timing loop replay the bare launch."""
+def check_maps(pool: TexturePool, indices, uv, ddx, ddy, max_aniso,
+               mask) -> None:
+    """Raise ValueError unless the inputs are what ash_sample_maps takes:
+    one device, the pool's dtypes and shapes, f32 `uv`, `ddx` and `ddy` of
+    shape S + (2,) for the elements' shape S (one dimension or more), int32
+    `indices` S + (5,), bool `mask` S, an int `max_aniso`, every tensor
+    contiguous. Both devices check, so a CPU run shows what the card would
+    refuse."""
+    device, shape = _check_elements(pool, uv, mask, MAPS)
+    _check("indices", indices, torch.int32, shape + (MAPS,), device)
+    _check("ddx", ddx, torch.float32, shape + (2,), device)
+    _check("ddy", ddy, torch.float32, shape + (2,), device)
+    if not isinstance(max_aniso, int) or not -2**31 <= max_aniso < 2**31:
+        raise ValueError(f"texture kernel: max_aniso {max_aniso!r} is not "
+                         "a 32-bit int")
+
+
+def check_trilinear(pool: TexturePool, index, uv, lod, mask) -> None:
+    """Raise ValueError unless the inputs are what ash_sample_trilinear
+    takes: as check_maps, with int32 `index` of shape S and f32 `lod` S or
+    None."""
+    device, shape = _check_elements(pool, uv, mask, 1)
+    _check("index", index, torch.int32, shape, device)
+    if lod is not None:
+        _check("lod", lod, torch.float32, shape, device)
+
+
+def _cuda_only(uv, pool):
     device = uv.device
     if device.type != "cuda":
         raise ValueError(f"texture kernel: unsupported device {device}")
-    check_inputs(pool, index, uv, mask, lod, n_taps, major_uv)
     if pool.texels.data_ptr() % 8:
         raise ValueError("texture kernel: pool.texels must be 8-byte aligned")
-    out = torch.empty(tuple(index.shape) + (4,), dtype=torch.float32,
-                      device=device)
-    cols = index.shape[-1]
-    rows = index.numel() // cols if cols else 0
-    lib = _library()
+    return device
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
 
+def _pool_args(pool):
+    return (pool.texels.data_ptr(), pool.texels.shape[0],
+            pool.table.data_ptr(), pool.table.shape[0], pool.table.shape[1],
+            pool.levels.data_ptr(),
+            None if pool.min_level is None else pool.min_level.data_ptr())
+
+
+def _grid(mask):
+    cols = mask.shape[-1]
+    return (mask.numel() // cols if cols else 0), cols
+
+
+def _launch_fn(device, rows, entry, *args):
     def launch():
         if rows == 0:
             return
         with torch.cuda.device(device):
-            err = lib.ash_sample_footprint(
-                ptr(pool.texels), pool.texels.shape[0], ptr(pool.table),
-                pool.table.shape[0], pool.table.shape[1], ptr(pool.levels),
-                ptr(pool.min_level), ptr(index), ptr(uv), ptr(lod),
-                ptr(n_taps), ptr(major_uv), ptr(mask), ptr(out), rows, cols,
-                torch.cuda.current_stream(device).cuda_stream)
+            err = entry(*args, torch.cuda.current_stream(device).cuda_stream)
         if err != 0:
-            raise RuntimeError(f"texture kernel launch failed: CUDA error {err}")
+            raise RuntimeError(
+                f"texture kernel launch failed: CUDA error {err}")
 
-    return launch, out
+    return launch
 
 
-def _run(entry, pool, index, uv, mask, lod, n_taps=None, major_uv=None):
-    launch, out = launcher(pool, index, uv, mask, lod, n_taps, major_uv)
+def maps_launcher(pool: TexturePool, indices, uv, ddx, ddy, max_aniso, mask):
+    """Check the inputs on a CUDA device, allocate the five (..., 4) outputs
+    and return (launch, outs): `launch()` runs ash_sample_maps once on the
+    current stream into `outs` and counts nothing. The entry points count;
+    this split lets a timing loop replay the bare launch."""
+    device = _cuda_only(uv, pool)
+    check_maps(pool, indices, uv, ddx, ddy, max_aniso, mask)
+    outs = tuple(torch.empty(tuple(mask.shape) + (4,), dtype=torch.float32,
+                             device=device) for _ in range(MAPS))
+    out_ptrs = (ctypes.c_void_p * MAPS)(*(o.data_ptr() for o in outs))
+    rows, cols = _grid(mask)
+    return _launch_fn(
+        device, rows, _library().ash_sample_maps, *_pool_args(pool),
+        indices.data_ptr(), uv.data_ptr(), ddx.data_ptr(), ddy.data_ptr(),
+        mask.data_ptr(), max_aniso, out_ptrs, rows, cols), outs
+
+
+def launcher(pool: TexturePool, index, uv, lod, mask):
+    """As maps_launcher, for ash_sample_trilinear -> (launch, (..., 4))."""
+    device = _cuda_only(uv, pool)
+    check_trilinear(pool, index, uv, lod, mask)
+    out = torch.empty(tuple(mask.shape) + (4,), dtype=torch.float32,
+                      device=device)
+    rows, cols = _grid(mask)
+    return _launch_fn(
+        device, rows, _library().ash_sample_trilinear, *_pool_args(pool),
+        index.data_ptr(), uv.data_ptr(),
+        None if lod is None else lod.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), rows, cols), out
+
+
+def _run(entry, launch, outs, inputs):
     launch()
-    if index.numel():
+    if inputs[-1].numel():
         launches[entry] += 1
         for observe in observers:
-            observe((*pool, index, uv, mask, lod, n_taps, major_uv), (out,))
-    return out
+            observe(inputs, outs)
+    return outs
 
 
-def sample_footprint(pool: TexturePool, index, uv, fp, mask) -> torch.Tensor:
-    """Sample texture `index` over its footprint `fp`
-    (ops/texture_sample.Footprint) where `mask` holds, 0 elsewhere ->
-    (..., 4); see ops/texture_sample.py:sample_footprint. On the card every
-    element runs its own n_taps taps, which gives the plain version's bits
-    (its trip count is at or above them)."""
+def sample_maps(pool: TexturePool, indices, uv, ddx, ddy, max_aniso: int,
+                mask) -> torch.Tensor:
+    """Sample shade_pbr's five maps (`indices` (..., 5)) over their
+    footprints where `mask` holds, 0 elsewhere -> five (..., 4); see
+    ops/texture_sample.py:sample_maps. On the card one launch computes the
+    footprints and the samples, every element running its own taps, which
+    gives the plain version's bits."""
     if uv.device.type == "cpu":
-        check_inputs(pool, index, uv, mask, fp.lod, fp.n_taps, fp.major_uv)
-        color = texture_sample.sample_footprint(pool, index, uv, fp)
-        return torch.where(mask[..., None], color, 0.0)
-    return _run("footprint", pool, index, uv, mask, fp.lod, fp.n_taps,
-                fp.major_uv)
+        check_maps(pool, indices, uv, ddx, ddy, max_aniso, mask)
+        return texture_sample.sample_maps(pool, indices, uv, ddx, ddy,
+                                          max_aniso, mask)
+    launch, outs = maps_launcher(pool, indices, uv, ddx, ddy, max_aniso,
+                                 mask)
+    return _run("maps", launch, outs, (*pool, indices, uv, ddx, ddy, mask))
 
 
-def sample_trilinear(pool: TexturePool, idx, uv, lod, mask) -> torch.Tensor:
+def sample_trilinear(pool: TexturePool, index, uv, lod, mask) -> torch.Tensor:
     """Sample with REPEAT addressing and trilinear filtering at `lod` (None:
     0) where `mask` holds, 0 elsewhere -> (..., 4); see
     ops/texture_sample.py:sample_trilinear."""
     if uv.device.type == "cpu":
-        check_inputs(pool, idx, uv, mask, lod)
-        color = texture_sample.sample_trilinear(pool, idx, uv, lod)
+        check_trilinear(pool, index, uv, lod, mask)
+        color = texture_sample.sample_trilinear(pool, index, uv, lod)
         return torch.where(mask[..., None], color, 0.0)
-    return _run("trilinear", pool, idx, uv, mask, lod)
+    launch, out = launcher(pool, index, uv, lod, mask)
+    return _run("trilinear", launch, (out,), (*pool, index, uv, lod, mask))[0]

@@ -7,9 +7,10 @@ int32 index into the table, and -1 means "no texture: white". Sampling is
 the reference sampler's: REPEAT addressing, bilinear min/mag filtering and
 linear filtering between mips (trilinear). `sample_footprint` builds
 anisotropic filtering on it (the loop of ash_tpu/ops/shade.py:_sample_map)
-over the footprints that ops/shade.py:map_footprint computes. Both are the
-plain versions of csrc/texture.cu's kernel: ops/texture_cuda.py runs them
-for CPU tensors, and the kernel is held to them bit for bit.
+over the footprints that `map_footprint` computes, and `sample_maps` does
+both for shade_pbr's five maps. `sample_maps` and `sample_trilinear` are the
+plain versions of csrc/texture.cu's two entries: ops/texture_cuda.py runs
+them for CPU tensors, and the kernel is held to them bit for bit.
 
 Texels are stored bfloat16: the sources are 8-bit images, so bf16's 8-bit
 mantissa loses nothing they had, and it halves the gathers' bytes.
@@ -205,3 +206,45 @@ def sample_footprint(pool, index, uv, fp: Footprint,
             pool, index, uv + fp.major_uv * frac[..., None], fp.lod)
         acc = acc + tap * torch.where(live, 1.0, 0.0)[..., None]
     return acc / fp.n_taps[..., None]
+
+
+def map_footprint(pool, index, ddx, ddy, max_aniso: int = 1) -> Footprint:
+    """The footprint of texture `index` (level 0's size) under the uv
+    derivatives. With max_aniso > 1 it is the footprint assembly of the
+    reference sampler's anisotropic filtering: n_taps = ceil(major /
+    minor) taps, at the mip where n_taps minor footprints cover the major
+    axis."""
+    base = pool.table[index.clamp_min(0).long(), 0]  # (..., 3): offset, w, h
+    tw = base[..., 1].to(torch.float32)
+    th = base[..., 2].to(torch.float32)
+    lu = _norm(torch.stack([ddx[..., 0] * tw, ddx[..., 1] * th], -1))
+    lv = _norm(torch.stack([ddy[..., 0] * tw, ddy[..., 1] * th], -1))
+    rho_max = torch.maximum(lu, lv).clamp_min(1e-8)
+    if max_aniso <= 1:
+        return Footprint(lod=torch.log2(rho_max).clamp_min(0.0))
+    rho_min = torch.minimum(lu, lv).clamp_min(1e-8)
+    n_taps = torch.ceil(rho_max / rho_min).clamp(1.0, float(max_aniso))
+    return Footprint(
+        lod=torch.log2(rho_max / n_taps).clamp_min(0.0),
+        n_taps=n_taps,
+        major_uv=torch.where((lu >= lv)[..., None], ddx, ddy),
+    )
+
+
+def _norm(v):
+    return torch.linalg.vector_norm(v, dim=-1)
+
+
+def sample_maps(pool, indices, uv, ddx, ddy, max_aniso: int, mask):
+    """shade_pbr's five maps: for each texture index in the last dimension
+    of `indices` (..., 5), its footprint under the uv derivatives
+    (`map_footprint`) and its sample over it (`sample_footprint`), where
+    `mask` holds, 0 elsewhere -> five (..., 4). Each map's tap loop takes
+    its trip count from every element (one host sync a map)."""
+    samples = []
+    for m in range(indices.shape[-1]):
+        index = indices[..., m]
+        fp = map_footprint(pool, index, ddx, ddy, max_aniso)
+        color = sample_footprint(pool, index, uv, fp)
+        samples.append(torch.where(mask[..., None], color, 0.0))
+    return tuple(samples)

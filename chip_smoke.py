@@ -16,7 +16,8 @@ fails. Phases, one stdout line each:
 2. build: compiles ash_tpu_torch/csrc/raster.cu, which holds both raster
    kernels (the one-layer raster and the K-layer depth peel, and the
    pre-pass that computes their candidate rectangles), and csrc/texture.cu
-   (the texture sampler), one nvcc each, started together, and prints each
+   (the texture sampler: the five maps and the trilinear tap), one nvcc
+   each, started together, and prints each
    instantiation's registers and spills (none may spill);
 3. kernels against plain: each CUDA kernel and the plain PyTorch raster on
    the same CUDA tensors at the main path's shapes; tri_id and depth of
@@ -51,9 +52,10 @@ fails. Phases, one stdout line each:
    standard frame (four meshes with five 256x256 maps, anisotropy 16, every
    fourth cube alpha-tested): the peel runs at 2 layers in the shadow pass
    and the main pass of frame 1 and in the main pass after, the one-layer
-   kernel never, and the texture kernel 5 times a frame for the maps and
-   once for the alpha test (twice on frame 1, with the shadow pass); it
-   equals its plain-raster frame, the alpha test takes the
+   kernel never, and the texture kernel once a frame for the five maps and
+   once for the alpha test (twice on frame 1, with the shadow pass); its
+   kernels and copies a static frame (torch.profiler) beside PR 12's 1,032;
+   it equals its plain-raster frame, the alpha test takes the
    second layer at some pixels, the frame differs from the same frame
    without the cutoff, and a frame with a new light direction re-renders
    the alpha-tested shadow map. Then the lit standard frame (bench.py's 32
@@ -170,18 +172,22 @@ fails. Phases, one stdout line each:
    PSNR >= 40 dB and must fail the float check;
 9. the texture kernel (csrc/texture.cu): the 1080p textured frame's own
    sampler calls at anisotropy 16 and 1 (frame 1: the shadow pass's alpha
-   test at 2048^2, the main pass's at 1920x1080, the five maps), recorded
-   from the entry points, through the kernel and the plain sampler: bit
-   for bit on covered pixels and 0 elsewhere; each call's device time (50
-   bare launches), the entry's time and the plain sampler's, in turns,
-   beside its bound (bytes: a covered element's inputs and output once, an
-   uncovered one's mask and output, and the mip levels the covered
-   elements select once; operations: 115 f32 operations a footprint tap,
-   104 a trilinear one, over the taps the covered pixels need); frames 2 and 3
-   of each anisotropy with the kernel (5 map and 1 alpha-test launches a
-   frame, counted from 0) against the same frames with the plain sampler
-   patched in (u8 and colour, bit for bit), and pass_shade's and
-   pass_raster's device span beside the plain sampler's pass_shade.
+   test at 2048^2, the main pass's at 1920x1080, the five maps in one
+   call), recorded from the entry points, through the kernel and the plain
+   sampler: bit for bit on covered pixels and 0 elsewhere; each call's
+   device time (50 bare launches), the entry's time and the plain
+   sampler's, in turns, beside its bound (bytes: a covered element's inputs
+   and outputs once, an uncovered one's mask and outputs, the table
+   entries and the mip levels the covered elements select once;
+   operations: 26 f32 operations a footprint, 115 an anisotropic tap, 104 a
+   trilinear one, over the taps the covered pixels need); the old path's
+   five eager footprints (map_footprint a map), their device time under
+   torch.profiler; frames 2 and 3 of each anisotropy with the kernel (1
+   maps and 1 alpha-test launch a frame, counted from 0, and no eager
+   map_footprint) against the same frames with the plain sampler patched
+   in (u8 and colour, bit for bit), pass_shade's and pass_raster's device
+   span beside the plain sampler's pass_shade, and the texture kernel's
+   launches and device time a frame, read by name from the frame's trace.
 
 Then one JSON line on the kernels and, last, the device JSON line.
 """
@@ -406,17 +412,20 @@ def frame_ms(step, n):
 def ptxas_usage(log):
     """{kernel: (registers, spill bytes)} from nvcc's -Xptxas -v log;
     raster_warp_kernel<L, HAS_FLOOR> is named by its L and floor, the
-    rectangles' pre-pass "rects", csrc/texture.cu's sampler "texture"."""
+    rectangles' pre-pass "rects", csrc/texture.cu's texture_maps_kernel
+    and texture_trilinear_kernel "texture maps" and "texture trilinear"."""
     usage, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"raster_warp_kernelILi(\d+)ELb([01])E", ln)
+        texture_kernel = re.search(r"texture_(maps|trilinear)_kernel", ln)
         if "Compiling entry function" in ln and m:
             name = f"L={m.group(1)}{' floor' if m.group(2) == '1' else ''}"
             spill = None
         elif "Compiling entry function" in ln and "candidate_rects_kernel" in ln:
             name, spill = "rects", None
-        elif "Compiling entry function" in ln and "sample_kernel" in ln:
-            name, spill = "texture", None
+        elif "Compiling entry function" in ln and texture_kernel:
+            name = f"texture {texture_kernel.group(1)}"
+            spill = None
         elif name and "spill stores" in ln:
             spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill", ln))
         elif name and "Used" in ln and "registers" in ln:
@@ -1204,6 +1213,26 @@ def scope_device_ms(step, scope, n=3):
     return span / 1e3 / n, kern / 1e3 / n
 
 
+def kernel_device_ms(step, names, n=3):
+    """(launches, device ms) a frame of the kernels whose name holds one of
+    `names` over n frames of step under torch.profiler, read by name from
+    the trace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            step(i)
+        torch.cuda.synchronize()
+    found = [e for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and any(name in e.key for name in names)]
+    return (sum(e.count for e in found) / n,
+            sum(e.self_device_time_total for e in found) / 1e3 / n)
+
+
 def lod_sharded_phase(card, launches, layer_launches):
     """Phase 7, part 2: example 07's LOD scene (distance 15) through
     make_sharded_frame over ["cuda:0"] * 4 against the same inputs' single
@@ -1330,205 +1359,272 @@ def benchmark_phase(card, kind):
           and line["correct"] is False, "benchmark control: not refused")
 
 
-# f32 operations of one tap of csrc/texture.cu: two bilinear levels of 46
-# (the texel coordinates, floors, weights and three 4-channel lerps), the
-# trilinear blend (12); a footprint tap adds its position (7) and the sum
-# (4).
+# f32 operations of csrc/texture.cu: a tap, two bilinear levels of 46 (the
+# texel coordinates, floors, weights and three 4-channel lerps) and the
+# trilinear blend (12); an anisotropic tap adds its position (7) and the sum
+# (4); a footprint (map_footprint) is 26 with anisotropy (level 0's size
+# (2), the four scaled derivatives, two norms of 4, the clamped max and min
+# (4), ceil(rho_max / rho_min) clamped (4), log2(rho_max / n) clamped (3),
+# the major axis' compare), 18 without.
 OPS_TRILINEAR_TAP = 104
 OPS_FOOTPRINT_TAP = 115
-TEXTURE_MAPS = ("base", "normal", "mr", "occ", "emis")
+OPS_FOOTPRINT = {True: 26, False: 18}
 # A textured frame 1's sampler calls, in order: the shadow pass's alpha
-# test, the main pass's, then shade_pbr's five maps.
-SAMPLER_CALLS = [("alpha", "alpha test shadow"), ("alpha", "alpha test main"),
-                 *(("map", m) for m in TEXTURE_MAPS)]
+# test, the main pass's, then shade_pbr's five maps in one call.
+SAMPLER_CALLS = ["alpha test shadow", "alpha test main", "maps"]
+# The textured frame's kernels and copies a frame in PR 12's benchmark
+# trace (PERF.md section 5), before the maps were fused.
+PR12_TEXTURED_LAUNCHES = 1032
 
 
 def sampler_calls(rend, view, proj, pos):
     """Render frame 1 of `rend` with the texture entry points wrapped ->
-    [(name, pool, index, uv, footprint or None, mask)] in call order, named
-    as SAMPLER_CALLS names a textured frame 1's calls."""
+    [(name, the entry's arguments)] in call order, named as SAMPLER_CALLS
+    names a textured frame 1's calls: (pool, indices, uv, ddx, ddy,
+    max_aniso, mask) for the maps, (pool, index, uv, lod, mask) for an
+    alpha test."""
     from ash_tpu_torch.ops import texture_cuda
 
     calls = []
-    real_fp = texture_cuda.sample_footprint
+    real_maps = texture_cuda.sample_maps
     real_tri = texture_cuda.sample_trilinear
 
-    def footprint(pool, index, uv, fp, mask):
-        calls.append(("map", pool, index, uv, fp, mask))
-        return real_fp(pool, index, uv, fp, mask)
+    def maps(*args):
+        calls.append(args)
+        return real_maps(*args)
 
-    def trilinear(pool, idx, uv, lod, mask):
-        calls.append(("alpha", pool, idx, uv, None, mask))
-        return real_tri(pool, idx, uv, lod, mask)
+    def trilinear(pool, index, uv, lod, mask):
+        calls.append((pool, index, uv, lod, mask))
+        return real_tri(pool, index, uv, lod, mask)
 
-    with mock.patch.object(texture_cuda, "sample_footprint", footprint), \
+    with mock.patch.object(texture_cuda, "sample_maps", maps), \
             mock.patch.object(texture_cuda, "sample_trilinear", trilinear):
         rend.render_frame(view, proj, pos)
-    kinds = [c[0] for c in calls]
-    check(kinds == [k for k, _ in SAMPLER_CALLS],
-          f"textured frame 1: sampler calls {kinds}")
-    return [(name, *c[1:]) for (_, name), c in zip(SAMPLER_CALLS, calls)]
+    kinds = [len(c) == 7 for c in calls]
+    check(kinds == [False, False, True],
+          f"textured frame 1: sampler calls (maps?) {kinds}")
+    return list(zip(SAMPLER_CALLS, calls))
 
 
-def plain_sample(pool, index, uv, fp, mask):
-    """The plain sampler on the same tensors; the footprint's trip count is
-    the largest tap count over the covered elements (one host sync)."""
+def plain_sample(*args):
+    """The plain sampler on the same tensors, 0 where the mask does not
+    hold (five (..., 4) for the maps)."""
     import torch
 
     from ash_tpu_torch.ops import texture_sample
 
-    if fp is None:
-        return texture_sample.sample_trilinear(pool, index, uv, None)
-    trips = None
-    if fp.n_taps is not None:
-        trips = int(torch.where(mask, fp.n_taps, 0.0).max())
-    return texture_sample.sample_footprint(pool, index, uv, fp, trips)
+    if len(args) == 7:
+        return texture_sample.sample_maps(*args)
+    pool, index, uv, lod, mask = args
+    return torch.where(mask[..., None],
+                       texture_sample.sample_trilinear(pool, index, uv, lod),
+                       0.0)
 
 
-def texture_work(pool, index, uv, fp, mask):
+def texture_work(*args):
     """(bound ms, "bytes" or "operations", bytes, operations, taps) of one
-    sampler launch at the memory rate and the f32 rate. Bytes: a covered
-    element reads its inputs (index, uv, mask and the footprint's tensors)
-    and writes 16; an uncovered one reads its mask and writes 16; the mip
-    table entries of the levels the covered elements select, and the
-    texels of those levels (textures the covered elements name), are read
-    once. Operations: the taps these inputs need (covered elements with a
-    texture, n_taps each)."""
+    launch of either entry at the memory rate and the f32 rate, counted
+    from these inputs. Bytes: a covered element reads its inputs once for
+    every map (mask, uv and the indices; the maps' derivatives, the alpha
+    test's LOD) and writes 16 a map; an uncovered one reads its mask and
+    writes 16 a map; the mip table entries that the covered elements'
+    footprints and levels read, each texture's level count (and residency),
+    and the texels of the levels they select, over all maps, are read once.
+    Operations: the footprints and the taps these inputs need (covered
+    elements with a texture, n_taps each)."""
     import torch
 
-    n = index.numel()
-    ins = [index, uv, *(t for t in (fp if fp is not None else ())
-                        if t is not None)]
-    per_element = sum(t.element_size() * (t.numel() // n) for t in ins)
-    nbytes = n * (mask.element_size() + 16) + int(mask.sum()) * per_element
-    # The kernel's two levels an element (texture_sample.sample_trilinear).
-    tex = index.clamp_min(0).long()
-    levels = pool.levels[tex]
-    lod = fp.lod if fp is not None else torch.zeros_like(uv[..., 0])
-    floor_level = (pool.min_level[tex].to(torch.float32)
-                   if pool.min_level is not None else torch.zeros_like(lod))
-    lod = torch.minimum(torch.maximum(lod, floor_level),
-                        (levels - 1).to(torch.float32))
-    l0 = torch.floor(lod).to(torch.int32)
-    max_mips = pool.table.shape[1]
-    live = mask & (index >= 0)
+    from ash_tpu_torch.ops import texture_sample
 
-    def entries(where):
-        keys = [tex * max_mips + lv.clamp(0, max_mips - 1).long()
-                for lv in (l0, torch.minimum(l0 + 1, levels - 1))]
-        return torch.cat([k[where] for k in keys]).unique()
-
-    read = entries(mask)
-    sizes = pool.table.view(-1, 3)[entries(live)].long()
-    per_texture = 4 * (1 + (pool.min_level is not None))
-    nbytes += (read.numel() * 12 + int(tex[mask].unique().numel()) * per_texture
-               + int((sizes[:, 1] * sizes[:, 2]).sum()) * 8)
-    if fp is not None and fp.n_taps is not None:
-        taps = float(torch.where(live, fp.n_taps, 0.0).sum())
-        ops = taps * OPS_FOOTPRINT_TAP
+    pool, mask = args[0], args[-1]
+    maps = len(args) == 7
+    if maps:
+        _, indices, uv, ddx, ddy, aniso, _ = args
+        lods = [None] * indices.shape[-1]
+        per_covered = 8 + 16 + 4 * indices.shape[-1]
     else:
-        taps = float(live.sum())
-        ops = taps * OPS_TRILINEAR_TAP
+        _, index, uv, lod, _ = args
+        indices, aniso = index[..., None], 1
+        lods = [lod if lod is not None else torch.zeros_like(uv[..., 0])]
+        per_covered = 8 + 4 + (4 if lod is not None else 0)
+    n, k = mask.numel(), indices.shape[-1]
+    covered = int(mask.sum())
+    nbytes = n * (mask.element_size() + 16 * k) + covered * per_covered
+    max_mips = pool.table.shape[1]
+    keys, textures, taps, ops = [], [], 0.0, 0.0
+    for m in range(k):
+        index = indices[..., m]
+        tex = index.clamp_min(0).long()
+        live = mask & (index >= 0)
+        if maps:
+            fp = texture_sample.map_footprint(pool, index, ddx, ddy, aniso)
+            lods[m] = fp.lod
+            keys.append((tex * max_mips)[mask])  # level 0's size
+            ops += covered * OPS_FOOTPRINT[aniso > 1]
+            if fp.n_taps is not None:
+                m_taps = float(torch.where(live, fp.n_taps, 0.0).sum())
+                ops += m_taps * OPS_FOOTPRINT_TAP
+            else:
+                m_taps = float(live.sum())
+                ops += m_taps * OPS_TRILINEAR_TAP
+        else:
+            m_taps = float(live.sum())
+            ops += m_taps * OPS_TRILINEAR_TAP
+        taps += m_taps
+        # The two levels an element reads (texture_sample.sample_trilinear).
+        levels = pool.levels[tex]
+        floor_level = (pool.min_level[tex].to(torch.float32)
+                       if pool.min_level is not None
+                       else torch.zeros_like(lods[m]))
+        lv = torch.minimum(torch.maximum(lods[m], floor_level),
+                           (levels - 1).to(torch.float32))
+        l0 = torch.floor(lv).to(torch.int32)
+        for level in (l0, torch.minimum(l0 + 1, levels - 1)):
+            key = tex * max_mips + level.clamp(0, max_mips - 1).long()
+            keys.append(key[mask])
+            # Texels only where a texture is sampled (not white).
+            keys.append(-1 - key[live])
+        textures.append(tex[mask])
+    keys = torch.cat(keys).unique()
+    entries = keys[keys >= 0]
+    sampled = -1 - keys[keys < 0]
+    sizes = pool.table.view(-1, 3)[sampled].long()
+    per_texture = 4 * (1 + (pool.min_level is not None))
+    nbytes += (entries.numel() * 12
+               + int(torch.cat(textures).unique().numel()) * per_texture
+               + int((sizes[:, 1] * sizes[:, 2]).sum()) * 8)
     t_bytes, t_ops = nbytes / MEM_RATE * 1e3, ops / F32_RATE * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             nbytes, ops, taps)
 
 
+def busy_ms(fn, n=5):
+    """The kernels' and copies' own device time of one call of fn, in ms,
+    under torch.profiler (fn may launch many small kernels, whose host
+    enqueue time CUDA events around the calls would measure instead)."""
+    return busy_profile(lambda i: fn(), n)[1]
+
+
 def texture_phase(card, view, proj, pos, tex_launches):
     """Phase 9: the texture kernel (csrc/texture.cu) against the plain
     sampler at the 1080p textured frame's own inputs (its frame 1: the
-    shadow and main passes' alpha tests and the five maps) at anisotropy 16
-    and 1, bit for bit on covered elements and 0 elsewhere; each launch
-    timed (CUDA events, plain, kernel, kernel, plain) beside its bound;
+    shadow and main passes' alpha tests and the five maps in one call) at
+    anisotropy 16 and 1, bit for bit on covered elements and 0 elsewhere;
+    each launch timed (CUDA events, plain, kernel, kernel, plain) beside its
+    bound; the old path's eager footprints;
     frames 2 and 3 with the kernel (launches counted from 0) against the
     same frames with the plain sampler patched in. -> ({shape: its
     numbers}, the largest |kernel - plain| on covered elements)."""
     import torch
 
-    from ash_tpu_torch.ops import texture_cuda, texture_sample
+    from ash_tpu_torch.ops import shade, texture_cuda, texture_sample
     from ash_tpu_torch.render.bench_scene import build_bench_renderer
 
     def counts():
-        return [texture_cuda.launches[k] for k in ("footprint", "trilinear")]
+        return [texture_cuda.launches[k] for k in ("maps", "trilinear")]
 
-    def sample(pool, index, uv, fp, mask):
-        if fp is None:
-            return texture_cuda.sample_trilinear(pool, index, uv, None, mask)
-        return texture_cuda.sample_footprint(pool, index, uv, fp, mask=mask)
+    def entry(*args):
+        if len(args) == 7:
+            return texture_cuda.sample_maps(*args)
+        return texture_cuda.sample_trilinear(*args)
 
-    def plain_footprint(pool, index, uv, fp, mask):
-        return plain_sample(pool, index, uv, fp, mask)
+    def launcher(*args):
+        if len(args) == 7:
+            return texture_cuda.maps_launcher(*args)
+        return texture_cuda.launcher(*args)
 
-    def plain_trilinear(pool, idx, uv, lod, mask):
-        return texture_sample.sample_trilinear(pool, idx, uv, lod)
+    def compare(got, want, mask, what):
+        if isinstance(got, tuple):  # the five maps
+            got, want = torch.stack(got), torch.stack(want)
+        bad = int((got.view(torch.int32) != want.view(torch.int32))[
+            ..., mask, :].sum())
+        nonzero = int((got[..., ~mask, :] != 0).sum())
+        check(bad == 0 and nonzero == 0,
+              f"texture kernel != plain sampler on {what}: {bad} covered "
+              f"values differ, {nonzero} uncovered values not 0")
+        return float((got - want)[..., mask, :].abs().max())
+
+    def plain_maps(pool, indices, uv, ddx, ddy, max_aniso, mask):
+        return texture_sample.sample_maps(pool, indices, uv, ddx, ddy,
+                                          max_aniso, mask)
+
+    def plain_trilinear(pool, index, uv, lod, mask):
+        return texture_sample.sample_trilinear(pool, index, uv, lod)
 
     rows, max_err = {}, 0.0
     for aniso in (16, 1):
         rend = build_bench_renderer(1920, 1080, 1000, "cuda", textured=True,
                                     max_anisotropy=aniso)[0]
-        for name, pool, index, uv, fp, mask in sampler_calls(rend, view, proj,
-                                                             pos):
-            got = sample(pool, index, uv, fp, mask)
-            want = plain_sample(pool, index, uv, fp, mask)
-            bad = int((got.view(torch.int32) != want.view(torch.int32))[
-                mask].sum())
-            nonzero = int((got[~mask] != 0).sum())
-            err = float((got - want)[mask].abs().max())
+        for name, args in sampler_calls(rend, view, proj, pos):
+            mask = args[-1]
+            want = plain_sample(*args)
+            err = compare(entry(*args), want, mask,
+                          f"{name} (anisotropy {aniso})")
             max_err = max(max_err, err)
-            check(bad == 0 and nonzero == 0,
-                  f"texture kernel != plain sampler on {name} (anisotropy "
-                  f"{aniso}): {bad} covered values differ, {nonzero} "
-                  f"uncovered values not 0")
-            launch, _ = texture_cuda.launcher(
-                pool, index, uv, mask, *((fp.lod, fp.n_taps, fp.major_uv)
-                                         if fp is not None else ()))
+            launch, _ = launcher(*args)
             kern, plain = [], []
             for order in ("plain", "kernel", "kernel", "plain"):
                 if order == "kernel":
                     kern.append(cuda_ms(launch, 50))
                 else:
-                    plain.append(cuda_ms(
-                        lambda: plain_sample(pool, index, uv, fp, mask), 3))
-            bound, bound_by, nbytes, ops, taps = texture_work(
-                pool, index, uv, fp, mask)
-            row = dict(size="x".join(map(str, index.shape[::-1])),
+                    plain.append(cuda_ms(lambda: plain_sample(*args), 3))
+            bound, bound_by, nbytes, ops, taps = texture_work(*args)
+            row = dict(size="x".join(map(str, mask.shape[::-1])),
                        device_ms=statistics.mean(kern),
                        plain_ms=statistics.mean(plain),
-                       wrapper_ms=cuda_ms(
-                           lambda: sample(pool, index, uv, fp, mask), 20),
+                       wrapper_ms=cuda_ms(lambda: entry(*args), 20),
                        bound_ms=bound, bound_by=bound_by, bytes=nbytes,
                        operations=ops, covered=int(mask.sum()), taps=taps,
                        max_abs_err=err)
             row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+            extra = ""
+            if len(args) == 7:
+                # The old path's five eager footprints (map_footprint a map).
+                pool, indices, uv, ddx, ddy = args[:5]
+                row["eager_footprints_ms"] = busy_ms(lambda: [
+                    texture_sample.map_footprint(pool, indices[..., m], ddx,
+                                                 ddy, aniso)
+                    for m in range(indices.shape[-1])])
+                extra = (f"; the old path's five eager footprints "
+                         f"{row['eager_footprints_ms']} ms of device time")
             rows[f"aniso {aniso} {name}"] = row
             print(f"phase9 texture kernel {name}, anisotropy {aniso} "
                   f"({row['size']}, {row['covered']} covered, {taps:g} "
                   f"taps): covered values unequal to the plain sampler 0, "
-                  f"max |err| {err}; device {row['device_ms']} ms (mean of 50 "
-                  f"launches), entry {row['wrapper_ms']} ms, plain "
-                  f"{row['plain_ms']} ms; bound {row['bound_ms']} ms by "
-                  f"{bound_by} ({nbytes} bytes, {ops:g} f32 operations), "
-                  f"{100 * row['share_of_bound']:.1f}% of it", flush=True)
+                  f"uncovered values not 0: 0, max |err| {err}; device "
+                  f"{row['device_ms']} ms (mean of 50 launches), entry "
+                  f"{row['wrapper_ms']} ms, plain {row['plain_ms']} ms; bound "
+                  f"{row['bound_ms']} ms by {bound_by} ({nbytes} bytes, "
+                  f"{ops:g} f32 operations), "
+                  f"{100 * row['share_of_bound']:.1f}% of it{extra} ({card})",
+                  flush=True)
         # Frames 2 and 3 (frame 1 was sampler_calls') with the kernel, its
-        # launches counted from 0; the same frames with the plain sampler
-        # patched in, which launches nothing.
+        # launches counted from 0 and no eager footprint allowed; the same
+        # frames with the plain sampler patched in, which launches nothing.
         path = f"textured aniso{aniso}"
         for k in texture_cuda.launches:
             texture_cuda.launches[k] = 0
         frames = []
-        for _ in range(2):
-            rend.render_frame(view, proj, pos)
-            frames.append((rend.read_back().copy(),
-                           rend.last_outputs().color.clone()))
+
+        def no_footprint(*args, **kwargs):
+            raise AssertionError(f"{path}: the frame computed an eager "
+                                 "footprint (map_footprint)")
+
+        with mock.patch.object(texture_sample, "map_footprint",
+                               no_footprint), \
+                mock.patch.object(shade, "map_footprint", no_footprint):
+            for _ in range(2):
+                rend.render_frame(view, proj, pos)
+                frames.append((rend.read_back().copy(),
+                               rend.last_outputs().color.clone()))
         launched = counts()
         if aniso == 1:  # phase 4 counted the anisotropy-16 frame
             tex_launches[path] = launched
-        check(launched == [10, 2], f"{path}: texture launches (footprint, "
-              f"trilinear) {launched}, want [10, 2]")
+        check(launched == [2, 2], f"{path}: texture launches (maps, "
+              f"trilinear) {launched}, want [2, 2]")
         plain = build_bench_renderer(1920, 1080, 1000, "cuda", textured=True,
                                      max_anisotropy=aniso)[0]
-        with mock.patch.object(texture_cuda, "sample_footprint",
-                               plain_footprint), \
+        with mock.patch.object(texture_cuda, "sample_maps", plain_maps), \
                 mock.patch.object(texture_cuda, "sample_trilinear",
                                   plain_trilinear):
             plain.render_frame(view, proj, pos)
@@ -1549,13 +1645,22 @@ def texture_phase(card, view, proj, pos, tex_launches):
                                    "pass_shade")[0]
         raster_ms = scope_device_ms(
             lambda i: rend.render_frame(view, proj, pos), "pass_raster")[0]
+        # The texture kernel's own time in the frame, read by name.
+        in_frame = kernel_device_ms(
+            lambda i: rend.render_frame(view, proj, pos),
+            ("texture_maps_kernel", "texture_trilinear_kernel"))
+        rows[f"aniso {aniso} frame"] = dict(
+            pass_shade_ms=shade_ms, plain_pass_shade_ms=plain_shade,
+            pass_raster_ms=raster_ms, kernel_launches=in_frame[0],
+            kernel_ms=in_frame[1])
         del rend, plain, frames
         print(f"phase9 {path} frame: frames 2 and 3 with the kernel equal "
               f"the plain sampler's (u8 and colour); texture launches "
-              f"(footprint, trilinear) {launched}; device span a static "
+              f"(maps, trilinear) {launched}; device span a static "
               f"frame: pass_shade {shade_ms:.3f} ms (the plain sampler's "
-              f"{plain_shade:.3f}), pass_raster {raster_ms:.3f} ms ({card})",
-              flush=True)
+              f"{plain_shade:.3f}), pass_raster {raster_ms:.3f} ms; the "
+              f"texture kernel in the frame's trace: {in_frame[0]:g} "
+              f"launches, {in_frame[1]} ms a frame ({card})", flush=True)
     return rows, max_err
 
 
@@ -1606,7 +1711,7 @@ def main() -> int:
     check(len(usage) == 16, f"{len(usage)} kernels, want 15 raster "
           "instantiations and the rectangles' pre-pass")
     tex_usage = ptxas_usage(tex_lib.with_suffix(".log").read_text())
-    check(list(tex_usage) == ["texture"],
+    check(sorted(tex_usage) == ["texture maps", "texture trilinear"],
           f"texture library kernels {list(tex_usage)}")
     usage.update(tex_usage)
     print(f"phase2 build: {lib.name} (both raster kernels) and "
@@ -1934,11 +2039,14 @@ def main() -> int:
     t_one, t_peel, t_outs = launches_per_frame(rt, view, proj, pos, 4)
     launches["textured"] = raster_cuda.rasterize.launches
     layer_launches["textured"] = raster_cuda.rasterize.layer_launches
-    tex_launches = {"textured": [texture_cuda.launches["footprint"],
+    tex_launches = {"textured": [texture_cuda.launches["maps"],
                                  texture_cuda.launches["trilinear"]]}
-    check(tex_launches["textured"] == [20, 5],
-          f"textured: texture launches (footprint, trilinear) "
-          f"{tex_launches['textured']}, want [20, 5]")
+    check(tex_launches["textured"] == [4, 5],
+          f"textured: texture launches (maps, trilinear) "
+          f"{tex_launches['textured']}, want [4, 5]")
+    # Kernels and copies a static frame (torch.profiler), as the
+    # benchmark's trace counts its launches.
+    t_work = busy_profile(lambda i: rt.render_frame(view, proj, pos), 3)[3]
     timage = rt.read_back().copy()
     tout = t_outs[0]
     check(t_peel == [2, 1, 1, 1], f"textured: peel launches per frame {t_peel}")
@@ -2599,8 +2707,10 @@ def main() -> int:
           f"covered {int(tout.covered_pixels)}; equal to the plain-raster "
           f"frame: {tequal}; pixels where the alpha test took layer 2: "
           f"{fell}; PSNR against alpha_cutoff=0 {nocut_psnr:.2f} dB; "
-          f"texture kernel launches (footprint, trilinear) in 4 frames "
-          f"{tex_launches['textured']}", flush=True)
+          f"texture kernel launches (maps, trilinear) in 4 frames "
+          f"{tex_launches['textured']}; kernels and copies a static frame "
+          f"{t_work:g} (PR 12's benchmark trace: "
+          f"{PR12_TEXTURED_LAUNCHES})", flush=True)
     print(f"phase4 lit frame: one-layer launches per frame {l_one}, peel "
           f"{l_peel}; overflow main {int(lout.binning_overflow)} shadow "
           f"{int(lout.shadow_overflow)}; equal to the plain-raster frame: "
@@ -2954,12 +3064,9 @@ def main() -> int:
                          for n, k, f in shapes},
         }
 
-    # The texture kernel's main shape: the anisotropy-16 frame's five maps,
-    # summed (the sampling of one pass_shade).
-    tex_main = {k: sum(tex_rows[f"aniso 16 {m}"][k] for m in TEXTURE_MAPS)
-                for k in ("device_ms", "plain_ms", "wrapper_ms", "bound_ms")}
-    tex_by = max((tex_rows[f"aniso 16 {m}"] for m in TEXTURE_MAPS),
-                 key=lambda row: row["bound_ms"])["bound_by"]
+    # The texture kernel's main shape: the anisotropy-16 frame's five maps
+    # in one launch (the sampling of one pass_shade).
+    tex_main = tex_rows["aniso 16 maps"]
     texture_line = {
         "name": "texture_sample",
         "route": "cuda",
@@ -2972,7 +3079,7 @@ def main() -> int:
         "ms": tex_main["device_ms"],
         "plain_ms": tex_main["plain_ms"],
         "bound_ms": tex_main["bound_ms"],
-        "bound_by": tex_by,  # that of the map with the largest bound
+        "bound_by": tex_main["bound_by"],
         # No PyTorch call samples a REPEAT-wrapped mip pool anisotropically.
         "library_ms": None,
         "device_ms": tex_main["device_ms"],
