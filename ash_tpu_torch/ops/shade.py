@@ -14,6 +14,8 @@ Reinhard (off when the HDR post chain follows). With a texture pool the
 five maps (base colour, normal, metallic-roughness, occlusion, emissive)
 are sampled with anisotropic filtering (ops/texture_cuda.py: a CUDA kernel
 on the card), and the normal map goes through the Gram-Schmidt TBN frame.
+The Forward+ light loop is ops/lights_cuda.py's (a CUDA kernel on the
+card; its plain version and the BRDF terms are in ops/light_loop.py).
 `resolve_alpha_test` lets cut-out pixels fall through to the second peel
 layer; `pixel_alpha` and `composite_over` blend the shaded layers of a depth
 peel. With an environment, split-sum image-based lighting replaces the flat
@@ -28,12 +30,23 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from . import lights_cuda
 from . import shadow as shadow_ops
 from . import texture_cuda, texture_sample
 from .geometry import TransformedVerts, TriangleSetup, _cross, transform_points
+# The BRDF terms and the plain light loop live in ops/light_loop.py, which
+# ops/lights_cuda.py imports too; their names stay importable from here.
+from .light_loop import (  # noqa: F401
+    PI,
+    _dot,
+    _normalize,
+    distribution_ggx,
+    fresnel_schlick,
+    geometry_schlick_ggx,
+    geometry_smith,
+    light_slots as _light_slots,
+)
 from .texture_sample import _norm, map_footprint, sample_footprint
-
-PI = 3.14159265359
 
 
 class ShadeUniforms(NamedTuple):
@@ -44,38 +57,6 @@ class ShadeUniforms(NamedTuple):
     light_color: torch.Tensor  # (3,)
     ambient_color: torch.Tensor  # (3,)
     light_space_matrix: torch.Tensor  # (4, 4)
-
-
-def distribution_ggx(ndoth, roughness):
-    a = roughness * roughness
-    a2 = a * a
-    denom = (ndoth * ndoth) * (a2 - 1.0) + 1.0
-    return a2 / (PI * denom * denom)
-
-
-def geometry_schlick_ggx(ndotx, k):
-    return ndotx / (ndotx * (1.0 - k) + k)
-
-
-def geometry_smith(ndotv, ndotl, roughness):
-    r = roughness + 1.0
-    k = (r * r) * 0.125
-    return geometry_schlick_ggx(ndotv, k) * geometry_schlick_ggx(ndotl, k)
-
-
-def fresnel_schlick(cos_theta, f0):
-    t = (1.0 - cos_theta).clamp(0.0, 1.0)
-    t2 = t * t
-    t5 = t2 * t2 * t
-    return f0 + (1.0 - f0) * t5[..., None]
-
-
-def _normalize(v, eps=1e-8):
-    return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True).clamp_min(eps)
-
-
-def _dot(a, b):
-    return (a * b).sum(-1)
 
 
 def _interp(pw, attr3):
@@ -274,69 +255,6 @@ def _sample_map(pool, index, uv, ddx, ddy, max_aniso: int = 1,
                             trips)
 
 
-def _light_slots(lo, gbuf, lights, tile_indices, n_iter, light_tile_size,
-                 normal, view_dir, base_color, metallic, roughness, f0, ndotv,
-                 cast=lambda x: x, pixel_xy=None):
-    """Add the Forward+ lights to `lo`: each pixel walks the first n_iter
-    slots of its tile's culled light list, its tile found from `pixel_xy`
-    (band-local integer render coordinates) or else from its place in the
-    (H, W) grid. Point lights have a
-    radius-windowed inverse-square falloff, spot lights (type 1) a smooth
-    cone between their inner and outer angles, directional entries (type
-    2) a constant direction and no falloff. Distances, attenuation and the
-    cone run in f32; `cast` takes the colour, the attenuation and the
-    direction into the shading dtype for the BRDF."""
-    h, w = gbuf.mask.shape
-    dev = gbuf.mask.device
-    if pixel_xy is not None:
-        px, py = pixel_xy
-    else:
-        px = torch.arange(w, device=dev)[None, :]
-        py = torch.arange(h, device=dev)[:, None]
-    t_y = (py // light_tile_size).clamp(0, tile_indices.shape[0] - 1).long()
-    t_x = (px // light_tile_size).clamp(0, tile_indices.shape[1] - 1).long()
-    for k in range(n_iter):
-        lid = tile_indices[:, :, k][t_y, t_x]  # (H, W)
-        row = lights[lid.clamp_min(0).long()]  # (H, W, 16)
-        lradius = row[..., 3].clamp_min(1e-3)
-        lcolor = cast(row[..., 4:7] * row[..., 7:8])  # colour * intensity
-        ltype = row[..., 11]  # 0 point, 1 spot, 2 directional
-        to_light = row[..., 0:3] - gbuf.world
-        dist = _norm(to_light)
-        ldir_pos = to_light / dist.clamp_min(1e-6)[..., None]
-        ldir = torch.where((ltype >= 1.5)[..., None],
-                           _normalize(-row[..., 8:11]), ldir_pos)
-        # Windowed inverse-square attenuation; the powers are products, as
-        # the reference's integer powers are.
-        q = dist / lradius
-        q2 = q * q
-        win = (1.0 - q2 * q2).clamp(0.0, 1.0)
-        atten = (win * win) / (dist * dist + 1.0)
-        cos_angle = _dot(_normalize(row[..., 8:11]), -ldir_pos)
-        cos_outer = torch.cos(row[..., 13].clamp_min(1e-3))
-        cos_inner = torch.cos(row[..., 12].clamp_min(5e-4))
-        spot = ((cos_angle - cos_outer)
-                / (cos_inner - cos_outer).clamp_min(1e-4)).clamp(0.0, 1.0)
-        atten = cast(torch.where(
-            ltype >= 1.5, 1.0,
-            torch.where(ltype >= 0.5, atten * spot * spot, atten),
-        ))
-        ldir = cast(ldir)
-        nl = _dot(normal, ldir).clamp_min(0.0)
-        half_l = _normalize(view_dir + ldir)
-        nh = _dot(normal, half_l).clamp_min(0.0)
-        vh = _dot(view_dir, half_l).clamp_min(0.0)
-        dd = distribution_ggx(nh, roughness)
-        gg = geometry_smith(ndotv, nl, roughness)
-        ff = fresnel_schlick(vh, f0)
-        spec_l = (dd * gg)[..., None] * ff / (4.0 * ndotv * nl + 0.001)[..., None]
-        spec_l = torch.minimum(spec_l, 10.0 / f0.clamp_min(0.04))
-        kd_l = (1.0 - ff) * (1.0 - metallic[..., None])
-        contrib = (kd_l * base_color / PI + spec_l) * lcolor * (nl * atten)[..., None]
-        lo = lo + torch.where((lid >= 0)[..., None], contrib, 0.0)
-    return lo
-
-
 def shade_pbr(
     gbuf: GBuffer,
     materials: torch.Tensor,  # (D, 18) packed MaterialUniform rows
@@ -379,9 +297,12 @@ def shade_pbr(
     the five footprints and samples, each pixel running its own tap count
     (no host sync); on the CPU the plain sampler, whose trip count is each
     map's largest tap count (one host sync a map). Uncovered pixels'
-    samples are 0. The light loop runs min(largest tile
-    count, K) slots (a host sync), or all K slots when tile_light_counts
-    is None; slots past a tile's count hold -1 and add nothing."""
+    samples are 0. The Forward+ lights go through
+    ops/lights_cuda.add_lights: on the card one kernel launch walks each
+    covered pixel's own tile count, at most K slots (no host sync); on the
+    CPU the plain loop runs min(largest tile count, K) slots (a host sync).
+    Without tile_light_counts every one of the K slots is walked; slots
+    past a tile's count hold -1 and add nothing."""
     if dtype == torch.float32:
         def cast(x):
             return x
@@ -485,13 +406,13 @@ def shade_pbr(
         cast(uniforms.light_color) * (ndotl * (1.0 - shadow))[..., None]
     )
     if lights is not None and tile_light_indices is not None:
-        k_slots = tile_light_indices.shape[-1]
-        n_iter = k_slots
-        if tile_light_counts is not None:
-            n_iter = min(int(tile_light_counts.max()), k_slots)
-        lo = _light_slots(lo, gbuf, lights, tile_light_indices, n_iter,
-                          light_tile_size, normal, view_dir, base_color,
-                          metallic, roughness, f0, ndotv, cast, pixel_xy)
+        # In place: `lo` is this call's own tensor.
+        lo = lights_cuda.add_lights(
+            lo, gbuf.mask, gbuf.world, normal, view_dir,
+            base_color.contiguous(), metallic.contiguous(), roughness, f0,
+            ndotv, lights, tile_light_indices, tile_light_counts,
+            light_tile_size,
+            None if pixel_xy is None else tuple(c.contiguous() for c in pixel_xy))
 
     if ibl is not None:
         from .ibl import ambient_ibl

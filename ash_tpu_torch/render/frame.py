@@ -172,8 +172,8 @@ class FrameConfig:
     # alpha_blend takes precedence in the main pass.
     alpha_test: bool = False
     # Forward+ point and spot lights: tiled light culling and a per-pixel
-    # loop over the tile's list, whose trip count is the frame's largest
-    # tile count (at most shaded_lights_per_tile).
+    # loop over the tile's list, each tile walking its own count (at most
+    # shaded_lights_per_tile).
     lights_enabled: bool = False
     light_tile_size: int = 16
     max_lights_per_tile: int = 256
@@ -679,7 +679,7 @@ def render_band(
     clear = torch.tensor(cfg.clear_color, dtype=torch.float32,
                          device=setup.edge.device)
 
-    tile_lights = None
+    tile_lights = tile_counts = None
     if cfg.lights_enabled and lights is not None:
         with record_function("pass_light_cull"):
             tl = cull_lights(
@@ -688,11 +688,12 @@ def render_band(
                 max_per_tile=cfg.max_lights_per_tile, tile=cfg.light_tile_size,
                 tile_y0=y0r // cfg.light_tile_size,
             )
-            # The loop's trip count is the frame's largest tile count: one
-            # host sync per frame, shared by every shaded layer. Slots past
-            # a tile's own count hold -1 and add nothing.
-            n_iter = min(int(tl.counts.max()), cfg.shaded_lights_per_tile)
-            tile_lights = tl.indices[:, :, :n_iter]
+            # Each tile walks its own count, at most shaded_lights_per_tile
+            # slots: no host sync on the card (ops/lights_cuda.py); on the
+            # CPU the plain loop's trip count is the largest count (one
+            # sync per shaded layer). Slots past a tile's count hold -1.
+            tile_lights = tl.indices[:, :, :cfg.shaded_lights_per_tile]
+            tile_counts = tl.counts
     tex_pool = pool if cfg.textured else None
     csm = ((uni.cascade_matrices, uni.cascade_splits, uni.view)
            if cfg.shadow_cascades > 1 else None)
@@ -714,6 +715,7 @@ def render_band(
                 reinhard=cfg.reinhard and not cfg.post_enabled,
                 lights=lights if tile_lights is not None else None,
                 tile_light_indices=tile_lights,
+                tile_light_counts=tile_counts,
                 light_tile_size=cfg.light_tile_size,
                 max_anisotropy=cfg.max_anisotropy,
                 csm=csm, csm_blend_size=cfg.csm_blend_size,

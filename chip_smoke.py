@@ -5,7 +5,9 @@ frame, the standard frame with Hi-Z occlusion culling, with MSAA and with
 the diagnostics overlay, the file sink and the profilers, the sharded
 frames (example 07's LOD scene among them), the frame farms (example 09),
 example 10's chunked frame and the frame loop's host profile on one
-NVIDIA GPU.
+NVIDIA GPU; and the three hand-written kernels against their plain
+versions: the raster kernels, the texture sampler and the Forward+ light
+loop.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It needs one CUDA device and `nvcc`; it exits non-zero without a result when
@@ -15,9 +17,10 @@ fails. Phases, one stdout line each:
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compiles ash_tpu_torch/csrc/raster.cu, which holds both raster
    kernels (the one-layer raster and the K-layer depth peel, and the
-   pre-pass that computes their candidate rectangles), and csrc/texture.cu
-   (the texture sampler: the five maps and the trilinear tap), one nvcc
-   each, started together, and prints each
+   pre-pass that computes their candidate rectangles), csrc/texture.cu
+   (the texture sampler: the five maps and the trilinear tap) and
+   csrc/lights.cu (the Forward+ light loop: a tile and an element kernel,
+   f32 and bf16), one nvcc each, started together, and prints each
    instantiation's registers and spills (none may spill);
 3. kernels against plain: each CUDA kernel and the plain PyTorch raster on
    the same CUDA tensors at the main path's shapes; tri_id and depth of
@@ -59,13 +62,14 @@ fails. Phases, one stdout line each:
    second layer at some pixels, the frame differs from the same frame
    without the cutoff, and a frame with a new light direction re-renders
    the alpha-tested shadow map. Then the lit standard frame (bench.py's 32
-   point lights): the one-layer kernel runs as on the standard frame, it
-   equals its plain-raster frame, and the lights change it. Then the rich
+   point lights): the one-layer kernel runs as on the standard frame, the
+   light kernel once a frame, it equals its plain-raster frame, and the
+   lights change it. Then the rich
    standard frame (bench.py's --rich: the HDR post chain with bloom and
    ACES, TAA, three 1024^2 shadow cascades with a tile cap of 512, the 32
    lights) for 8 frames: the one-layer kernel runs four times on frame 1
-   (three cascades and the main pass) and once per frame after, the peel
-   never; no overflow, finite colour; TAA gives every frame another jitter,
+   (three cascades and the main pass) and once per frame after, the light
+   kernel once a frame, the peel never; no overflow, finite colour; TAA gives every frame another jitter,
    so frame N is held against frame N of a plain-raster renderer (4
    frames); the history is non-zero after frame 1, the post chain changes
    the lit frame, a new light direction re-renders all three cascades, and
@@ -138,7 +142,8 @@ fails. Phases, one stdout line each:
    evaluates, its bound and its share of the bound (`work`);
 6. multi-device rendering (A18) and chunked geometry (A16), each path's
    launch counts from 0: the standard, rich and rich render_scale=0.5
-   frames through make_sharded_frame over four bands on one card (mesh
+   frames (the rich ones launch the light kernel once a band) through
+   make_sharded_frame over four bands on one card (mesh
    ["cuda:0"] * 4; with more cards also the standard frame over cuda:0..n-1),
    each equal to the single-device frame of the same inputs (u8, scalars,
    the gathered shadow map, the history); example 09's farm (4 frames a
@@ -187,6 +192,21 @@ fails. Phases, one stdout line each:
    map_footprint) against the same frames with the plain sampler patched
    in (u8 and colour, bit for bit), pass_shade's and pass_raster's device
    span beside the plain sampler's pass_shade, and the texture kernel's
+   launches and device time a frame, read by name from the frame's trace;
+10. the light kernel (csrc/lights.cu): the 1080p rich, lit and bf16 lit
+   frames' own shade calls (frame 1), recorded from the entry point,
+   through the kernel and the plain loop (ops/lights_cuda.plain): bit for
+   bit on covered elements (torch.equal), the others untouched; the
+   kernel's device time (50 bare launches) and the plain loop's, in turns,
+   the entry's time, beside its bound (bytes: a covered element's inputs
+   and `lo` once each way, an uncovered one's mask, the counts, the slots
+   walked and the light rows once; operations: 149 f32 operations a
+   pixel-light pair over the pairs the tile counts give); frames 2 and 3 of
+   each with the kernel (1 launch a frame, counted from 0, the plain loop
+   never called) against the same frames with the plain loop patched in
+   (u8 and colour); then, for the rich and lit frames, kernel and plain-loop
+   frames in turns: frame ms, peak memory, pass_shade's device span,
+   kernels and copies and device busy a frame, and the light kernel's
    launches and device time a frame, read by name from the frame's trace.
 
 Then one JSON line on the kernels and, last, the device JSON line.
@@ -413,11 +433,14 @@ def ptxas_usage(log):
     """{kernel: (registers, spill bytes)} from nvcc's -Xptxas -v log;
     raster_warp_kernel<L, HAS_FLOOR> is named by its L and floor, the
     rectangles' pre-pass "rects", csrc/texture.cu's texture_maps_kernel
-    and texture_trilinear_kernel "texture maps" and "texture trilinear"."""
+    and texture_trilinear_kernel "texture maps" and "texture trilinear",
+    csrc/lights.cu's light_tile_kernel<bf16> and light_element_kernel<bf16>
+    "light tile" / "light element", with " bf16" for the bf16 ones."""
     usage, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"raster_warp_kernelILi(\d+)ELb([01])E", ln)
         texture_kernel = re.search(r"texture_(maps|trilinear)_kernel", ln)
+        light_kernel = re.search(r"light_(tile|element)_kernelILb([01])E", ln)
         if "Compiling entry function" in ln and m:
             name = f"L={m.group(1)}{' floor' if m.group(2) == '1' else ''}"
             spill = None
@@ -425,6 +448,10 @@ def ptxas_usage(log):
             name, spill = "rects", None
         elif "Compiling entry function" in ln and texture_kernel:
             name = f"texture {texture_kernel.group(1)}"
+            spill = None
+        elif "Compiling entry function" in ln and light_kernel:
+            name = (f"light {light_kernel.group(1)}"
+                    f"{' bf16' if light_kernel.group(2) == '1' else ''}")
             spill = None
         elif name and "spill stores" in ln:
             spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill", ln))
@@ -636,11 +663,13 @@ def busy_profile(step, n=2):
 
 def counted(fn):
     """Zero the kernels' launch counts, run fn() -> (its result, one-layer
-    launches, peel launches)."""
-    from ash_tpu_torch.ops import raster_cuda
+    launches, peel launches); the light kernel's count is left in
+    lights_cuda.launches["loop"]."""
+    from ash_tpu_torch.ops import lights_cuda, raster_cuda
 
     raster_cuda.rasterize.launches = 0
     raster_cuda.rasterize.layer_launches = 0
+    lights_cuda.launches["loop"] = 0
     out = fn()
     return (out, raster_cuda.rasterize.launches,
             raster_cuda.rasterize.layer_launches)
@@ -683,7 +712,8 @@ def single_frame(inputs, history=None):
                                       lights, post, taa, history)
 
 
-def sharded_paths(card, view, proj, pos, launches, layer_launches, mem):
+def sharded_paths(card, view, proj, pos, launches, layer_launches, mem,
+                  light_launches):
     """A18's screen bands on the card: the standard frame, the rich frame
     and the rich frame at render_scale 0.5, each sharded over four bands on
     cuda:0 (mesh ["cuda:0"] * 4), against the same inputs' single-device
@@ -694,6 +724,7 @@ def sharded_paths(card, view, proj, pos, launches, layer_launches, mem):
     rows by path."""
     import torch
 
+    from ash_tpu_torch.ops import lights_cuda
     from ash_tpu_torch.parallel import make_sharded_frame, render_mesh
     from ash_tpu_torch.render.bench_scene import build_bench_renderer
 
@@ -722,12 +753,17 @@ def sharded_paths(card, view, proj, pos, launches, layer_launches, mem):
 
         out, b1, b2 = counted(sharded)
         launches[path], layer_launches[path] = b1, b2
+        lit = lights_cuda.launches["loop"]
+        if lit:
+            light_launches[path] = lit
         want = single_frame(inputs, history)
         n = len(devices)
         per_band = cfg.shadow_cascades + 1
         check(b1 == n * per_band and b2 == 0,
               f"{path}: one-layer launches {b1}, peel {b2}, want "
               f"{n * per_band} and 0")
+        check(lit == (n if cfg.lights_enabled else 0),
+              f"{path}: light kernel launches {lit}, want one a band")
         most, px = u8_diff(out.image, want.image)
         bad = same_scalars(out, want)
         same_map = bool(torch.equal(out.shadow_map, want.shadow_map))
@@ -754,7 +790,8 @@ def sharded_paths(card, view, proj, pos, launches, layer_launches, mem):
         print(f"phase6 {path}: {cfg.width}x{cfg.height}, {n} bands of "
               f"{rows[path]['rows_per_band']} rows on {devices}: one-layer "
               f"launches {b1} ({cfg.shadow_cascades} shadow band(s) and the "
-              f"main pass per band), peel {b2}; covered {int(out.covered_pixels)}"
+              f"main pass per band), peel {b2}, light kernel {lit}; covered "
+              f"{int(out.covered_pixels)}"
               f", overflow (main, shadow) {rows[path]['overflow']}; equal to "
               f"the single-device frame (u8, scalars, shadow map"
               f"{', history' if history is not None else ''}): True; frame "
@@ -1369,6 +1406,18 @@ def benchmark_phase(card, kind):
 OPS_TRILINEAR_TAP = 104
 OPS_FOOTPRINT_TAP = 115
 OPS_FOOTPRINT = {True: 26, False: 18}
+# f32 operations of csrc/lights.cu a pixel-light pair, as light_loop.py's
+# loop body counts them (a compare, clamp or select is one): the direction
+# and distance (13), the directional select (1), the falloff (9), the cone
+# (8), the attenuation's selects (4), n.l (6), the half vector (13), n.h
+# and v.h (12), GGX (9), Smith (12), Fresnel (14), the specular term and
+# its cap (22), kD (7), the contribution (16) and the sum into lo (3).
+OPS_PER_LIGHT_PAIR = 149
+# Bytes of a packed GpuLight row.
+LIGHT_ROW_BYTES = 64
+# The frames whose shade calls phase 10 replays: (name, bench scene keywords).
+LIGHT_FRAMES = [("rich", dict(rich=True)), ("lit", dict(lights=32)),
+                ("lit bf16", dict(lights=32, shade_dtype="bf16"))]
 # A textured frame 1's sampler calls, in order: the shadow pass's alpha
 # test, the main pass's, then shade_pbr's five maps in one call.
 SAMPLER_CALLS = ["alpha test shadow", "alpha test main", "maps"]
@@ -1664,6 +1713,202 @@ def texture_phase(card, view, proj, pos, tex_launches):
     return rows, max_err
 
 
+def light_calls(rend, view, proj, pos):
+    """Render a frame of `rend` with the light entry wrapped -> its
+    add_lights arguments, `lo` copied before the call."""
+    from ash_tpu_torch.ops import lights_cuda
+
+    calls = []
+    real = lights_cuda.add_lights
+
+    def record(*args):
+        calls.append((args[0].clone(), *args[1:]))
+        return real(*args)
+
+    with mock.patch.object(lights_cuda, "add_lights", record):
+        rend.render_frame(view, proj, pos)
+    return calls
+
+
+def light_work(lo, mask, world, normal, view_dir, base_color, metallic,
+               roughness, f0, ndotv, lights, tile_indices, tile_counts,
+               light_tile_size, pixel_xy=None):
+    """(bound ms, "bytes" or "operations", bytes, operations, pairs) of one
+    launch of the light kernel at the memory rate and the f32 rate, counted
+    from these inputs. Bytes: a covered element reads its position and the
+    seven shading inputs (and its pixel_xy) once and reads and writes `lo`;
+    every element reads its mask; the counts, the slots the covered
+    elements' tiles walk and the light rows they name are read once.
+    Operations: OPS_PER_LIGHT_PAIR for each (covered element, live slot)."""
+    import torch
+
+    ty, tx, k = tile_indices.shape
+    if pixel_xy is not None:
+        px, py = (c.long() for c in pixel_xy)
+    else:
+        h, w = mask.shape
+        py, px = torch.meshgrid(torch.arange(h, device=mask.device),
+                                torch.arange(w, device=mask.device),
+                                indexing="ij")
+    tile = (torch.div(py, light_tile_size, rounding_mode="floor")
+            .clamp(0, ty - 1) * tx
+            + torch.div(px, light_tile_size, rounding_mode="floor")
+            .clamp(0, tx - 1))[mask]
+    counts = (tile_counts.reshape(-1).long().clamp(0, k)
+              if tile_counts is not None
+              else torch.full((ty * tx,), k, device=mask.device))
+    slots = tile_indices.reshape(ty * tx, -1)[:, :k]
+    walked = torch.arange(k, device=mask.device) < counts[:, None]
+    live = walked & (slots >= 0)
+    pairs = int(live.sum(-1)[tile].sum())
+    used = tile.unique()
+    covered = int(mask.sum())
+    d = lo.element_size()
+    per_covered = 12 + 12 * d + 3 * d + 6 * d + (8 if pixel_xy else 0)
+    nbytes = (mask.numel() + covered * per_covered
+              + (4 * ty * tx if tile_counts is not None else 0)
+              + 4 * int(walked[used].sum())
+              + LIGHT_ROW_BYTES * int(slots[used][live[used]].unique().numel()))
+    ops = pairs * OPS_PER_LIGHT_PAIR
+    t_bytes, t_ops = nbytes / MEM_RATE * 1e3, ops / F32_RATE * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, ops, pairs)
+
+
+def light_phase(card, view, proj, pos, light_launches):
+    """Phase 10: the light kernel (csrc/lights.cu) against the plain loop
+    at the 1080p rich, lit and bf16 lit frames' own shade calls, bit for bit
+    on covered elements and the others untouched; each launch timed (CUDA
+    events, plain, kernel, kernel, plain) beside its bound; frames 2 and 3
+    with the kernel (launches counted from 0) against the same frames with
+    the plain loop patched in; the rich and lit frames timed and traced
+    with each. -> ({name: its numbers}, the largest |kernel - plain| on
+    covered elements)."""
+    import torch
+
+    from ash_tpu_torch.ops import light_loop, lights_cuda
+    from ash_tpu_torch.render.bench_scene import build_bench_renderer
+
+    def no_plain_loop(*args, **kwargs):
+        raise AssertionError("a card frame ran the plain light loop")
+
+    rows, max_err = {}, 0.0
+    for name, kw in LIGHT_FRAMES:
+        rend = build_bench_renderer(1920, 1080, 1000, "cuda", **kw)[0]
+        calls = light_calls(rend, view, proj, pos)
+        check(len(calls) == 1, f"{name}: {len(calls)} light calls a frame")
+        args = calls[0]
+        lo_in, mask = args[0], args[1]
+        want = lights_cuda.plain(lo_in.clone(), *args[1:])
+        got = lights_cuda.add_lights(lo_in.clone(), *args[1:])
+        int_view = torch.int16 if lo_in.dtype == torch.bfloat16 else torch.int32
+        equal = bool(torch.equal(got[mask], want[mask]))
+        untouched = bool(torch.equal(got[~mask].view(int_view),
+                                     lo_in[~mask].view(int_view)))
+        check(equal and untouched, f"light kernel != plain loop on the {name} "
+              f"frame: covered equal {equal}, uncovered untouched {untouched}")
+        err = float((got.float() - want.float())[mask].abs().max())
+        max_err = max(max_err, err)
+        work = lo_in.clone()
+        launch, _ = lights_cuda.launcher(work, *args[1:])
+        kern, plain = [], []
+        for order in ("plain", "kernel", "kernel", "plain"):
+            if order == "kernel":
+                kern.append(cuda_ms(launch, 50))
+            else:
+                plain.append(cuda_ms(
+                    lambda: lights_cuda.plain(lo_in.clone(), *args[1:]), 3))
+        bound, bound_by, nbytes, ops, pairs = light_work(*args)
+        row = dict(size="x".join(map(str, mask.shape[::-1])),
+                   dtype=str(lo_in.dtype).replace("torch.", ""),
+                   device_ms=statistics.mean(kern),
+                   plain_ms=statistics.mean(plain),
+                   wrapper_ms=cuda_ms(
+                       lambda: lights_cuda.add_lights(work, *args[1:]), 20),
+                   bound_ms=bound, bound_by=bound_by, bytes=nbytes,
+                   operations=ops, covered=int(mask.sum()), pairs=pairs,
+                   largest_count=int(args[12].max()), max_abs_err=err)
+        row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+        rows[name] = row
+        print(f"phase10 light kernel, {name} frame's shade call "
+              f"({row['size']} {row['dtype']}, {row['covered']} covered, "
+              f"{pairs} pixel-light pairs, largest tile count "
+              f"{row['largest_count']}): equal to the plain loop on covered "
+              f"elements, the others untouched, max |err| {err}; device "
+              f"{row['device_ms']} ms (mean of 50 launches), entry "
+              f"{row['wrapper_ms']} ms, plain {row['plain_ms']} ms; bound "
+              f"{bound} ms by {bound_by} ({nbytes} bytes, {ops} f32 "
+              f"operations), {100 * row['share_of_bound']:.1f}% of it "
+              f"({card})", flush=True)
+
+        # Frames 2 and 3 with the kernel, counted from 0, and the same
+        # frames with the plain loop patched in, which launches nothing.
+        lights_cuda.launches["loop"] = 0
+        frames = []
+        with mock.patch.object(light_loop, "light_slots", no_plain_loop):
+            for _ in range(2):
+                rend.render_frame(view, proj, pos)
+                frames.append((rend.read_back().copy(),
+                               rend.last_outputs().color.clone()))
+        launched = lights_cuda.launches["loop"]
+        light_launches[f"{name} frames 2-3"] = launched
+        check(launched == 2, f"{name}: light kernel launches {launched} in "
+              "frames 2 and 3, want 2")
+        plain_r = build_bench_renderer(1920, 1080, 1000, "cuda", **kw)[0]
+        plain_loop = mock.patch.object(lights_cuda, "add_lights",
+                                       lights_cuda.plain)
+        with plain_loop:
+            plain_r.render_frame(view, proj, pos)
+            for image, color in frames:
+                plain_r.render_frame(view, proj, pos)
+                check(np.array_equal(plain_r.read_back(), image)
+                      and torch.equal(plain_r.last_outputs().color, color),
+                      f"{name}: a frame with the light kernel != the frame "
+                      "with the plain loop")
+        check(lights_cuda.launches["loop"] == launched,
+              f"{name}: the plain-loop frames launched the light kernel")
+        line = (f"phase10 {name} frames 2 and 3: equal to the plain loop's "
+                f"(u8 and colour); light kernel launches {launched}")
+        if name != "lit bf16":
+            def step(i, r=rend):
+                r.render_frame(view, proj, pos)
+
+            def plain_step(i, r=plain_r):
+                with plain_loop:
+                    r.render_frame(view, proj, pos)
+
+            timed = {"kernel": [], "plain": []}
+            for order in ("plain", "kernel", "kernel", "plain"):
+                timed[order].append(frame_ms_spread(
+                    step if order == "kernel" else plain_step, 5))
+            frame_row = {}
+            for k, st in (("kernel", step), ("plain", plain_step)):
+                wall, busy, idle, n_ops = busy_profile(st)
+                frame_row[k] = dict(
+                    ms=[t[0][0] for t in timed[k]],
+                    peak_mib=max(t[1] for t in timed[k]),
+                    pass_shade_ms=scope_device_ms(st, "pass_shade", n=2)[0],
+                    busy_ms=busy, idle=idle, ops=n_ops)
+            frame_row["kernel"]["light_kernel"] = kernel_device_ms(
+                step, ("light_tile_kernel", "light_element_kernel"))
+            rows[f"{name} frame"] = frame_row
+            kf, pf = frame_row["kernel"], frame_row["plain"]
+            line += (f"; frame ms (median of 5, in turns) kernel {kf['ms']}, "
+                     f"plain loop {pf['ms']}; peak {kf['peak_mib']:.1f} / "
+                     f"{pf['peak_mib']:.1f} MiB; pass_shade device span "
+                     f"{kf['pass_shade_ms']:.3f} / {pf['pass_shade_ms']:.3f} "
+                     f"ms; kernels and copies a frame {kf['ops']:g} / "
+                     f"{pf['ops']:g}; device busy {kf['busy_ms']:.2f} / "
+                     f"{pf['busy_ms']:.2f} ms, idle {100 * kf['idle']:.1f} / "
+                     f"{100 * pf['idle']:.1f}% (kernel / plain); the light "
+                     f"kernel in the frame's trace: "
+                     f"{kf['light_kernel'][0]:g} launches, "
+                     f"{kf['light_kernel'][1]} ms a frame")
+        print(f"{line} ({card})", flush=True)
+        del rend, plain_r, frames, calls, args, work
+    return rows, max_err
+
+
 def main() -> int:
     import torch
 
@@ -1675,7 +1920,7 @@ def main() -> int:
 
     import ash_tpu_torch
     from ash_tpu_torch.ops import _build, binning, raster, raster_cuda
-    from ash_tpu_torch.ops import texture_cuda
+    from ash_tpu_torch.ops import lights_cuda, texture_cuda
     from ash_tpu_torch.render import RenderCommand, frame, golden_scenes
     from ash_tpu_torch.core import maths
     from ash_tpu_torch.render import bench_scene
@@ -1704,8 +1949,9 @@ def main() -> int:
 
     # 2. Build: one nvcc per source, started together.
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        lib, tex_lib = pool.map(_build.build, ["raster", "texture"])
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        lib, tex_lib, light_lib = pool.map(_build.build,
+                                           ["raster", "texture", "lights"])
     build_s = time.perf_counter() - t0
     usage = ptxas_usage(lib.with_suffix(".log").read_text())
     check(len(usage) == 16, f"{len(usage)} kernels, want 15 raster "
@@ -1714,8 +1960,14 @@ def main() -> int:
     check(sorted(tex_usage) == ["texture maps", "texture trilinear"],
           f"texture library kernels {list(tex_usage)}")
     usage.update(tex_usage)
-    print(f"phase2 build: {lib.name} (both raster kernels) and "
-          f"{tex_lib.name} (the texture sampler) in {build_s:.3f} s; "
+    light_usage = ptxas_usage(light_lib.with_suffix(".log").read_text())
+    check(sorted(light_usage) == ["light element", "light element bf16",
+                                  "light tile", "light tile bf16"],
+          f"light library kernels {list(light_usage)}")
+    usage.update(light_usage)
+    print(f"phase2 build: {lib.name} (both raster kernels), "
+          f"{tex_lib.name} (the texture sampler) and {light_lib.name} (the "
+          f"light loop) in {build_s:.3f} s; "
           + "; ".join(f"{k}: {r} registers, {sp} spill bytes"
                       for k, (r, sp) in sorted(usage.items())), flush=True)
     spills = {k: sp for k, (_, sp) in usage.items() if sp}
@@ -2088,9 +2340,13 @@ def main() -> int:
     rl, _, _, _ = build_bench_renderer(1920, 1080, 1000, "cuda", lights=32)
     raster_cuda.rasterize.launches = 0
     raster_cuda.rasterize.layer_launches = 0
+    lights_cuda.launches["loop"] = 0
     l_one, l_peel, l_outs = launches_per_frame(rl, view, proj, pos, 6)
     launches["lit"] = raster_cuda.rasterize.launches
     layer_launches["lit"] = raster_cuda.rasterize.layer_launches
+    light_launches = {"lit": lights_cuda.launches["loop"]}
+    check(light_launches["lit"] == 6,
+          f"lit: light kernel launches {light_launches['lit']} in 6 frames")
     limage = rl.read_back().copy()
     lout = l_outs[0]
     check(l_one == [2, 1, 1, 1, 1, 1], f"lit: one-layer launches {l_one}")
@@ -2122,9 +2378,13 @@ def main() -> int:
     rr, _, _, _ = build_bench_renderer(1920, 1080, 1000, "cuda", rich=True)
     raster_cuda.rasterize.launches = 0
     raster_cuda.rasterize.layer_launches = 0
+    lights_cuda.launches["loop"] = 0
     r_one, r_peel, r_outs = launches_per_frame(rr, view, proj, pos, 8)
     launches["rich"] = raster_cuda.rasterize.launches
     layer_launches["rich"] = raster_cuda.rasterize.layer_launches
+    light_launches["rich"] = lights_cuda.launches["loop"]
+    check(light_launches["rich"] == 8,
+          f"rich: light kernel launches {light_launches['rich']} in 8 frames")
     rimage = rr.read_back().copy()
     check(r_one == [4] + [1] * 7, f"rich: one-layer launches {r_one}")
     check(r_peel == [0] * 8, f"rich: peel launches {r_peel}")
@@ -2716,7 +2976,8 @@ def main() -> int:
           f"{int(lout.shadow_overflow)}; equal to the plain-raster frame: "
           f"{lequal}; against the unlit frame: PSNR {lit_psnr:.2f} dB, "
           f"{100 * lit_changed:.2f}% of pixels changed, by up to {lit_most} "
-          f"levels; largest tile light count {most_lights}", flush=True)
+          f"levels; largest tile light count {most_lights}; light kernel "
+          f"launches in 6 frames {light_launches['lit']}", flush=True)
 
     print(f"phase4 rich frame: one-layer launches per frame {r_one}, peel "
           f"{r_peel}; shadow re-render frames: one-layer {rs_one}, peel "
@@ -2725,7 +2986,8 @@ def main() -> int:
           f"{int(r_outs[0].covered_pixels)}; frame N equal to the "
           f"plain-raster frame N: {requal}; static frames that differ from "
           f"frame 1 under TAA: {jittered} of 7; equal with TAA off: True; "
-          f"PSNR against the lit frame {post_psnr:.2f} dB", flush=True)
+          f"PSNR against the lit frame {post_psnr:.2f} dB; light kernel "
+          f"launches in 8 frames {light_launches['rich']}", flush=True)
     print(f"phase4 rich frame at render_scale 0.5: one-layer launches per "
           f"frame {h_one}; tile cap {HALF_SCALE_TILE_CAP}, overflow 0; "
           f"internal pixels covered {half_covered} (native "
@@ -3022,7 +3284,7 @@ def main() -> int:
     # 6. A18 and A16's chunked frame: the sharded frames, the farms, and
     # example 10 chunked; each path's counts from 0.
     sharded = sharded_paths(card, view, proj, pos, launches, layer_launches,
-                            mem)
+                            mem, light_launches)
     farms = farm_paths(card, launches, layer_launches, mem)
     chunked, chunk_err = chunked_paths(card, launches, layer_launches, mem,
                                        timed)
@@ -3037,6 +3299,9 @@ def main() -> int:
     # 9. The texture kernel at the textured frame's inputs, its frames
     # against the plain sampler's, the anisotropy-1 path counted from 0.
     tex_rows, tex_err = texture_phase(card, view, proj, pos, tex_launches)
+    # 10. The light kernel at the rich and lit frames' inputs, their frames
+    # against the plain loop's.
+    light_rows, light_err = light_phase(card, view, proj, pos, light_launches)
 
     foreign = sorted(m for m in sys.modules if m in ("jax", "ash_tpu")
                      or m.startswith(("jax.", "ash_tpu.")))
@@ -3086,6 +3351,28 @@ def main() -> int:
         "wrapper_ms": tex_main["wrapper_ms"],
         "by_shape": tex_rows,
     }
+    # The light kernel's main shape: the rich frame's shade call.
+    light_main = light_rows["rich"]
+    light_line = {
+        "name": "light_loop",
+        "route": "cuda",
+        "source": "ash_tpu_torch/csrc/lights.cu",
+        # jax.numpy, not a TPU kernel: the reference's light loop is a
+        # lax.fori_loop that XLA fuses.
+        "replaces": "ash_tpu/ops/shade.py:558",
+        "launches": sum(light_launches.values()),
+        "launches_by_path": light_launches,
+        "max_abs_err": light_err,
+        "ms": light_main["device_ms"],
+        "plain_ms": light_main["plain_ms"],
+        "bound_ms": light_main["bound_ms"],
+        "bound_by": light_main["bound_by"],
+        # No PyTorch call walks a Forward+ tile list.
+        "library_ms": None,
+        "device_ms": light_main["device_ms"],
+        "wrapper_ms": light_main["wrapper_ms"],
+        "by_shape": light_rows,
+    }
     print(json.dumps({"kernels": [
         kernel_line("raster", "ash_tpu/ops/raster_pallas.py:106", launches,
                     max_err, ("main", 1, False),
@@ -3099,6 +3386,7 @@ def main() -> int:
                     [("main", 2, False), ("main", 4, False),
                      ("main", 8, False), ("main", 4, True)]),
         texture_line,
+        light_line,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
