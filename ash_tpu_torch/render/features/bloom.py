@@ -2,7 +2,8 @@
 reference src/renderer/features/bloom.rs:10-33).
 
 Defaults: threshold 0.8, intensity 0.5, 5 mips, soft knee 0.5, enabled.
-The image pipeline is ops/bloom.py, run by render/frame.py.
+The image pipeline is ops/bloom_cuda.py (csrc/bloom.cu on the card, the
+plain chain of ops/bloom.py on the CPU), run by render/frame.py.
 """
 
 from __future__ import annotations

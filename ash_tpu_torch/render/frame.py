@@ -32,7 +32,8 @@ With a `BandSpec` (parallel/sharded.py) `render_band` and
 map: only the row offsets change (`band_extent`, `shadow_band`).
 `merge_band_outputs` and `merge_shadows` composite the renders of draw-list
 chunks by depth (the renderer's chunked frame). Every raster goes through
-ops/raster_cuda.py:rasterize: a CUDA kernel on the card.
+ops/raster_cuda.py:rasterize, and the bloom through
+ops/bloom_cuda.py:bloom_pyramid: CUDA kernels on the card.
 
 PyTorch runs eagerly, so there is no program cache: the FrameConfig only
 carries the static shape of the frame. Each stage runs inside a
@@ -52,8 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from ..ops import binning, geometry, msaa_edge
-from ..ops.bloom import bloom_pyramid
+from ..ops import binning, bloom_cuda, geometry, msaa_edge
 from ..ops.fxaa import fxaa
 from ..ops.hiz import build_hiz
 from ..ops.occlusion import cull_objects
@@ -876,7 +876,7 @@ def finalize_frame(
         bloom = None
         if cfg.bloom_enabled:
             with record_function("pass_bloom"):
-                bloom = bloom_pyramid(
+                bloom = bloom_cuda.bloom_pyramid(
                     color, threshold=float(p.bloom_threshold),
                     soft_knee=float(p.bloom_soft_knee),
                     mip_count=cfg.bloom_mips,

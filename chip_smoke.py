@@ -5,9 +5,9 @@ frame, the standard frame with Hi-Z occlusion culling, with MSAA and with
 the diagnostics overlay, the file sink and the profilers, the sharded
 frames (example 07's LOD scene among them), the frame farms (example 09),
 example 10's chunked frame and the frame loop's host profile on one
-NVIDIA GPU; and the three hand-written kernels against their plain
-versions: the raster kernels, the texture sampler and the Forward+ light
-loop.
+NVIDIA GPU; and the four hand-written kernels against their plain
+versions: the raster kernels, the texture sampler, the Forward+ light
+loop and the bloom pyramid.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It needs one CUDA device and `nvcc`; it exits non-zero without a result when
@@ -20,8 +20,10 @@ fails. Phases, one stdout line each:
    pre-pass that computes their candidate rectangles), csrc/texture.cu
    (the texture sampler: the five maps and the trilinear tap) and
    csrc/lights.cu (the Forward+ light loop: a tile and an element kernel,
-   f32 and bf16), one nvcc each, started together, and prints each
-   instantiation's registers and spills (none may spill);
+   f32 and bf16) and csrc/bloom.cu (the bloom pyramid: the downsample and
+   the tent upsample, by path, seven instantiations), one nvcc each,
+   started together, and prints each instantiation's registers and spills
+   (none may spill);
 3. kernels against plain: each CUDA kernel and the plain PyTorch raster on
    the same CUDA tensors at the main path's shapes; tri_id and depth of
    every layer must be equal bit for bit. One layer: the 1080p main pass
@@ -69,7 +71,8 @@ fails. Phases, one stdout line each:
    ACES, TAA, three 1024^2 shadow cascades with a tile cap of 512, the 32
    lights) for 8 frames: the one-layer kernel runs four times on frame 1
    (three cascades and the main pass) and once per frame after, the light
-   kernel once a frame, the peel never; no overflow, finite colour; TAA gives every frame another jitter,
+   kernel once a frame, the bloom kernels ten times a frame, the peel
+   never; no overflow, finite colour; TAA gives every frame another jitter,
    so frame N is held against frame N of a plain-raster renderer (4
    frames); the history is non-zero after frame 1, the post chain changes
    the lit frame, a new light direction re-renders all three cascades, and
@@ -207,7 +210,24 @@ fails. Phases, one stdout line each:
    (u8 and colour); then, for the rich and lit frames, kernel and plain-loop
    frames in turns: frame ms, peak memory, pass_shade's device span,
    kernels and copies and device busy a frame, and the light kernel's
-   launches and device time a frame, read by name from the frame's trace.
+   launches and device time a frame, read by name from the frame's trace;
+11. the bloom kernels (csrc/bloom.cu): the 1080p rich frame's own
+   pass_bloom input (frame 1) and example 09's farm frame's (256x192, 3
+   mips), recorded from the entry point, and BLOOM_SIZES' seeded frames
+   (down to 2x2, and mip_count 0), through the kernels and the plain chain
+   (ops/bloom.py): torch.equal; the chain's device time (50 bare chains,
+   in turns with the plain chain), the entry's and the plain chain's, the
+   plain chain's own kernel time, beside its bound (the larger of the
+   frame read and the bloom written once at the memory rate and OPS_BLOOM's
+   f32 operations at the f32 rate) and each kernel's time by name; frames
+   2 and 3 of rich with the kernels (10 launches a frame, counted from 0,
+   the plain chain never called) against the same frames with the plain
+   chain patched in (u8 and colour); then kernel and plain-chain frames in
+   turns: frame ms, peak memory, pass_bloom's device span and its PyTorch
+   kernels' time, kernels and copies and device busy a frame, and the bloom
+   kernels' launches and device time a frame, read by name from the trace.
+   Phases 4 and 6 count the bloom launches of the rich, the sharded and the
+   farm frames from 0 as well.
 
 Then one JSON line on the kernels and, last, the device JSON line.
 """
@@ -435,12 +455,18 @@ def ptxas_usage(log):
     rectangles' pre-pass "rects", csrc/texture.cu's texture_maps_kernel
     and texture_trilinear_kernel "texture maps" and "texture trilinear",
     csrc/lights.cu's light_tile_kernel<bf16> and light_element_kernel<bf16>
-    "light tile" / "light element", with " bf16" for the bf16 ones."""
+    "light tile" / "light element", with " bf16" for the bf16 ones,
+    csrc/bloom.cu's bloom_down_kernel<even, threshold> "bloom down blocks" /
+    "bloom down gather" and bloom_up_kernel<double, threshold> "bloom up
+    double" / "bloom up gather", with " threshold" for those that read the
+    HDR frame."""
     usage, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"raster_warp_kernelILi(\d+)ELb([01])E", ln)
         texture_kernel = re.search(r"texture_(maps|trilinear)_kernel", ln)
         light_kernel = re.search(r"light_(tile|element)_kernelILb([01])E", ln)
+        bloom_kernel = re.search(r"bloom_(down|up)_kernelILb([01])ELb([01])E",
+                                 ln)
         if "Compiling entry function" in ln and m:
             name = f"L={m.group(1)}{' floor' if m.group(2) == '1' else ''}"
             spill = None
@@ -452,6 +478,12 @@ def ptxas_usage(log):
         elif "Compiling entry function" in ln and light_kernel:
             name = (f"light {light_kernel.group(1)}"
                     f"{' bf16' if light_kernel.group(2) == '1' else ''}")
+            spill = None
+        elif "Compiling entry function" in ln and bloom_kernel:
+            kind, fast, thresh = bloom_kernel.groups()
+            path = {"down": ("gather", "blocks"), "up": ("gather", "double")}
+            name = (f"bloom {kind} {path[kind][int(fast)]}"
+                    f"{' threshold' if thresh == '1' else ''}")
             spill = None
         elif name and "spill stores" in ln:
             spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill", ln))
@@ -661,15 +693,40 @@ def busy_profile(step, n=2):
     return wall / n, busy / n, 1.0 - busy / wall, sum(e.count for e in work) / n
 
 
+def bloom_launched():
+    """The bloom kernels' launches since their counts were zeroed."""
+    from ash_tpu_torch.ops import bloom_cuda
+
+    return sum(bloom_cuda.launches.values())
+
+
+def zero_bloom():
+    from ash_tpu_torch.ops import bloom_cuda
+
+    for k in bloom_cuda.launches:
+        bloom_cuda.launches[k] = 0
+
+
+def bloom_per_frame(cfg):
+    """The bloom kernels' launches a frame of `cfg`: one a level each way
+    (ops/bloom_cuda.levels), none without the post chain's bloom."""
+    from ash_tpu_torch.ops import bloom_cuda
+
+    if not (cfg.post_enabled and cfg.bloom_enabled):
+        return 0
+    return len(bloom_cuda.levels(cfg.height, cfg.width, cfg.bloom_mips))
+
+
 def counted(fn):
     """Zero the kernels' launch counts, run fn() -> (its result, one-layer
     launches, peel launches); the light kernel's count is left in
-    lights_cuda.launches["loop"]."""
+    lights_cuda.launches["loop"], the bloom kernels' in bloom_launched()."""
     from ash_tpu_torch.ops import lights_cuda, raster_cuda
 
     raster_cuda.rasterize.launches = 0
     raster_cuda.rasterize.layer_launches = 0
     lights_cuda.launches["loop"] = 0
+    zero_bloom()
     out = fn()
     return (out, raster_cuda.rasterize.launches,
             raster_cuda.rasterize.layer_launches)
@@ -713,7 +770,7 @@ def single_frame(inputs, history=None):
 
 
 def sharded_paths(card, view, proj, pos, launches, layer_launches, mem,
-                  light_launches):
+                  light_launches, bloom_launches):
     """A18's screen bands on the card: the standard frame, the rich frame
     and the rich frame at render_scale 0.5, each sharded over four bands on
     cuda:0 (mesh ["cuda:0"] * 4), against the same inputs' single-device
@@ -756,6 +813,12 @@ def sharded_paths(card, view, proj, pos, launches, layer_launches, mem,
         lit = lights_cuda.launches["loop"]
         if lit:
             light_launches[path] = lit
+        bloomed = bloom_launched()
+        if bloomed:
+            bloom_launches[path] = bloomed
+        check(bloomed == bloom_per_frame(cfg),
+              f"{path}: bloom kernel launches {bloomed}, want "
+              f"{bloom_per_frame(cfg)}")
         want = single_frame(inputs, history)
         n = len(devices)
         per_band = cfg.shadow_cascades + 1
@@ -790,7 +853,8 @@ def sharded_paths(card, view, proj, pos, launches, layer_launches, mem,
         print(f"phase6 {path}: {cfg.width}x{cfg.height}, {n} bands of "
               f"{rows[path]['rows_per_band']} rows on {devices}: one-layer "
               f"launches {b1} ({cfg.shadow_cascades} shadow band(s) and the "
-              f"main pass per band), peel {b2}, light kernel {lit}; covered "
+              f"main pass per band), peel {b2}, light kernel {lit}, bloom "
+              f"kernels {bloomed}; covered "
               f"{int(out.covered_pixels)}"
               f", overflow (main, shadow) {rows[path]['overflow']}; equal to "
               f"the single-device frame (u8, scalars, shadow map"
@@ -810,7 +874,7 @@ def frame_rows(cfg, n):
     return frame.band_extent(cfg, frame.BandSpec(0, n))[1]
 
 
-def farm_paths(card, launches, layer_launches, mem):
+def farm_paths(card, launches, layer_launches, mem, bloom_launches):
     """A18's frame farm on the card: example 09 (12 cubes at 256x192, HDR
     post, TAA) as 4 frames a batch on mesh ["cuda:0"] * 4, two batches
     chained through history0 (8 frames of the orbit), each frame against
@@ -858,6 +922,10 @@ def farm_paths(card, launches, layer_launches, mem):
     launches[path], layer_launches[path] = b1, b2
     check(b1 == 2 * total and b2 == 0,
           f"{path}: one-layer launches {b1}, peel {b2}, want {2 * total}, 0")
+    farm_bloom = bloom_per_frame(cfg)
+    bloom_launches[path] = bloom_launched()
+    check(bloom_launches[path] == farm_bloom * total,
+          f"{path}: bloom kernel launches {bloom_launches[path]}")
     history = torch.zeros((cfg.height, cfg.width, 3), device=scene.tri_v.device)
     equal = []
     for i in range(total):
@@ -885,7 +953,8 @@ def farm_paths(card, launches, layer_launches, mem):
                        idle=idle, ops=ops, frames=total, equal=equal)}
     print(f"phase6 {path}: {cfg.width}x{cfg.height}, 12 cubes, TAA ring: "
           f"{total // n} batches of {n} frames on ['cuda:0'] * {n}: one-layer "
-          f"launches {b1} (shadow and main pass a frame), peel {b2}; frame i "
+          f"launches {b1} (shadow and main pass a frame), peel {b2}, bloom "
+          f"kernels {bloom_launches[path]}; frame i "
           f"equal to frame i rendered alone with the history carried (u8, "
           f"history, covered): {equal}; {total} frames in {ms[0]} ms (median "
           f"of 3, min {ms[1]}, max {ms[2]}), {ms[0] / total:.3f} ms a frame, on "
@@ -902,6 +971,9 @@ def farm_paths(card, launches, layer_launches, mem):
     path = "farm banded 2x2"
     launches[path], layer_launches[path] = b1, b2
     check(b1 == 8 and b2 == 0, f"{path}: one-layer launches {b1}, peel {b2}")
+    bloom_launches[path] = bloom_launched()
+    check(bloom_launches[path] == 2 * farm_bloom,
+          f"{path}: bloom kernel launches {bloom_launches[path]}")
     equal2 = []
     for i in range(2):
         sm = frame.shadow_program(cfg2, scene, plain[i].models,
@@ -922,7 +994,8 @@ def farm_paths(card, launches, layer_launches, mem):
                       idle=idle, ops=ops, frames=2, equal=equal2)
     print(f"phase6 {path}: 2 frames x 2 bands of {frame_rows(cfg2, 2)} rows "
           f"on cuda:0, example 09's scene without TAA: one-layer launches "
-          f"{b1} (a shadow band and a main band per device), peel {b2}; "
+          f"{b1} (a shadow band and a main band per device), peel {b2}, "
+          f"bloom kernels {bloom_launches[path]}; "
           f"equal to each frame alone (u8, scalars): {equal2}; 2 frames in "
           f"{ms2[0]} ms (median of 5, min {ms2[1]}, max {ms2[2]}) on {card}; "
           f"under the profiler {wall:.2f} ms, device busy {busy:.2f} ms, idle "
@@ -1415,6 +1488,30 @@ OPS_FOOTPRINT = {True: 26, False: 18}
 OPS_PER_LIGHT_PAIR = 149
 # Bytes of a packed GpuLight row.
 LIGHT_ROW_BYTES = 64
+# csrc/bloom.cu's instantiations, as ptxas_usage names them.
+BLOOM_INSTANTIATIONS = sorted([
+    "bloom down blocks", "bloom down blocks threshold", "bloom down gather",
+    "bloom down gather threshold", "bloom up double", "bloom up gather",
+    "bloom up gather threshold"])
+# Bloom launches a rich 1080p frame: five levels, each down and up.
+RICH_BLOOM_LAUNCHES = 10
+# f32 operations of the bloom chain (ops/bloom.py, as csrc/bloom.cu runs
+# it; a compare, clamp, floor or select is one): the soft threshold, once a
+# frame texel (the brightness (2), the knee (4 with the clamp), its square
+# and scale (2), the max (2), the floor and quotient (2), the colour (3));
+# a target texel of each path: the 2x2-block downsample (9 taps of 3
+# channels x 9, the Karis sums 131, the 3 quotients), the gathered
+# downsample (the centre 4, 9 taps of 12 for the position and 27 for the
+# lerps, the Karis sums and quotients 134), the 2x tent (9 taps of 27, the
+# sum 36, the add 3) and the gathered tent (the centre 4, 9 taps of 39, the
+# sum 36, the add 3).
+OPS_BLOOM_THRESHOLD = 15
+OPS_BLOOM = {("down", "blocks"): 377, ("down", "gather"): 489,
+             ("up", "double"): 282, ("up", "gather"): 394}
+# The sizes phase 11 holds the kernels to the plain chain at besides the
+# frames' own inputs: tests/test_torch_bloom_kernel.py's (H, W, mips).
+BLOOM_SIZES = [(128, 192, 5), (135, 240, 2), (270, 480, 5), (20, 12, 5),
+               (2, 2, 5), (64, 96, 0), (3, 5, 4)]
 # The frames whose shade calls phase 10 replays: (name, bench scene keywords).
 LIGHT_FRAMES = [("rich", dict(rich=True)), ("lit", dict(lights=32)),
                 ("lit bf16", dict(lights=32, shade_dtype="bf16"))]
@@ -1909,6 +2006,240 @@ def light_phase(card, view, proj, pos, light_launches):
     return rows, max_err
 
 
+def bloom_work(h, w, mip_count):
+    """(bound ms, "bytes" or "operations", bytes, operations, level bytes)
+    of the bloom chain over an (h, w) frame at the memory rate and the f32
+    rate. Bytes: the frame read once and the bloom written once. Operations:
+    the soft threshold once a frame texel and OPS_BLOOM a target texel of
+    each launch (ops/bloom_cuda.levels). Level bytes: what the kernels move
+    with each level written and read back once (a launch's source, addend
+    and target)."""
+    from ash_tpu_torch.ops import bloom_cuda
+
+    plan = bloom_cuda.levels(h, w, mip_count)
+    nbytes = 2 * h * w * 12
+    ops = OPS_BLOOM_THRESHOLD * h * w + sum(
+        OPS_BLOOM[s.kind, s.path] * s.dst[0] * s.dst[1] for s in plan)
+    level_bytes = sum(12 * (s.src[0] * s.src[1]
+                            + s.dst[0] * s.dst[1] * (1 + s.add))
+                      for s in plan)
+    t_bytes, t_ops = nbytes / MEM_RATE * 1e3, ops / F32_RATE * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, ops, level_bytes)
+
+
+def bloom_calls(fn):
+    """Run fn() with the bloom entry wrapped -> its (hdr copy, keyword
+    arguments) per call."""
+    from ash_tpu_torch.ops import bloom_cuda
+
+    calls = []
+    real = bloom_cuda.bloom_pyramid
+
+    def record(hdr, **kwargs):
+        calls.append((hdr.clone(), kwargs))
+        return real(hdr, **kwargs)
+
+    with mock.patch.object(bloom_cuda, "bloom_pyramid", record):
+        fn()
+    return calls
+
+
+def bloom_kernel_ms(launch, plan, n=20):
+    """{instantiation: (launches a chain, device ms a launch)} of n bare
+    chains under torch.profiler, read by kernel name (ptxas_usage's names
+    without "bloom "); `plan` is the chain's ops/bloom_cuda.levels. The
+    profiler may miss a chain's first events, so a launch's time is the
+    mean over the launches it recorded."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def name(kind, fast, thresh):
+        path = {"down": ("gather", "blocks"), "up": ("gather", "double")}
+        return f"{kind} {path[kind][fast]}{' threshold' if thresh else ''}"
+
+    planned = {}
+    for s in plan:
+        key = name(s.kind, s.path != "gather", s.threshold)
+        planned[key] = planned.get(key, 0) + 1
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            launch()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"bloom_(down|up)_kernel<(true|false), (true|false)>",
+                      e.key)
+        if e.device_type != DeviceType.CUDA or not m or not e.count:
+            continue
+        key = name(m.group(1), m.group(2) == "true", m.group(3) == "true")
+        out[key] = (planned.get(key, 0),
+                    e.self_device_time_total / 1e3 / e.count)
+    return out
+
+
+def bloom_phase(card, view, proj, pos, bloom_launches):
+    """Phase 11: the bloom kernels (csrc/bloom.cu) against the plain chain
+    at the 1080p rich frame's own pass_bloom input (frame 1), example 09's
+    farm frame's and BLOOM_SIZES' seeded frames, by torch.equal; the chain
+    timed (CUDA events, plain, kernel, kernel, plain) beside its bound;
+    frames 2 and 3 of rich with the kernels (launches counted from 0, the
+    plain chain never called) against the same frames with the plain chain
+    patched in; then kernel and plain-chain frames in turns. -> ({name: its
+    numbers}, the largest |kernel - plain|)."""
+    import torch
+
+    from ash_tpu_torch.ops import bloom, bloom_cuda
+    from ash_tpu_torch.render import bench_scene, frame
+    from ash_tpu_torch.render.bench_scene import build_bench_renderer
+
+    def no_plain_chain(*args, **kwargs):
+        raise AssertionError("a card frame ran the plain bloom chain")
+
+    rend = build_bench_renderer(1920, 1080, 1000, "cuda", rich=True)[0]
+    calls = bloom_calls(lambda: rend.render_frame(view, proj, pos))
+    check(len(calls) == 1, f"rich: {len(calls)} bloom calls a frame")
+    inputs = {"rich frame 1": calls[0]}
+    scene, uni = bench_scene.example_scene(n_cubes=12, device="cuda")
+    cfg9 = bench_scene.example09_config()
+    uni9 = bench_scene.example09_uniforms(uni, 1, 8)
+    sm = frame.shadow_program(cfg9, scene, uni9.models,
+                              uni9.light_space_matrix)
+    calls = bloom_calls(lambda: frame.render_frame_program(
+        cfg9, scene, uni9, sm, taa_params=bench_scene.example09_taa(1),
+        history=torch.zeros((cfg9.height, cfg9.width, 3), device="cuda")))
+    check(len(calls) == 1, f"example 09: {len(calls)} bloom calls a frame")
+    inputs["example 09 farm frame"] = calls[0]
+    rng = np.random.default_rng(7)
+    for h, w, mips in BLOOM_SIZES:
+        img = rng.random((h, w, 3)) * 0.9
+        img = np.where(rng.random((h, w, 1)) < 0.1, img * 8 / 0.9, img)
+        inputs[f"{h}x{w} mips {mips}"] = (
+            torch.from_numpy(img.astype(np.float32)).cuda(),
+            dict(threshold=0.8, soft_knee=0.5, mip_count=mips))
+    rows, max_err = {}, 0.0
+    for name, (hdr, kw) in inputs.items():
+        want = bloom.bloom_pyramid(hdr, **kw)
+        got = bloom_cuda.bloom_pyramid(hdr, **kw)
+        check(bool(torch.equal(got, want)),
+              f"bloom kernels != plain chain at {name}")
+        err = float((got - want).abs().max())
+        max_err = max(max_err, err)
+        h, w = hdr.shape[:2]
+        row = dict(size=f"{w}x{h}", mips=kw["mip_count"],
+                   launches=len(bloom_cuda.levels(h, w, kw["mip_count"])),
+                   max_abs_err=err)
+        rows[name] = row
+        if name.endswith("mips 0") or name.startswith(("2x2", "3x5")):
+            continue
+        launch, _ = bloom_cuda.launcher(hdr, **kw)
+        kern, plain = [], []
+        for order in ("plain", "kernel", "kernel", "plain"):
+            if order == "kernel":
+                kern.append(cuda_ms(launch, 50))
+            else:
+                plain.append(cuda_ms(lambda: bloom.bloom_pyramid(hdr, **kw),
+                                     3))
+        bound, bound_by, nbytes, ops, level_bytes = bloom_work(
+            h, w, kw["mip_count"])
+        row.update(device_ms=statistics.mean(kern),
+                   plain_ms=statistics.mean(plain),
+                   plain_busy_ms=busy_ms(lambda: bloom.bloom_pyramid(hdr,
+                                                                     **kw)),
+                   wrapper_ms=cuda_ms(
+                       lambda: bloom_cuda.bloom_pyramid(hdr, **kw), 20),
+                   bound_ms=bound, bound_by=bound_by, bytes=nbytes,
+                   operations=ops, level_bytes=level_bytes,
+                   level_bound_ms=level_bytes / MEM_RATE * 1e3,
+                   by_kernel=bloom_kernel_ms(
+                       launch, bloom_cuda.levels(h, w, kw["mip_count"])))
+        row["share_of_bound"] = bound / row["device_ms"]
+        print(f"phase11 bloom kernels, {name} ({row['size']}, "
+              f"{row['mips']} mips, {row['launches']} launches): equal to "
+              f"the plain chain (torch.equal), max |err| {err}; device "
+              f"{row['device_ms']} ms (mean of 50 bare chains), entry "
+              f"{row['wrapper_ms']} ms, plain {row['plain_ms']} ms "
+              f"({row['plain_busy_ms']:.3f} ms of its kernels); bound "
+              f"{bound} ms by {bound_by} ({nbytes} bytes, {ops} f32 "
+              f"operations), {100 * row['share_of_bound']:.1f}% of it; each "
+              f"level through memory {level_bytes} bytes, "
+              f"{row['level_bound_ms']:.4f} ms; by kernel (launches a "
+              f"chain, ms a launch): {row['by_kernel']} ({card})",
+              flush=True)
+    shapes = ", ".join(f"{k} ({r['size']}, {r['mips']} mips)"
+                       for k, r in rows.items())
+    print(f"phase11 bloom kernels equal to the plain chain (torch.equal) at "
+          f"{shapes}", flush=True)
+
+    # Frames 2 and 3 with the kernels, counted from 0, and the same frames
+    # with the plain chain patched in, which launches nothing.
+    zero_bloom()
+    frames = []
+    with mock.patch.multiple(bloom, _downsample_karis=no_plain_chain,
+                             _upsample_tent=no_plain_chain):
+        for _ in range(2):
+            rend.render_frame(view, proj, pos)
+            frames.append((rend.read_back().copy(),
+                           rend.last_outputs().color.clone()))
+    launched = bloom_launched()
+    bloom_launches["rich frames 2-3"] = launched
+    check(launched == 2 * RICH_BLOOM_LAUNCHES,
+          f"rich: bloom kernel launches {launched} in frames 2 and 3")
+    plain_r = build_bench_renderer(1920, 1080, 1000, "cuda", rich=True)[0]
+    plain_chain = mock.patch.object(bloom_cuda, "bloom_pyramid",
+                                    bloom.bloom_pyramid)
+    with plain_chain:
+        plain_r.render_frame(view, proj, pos)
+        for image, color in frames:
+            plain_r.render_frame(view, proj, pos)
+            check(np.array_equal(plain_r.read_back(), image)
+                  and torch.equal(plain_r.last_outputs().color, color),
+                  "rich: a frame with the bloom kernels != the frame with "
+                  "the plain chain")
+    check(bloom_launched() == launched,
+          "rich: the plain-chain frames launched the bloom kernels")
+
+    def step(i):
+        rend.render_frame(view, proj, pos)
+
+    def plain_step(i):
+        with plain_chain:
+            plain_r.render_frame(view, proj, pos)
+
+    timed = {"kernel": [], "plain": []}
+    for order in ("plain", "kernel", "kernel", "plain"):
+        timed[order].append(frame_ms_spread(
+            step if order == "kernel" else plain_step, 5))
+    frame_row = {}
+    for k, st in (("kernel", step), ("plain", plain_step)):
+        wall, busy, idle, n_ops = busy_profile(st)
+        span, kern = scope_device_ms(st, "pass_bloom", n=2)
+        frame_row[k] = dict(ms=[t[0][0] for t in timed[k]],
+                            peak_mib=max(t[1] for t in timed[k]),
+                            pass_bloom_span_ms=span, pass_bloom_ops_ms=kern,
+                            busy_ms=busy, idle=idle, ops=n_ops)
+    frame_row["kernel"]["bloom_kernels"] = kernel_device_ms(
+        step, ("bloom_down_kernel", "bloom_up_kernel"))
+    rows["rich frame"] = frame_row
+    kf, pf = frame_row["kernel"], frame_row["plain"]
+    print(f"phase11 rich frames 2 and 3: equal to the plain chain's (u8 and "
+          f"colour); bloom kernel launches {launched}; frame ms (median of "
+          f"5, in turns) kernels {kf['ms']}, plain chain {pf['ms']}; peak "
+          f"{kf['peak_mib']:.1f} / {pf['peak_mib']:.1f} MiB; pass_bloom "
+          f"device span {kf['pass_bloom_span_ms']:.3f} / "
+          f"{pf['pass_bloom_span_ms']:.3f} ms, its PyTorch kernels "
+          f"{kf['pass_bloom_ops_ms']:.3f} / {pf['pass_bloom_ops_ms']:.3f} "
+          f"ms; kernels and copies a frame {kf['ops']:g} / {pf['ops']:g}; "
+          f"device busy {kf['busy_ms']:.2f} / {pf['busy_ms']:.2f} ms, idle "
+          f"{100 * kf['idle']:.1f} / {100 * pf['idle']:.1f}% (kernels / "
+          f"plain); the bloom kernels in the frame's trace: "
+          f"{kf['bloom_kernels'][0]:g} launches, {kf['bloom_kernels'][1]} ms "
+          f"a frame ({card})", flush=True)
+    return rows, max_err
+
+
 def main() -> int:
     import torch
 
@@ -1949,9 +2280,9 @@ def main() -> int:
 
     # 2. Build: one nvcc per source, started together.
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        lib, tex_lib, light_lib = pool.map(_build.build,
-                                           ["raster", "texture", "lights"])
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        lib, tex_lib, light_lib, bloom_lib = pool.map(
+            _build.build, ["raster", "texture", "lights", "bloom"])
     build_s = time.perf_counter() - t0
     usage = ptxas_usage(lib.with_suffix(".log").read_text())
     check(len(usage) == 16, f"{len(usage)} kernels, want 15 raster "
@@ -1965,9 +2296,14 @@ def main() -> int:
                                   "light tile", "light tile bf16"],
           f"light library kernels {list(light_usage)}")
     usage.update(light_usage)
+    bloom_usage = ptxas_usage(bloom_lib.with_suffix(".log").read_text())
+    check(sorted(bloom_usage) == BLOOM_INSTANTIATIONS,
+          f"bloom library kernels {list(bloom_usage)}")
+    usage.update(bloom_usage)
     print(f"phase2 build: {lib.name} (both raster kernels), "
-          f"{tex_lib.name} (the texture sampler) and {light_lib.name} (the "
-          f"light loop) in {build_s:.3f} s; "
+          f"{tex_lib.name} (the texture sampler), {light_lib.name} (the "
+          f"light loop) and {bloom_lib.name} (the bloom pyramid) in "
+          f"{build_s:.3f} s; "
           + "; ".join(f"{k}: {r} registers, {sp} spill bytes"
                       for k, (r, sp) in sorted(usage.items())), flush=True)
     spills = {k: sp for k, (_, sp) in usage.items() if sp}
@@ -2379,12 +2715,16 @@ def main() -> int:
     raster_cuda.rasterize.launches = 0
     raster_cuda.rasterize.layer_launches = 0
     lights_cuda.launches["loop"] = 0
+    zero_bloom()
     r_one, r_peel, r_outs = launches_per_frame(rr, view, proj, pos, 8)
     launches["rich"] = raster_cuda.rasterize.launches
     layer_launches["rich"] = raster_cuda.rasterize.layer_launches
     light_launches["rich"] = lights_cuda.launches["loop"]
     check(light_launches["rich"] == 8,
           f"rich: light kernel launches {light_launches['rich']} in 8 frames")
+    bloom_launches = {"rich": bloom_launched()}
+    check(bloom_launches["rich"] == 8 * RICH_BLOOM_LAUNCHES,
+          f"rich: bloom kernel launches {bloom_launches['rich']} in 8 frames")
     rimage = rr.read_back().copy()
     check(r_one == [4] + [1] * 7, f"rich: one-layer launches {r_one}")
     check(r_peel == [0] * 8, f"rich: peel launches {r_peel}")
@@ -2436,7 +2776,12 @@ def main() -> int:
     r_half, _, _, _ = build_bench_renderer(
         1920, 1080, 1000, "cuda", rich=True, render_scale=0.5,
         max_tris_per_tile=HALF_SCALE_TILE_CAP)
+    zero_bloom()
     h_one, h_peel, h_outs = launches_per_frame(r_half, view, proj, pos, 8)
+    bloom_launches["rich 0.5"] = bloom_launched()
+    check(bloom_launches["rich 0.5"] == 8 * RICH_BLOOM_LAUNCHES,
+          f"rich at render_scale 0.5: bloom kernel launches "
+          f"{bloom_launches['rich 0.5']} in 8 frames")
     check(h_one == [4] + [1] * 7 and h_peel == [0] * 8,
           f"rich at render_scale 0.5: one-layer {h_one}, peel {h_peel}")
     check(tuple(h_outs[-1].color.shape) == (1080, 1920, 3)
@@ -2987,12 +3332,14 @@ def main() -> int:
           f"plain-raster frame N: {requal}; static frames that differ from "
           f"frame 1 under TAA: {jittered} of 7; equal with TAA off: True; "
           f"PSNR against the lit frame {post_psnr:.2f} dB; light kernel "
-          f"launches in 8 frames {light_launches['rich']}", flush=True)
+          f"launches in 8 frames {light_launches['rich']}, bloom kernel "
+          f"launches {bloom_launches['rich']}", flush=True)
     print(f"phase4 rich frame at render_scale 0.5: one-layer launches per "
           f"frame {h_one}; tile cap {HALF_SCALE_TILE_CAP}, overflow 0; "
           f"internal pixels covered {half_covered} (native "
           f"{covered}); HDR colour against the native frame 8: "
-          f"{taau_psnr:.2f} dB after 8 frames, {taau_first:.2f} dB after 1",
+          f"{taau_psnr:.2f} dB after 8 frames, {taau_first:.2f} dB after 1; "
+          f"bloom kernel launches in 8 frames {bloom_launches['rich 0.5']}",
           flush=True)
 
     print(f"phase4 animated frame: 1920x1080, 1000 cubes, {ANIM_POSES} "
@@ -3284,8 +3631,8 @@ def main() -> int:
     # 6. A18 and A16's chunked frame: the sharded frames, the farms, and
     # example 10 chunked; each path's counts from 0.
     sharded = sharded_paths(card, view, proj, pos, launches, layer_launches,
-                            mem, light_launches)
-    farms = farm_paths(card, launches, layer_launches, mem)
+                            mem, light_launches, bloom_launches)
+    farms = farm_paths(card, launches, layer_launches, mem, bloom_launches)
     chunked, chunk_err = chunked_paths(card, launches, layer_launches, mem,
                                        timed)
     max_err = max(max_err, chunk_err)
@@ -3302,6 +3649,9 @@ def main() -> int:
     # 10. The light kernel at the rich and lit frames' inputs, their frames
     # against the plain loop's.
     light_rows, light_err = light_phase(card, view, proj, pos, light_launches)
+    # 11. The bloom kernels at the rich frame's input, its frames against the
+    # plain chain's.
+    bloom_rows, bloom_err = bloom_phase(card, view, proj, pos, bloom_launches)
 
     foreign = sorted(m for m in sys.modules if m in ("jax", "ash_tpu")
                      or m.startswith(("jax.", "ash_tpu.")))
@@ -3373,6 +3723,27 @@ def main() -> int:
         "wrapper_ms": light_main["wrapper_ms"],
         "by_shape": light_rows,
     }
+    # The bloom kernels' main shape: the rich frame's pass_bloom input.
+    bloom_main = bloom_rows["rich frame 1"]
+    bloom_line = {
+        "name": "bloom",
+        "route": "cuda",
+        "source": "ash_tpu_torch/csrc/bloom.cu",
+        # jax.numpy, not a TPU kernel: XLA fuses the reference's chain.
+        "replaces": "ash_tpu/ops/bloom.py:274",
+        "launches": sum(bloom_launches.values()),
+        "launches_by_path": bloom_launches,
+        "max_abs_err": bloom_err,
+        "ms": bloom_main["device_ms"],
+        "plain_ms": bloom_main["plain_ms"],
+        "bound_ms": bloom_main["bound_ms"],
+        "bound_by": bloom_main["bound_by"],
+        # No PyTorch call computes a Karis-weighted downsample chain.
+        "library_ms": None,
+        "device_ms": bloom_main["device_ms"],
+        "wrapper_ms": bloom_main["wrapper_ms"],
+        "by_shape": bloom_rows,
+    }
     print(json.dumps({"kernels": [
         kernel_line("raster", "ash_tpu/ops/raster_pallas.py:106", launches,
                     max_err, ("main", 1, False),
@@ -3387,6 +3758,7 @@ def main() -> int:
                      ("main", 8, False), ("main", 4, True)]),
         texture_line,
         light_line,
+        bloom_line,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
