@@ -100,7 +100,35 @@ def _library() -> ctypes.CDLL:
     lib.ash_bloom_up.argtypes = ([_P, _I, _I, _I] + [_F] * 4
                                  + [_P, _P, _I, _I, _P])
     lib.ash_bloom_up.restype = _I
+    lib.ash_bloom_probe_rcp.argtypes = [_P, _I, _P, _P, _P]
+    lib.ash_bloom_probe_rcp.restype = _I
     return lib
+
+
+def probe_reciprocal(x: torch.Tensor):
+    """(__frcp_rn(x), __fdiv_rn(1, x)) of a contiguous f32 CUDA tensor, as
+    the kernels compute them (the tests' probe of the Karis weight's
+    reciprocal)."""
+    if x.device.type != "cuda" or x.dtype != torch.float32 or \
+            not x.is_contiguous() or x.numel() == 0:
+        raise ValueError("bloom probe: a non-empty contiguous f32 CUDA "
+                         "tensor")
+    rcp, quot = torch.empty_like(x), torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = _library().ash_bloom_probe_rcp(
+            x.data_ptr(), x.numel(), rcp.data_ptr(), quot.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"bloom probe launch failed: CUDA error {err}")
+    return rcp, quot
+
+
+def c_args(src, h, w, threshold_src, t, k, hi, inv, *rest):
+    """A launch's arguments as ctypes values, converted once when the chain
+    is planned, so that a launch from the host skips the conversion."""
+    *ptrs, dh, dw = rest
+    return (_P(src), _I(h), _I(w), _I(threshold_src), _F(t), _F(k), _F(hi),
+            _F(inv), *(_P(p) for p in ptrs), _I(dh), _I(dw))
 
 
 def check_inputs(hdr, threshold, soft_knee, mip_count) -> None:
@@ -133,8 +161,9 @@ def launcher(hdr, threshold=0.8, soft_knee=0.5, mip_count=5):
     """Check the inputs on a CUDA device and allocate the levels -> (launch,
     bloom): `launch()` runs the chain's launches on the current stream,
     writing the (H, W, 3) bloom, counts nothing, and returns the launches
-    it made as (kind, inputs, outputs). The entry point counts; this split
-    lets a timing loop replay the bare chain."""
+    it made as (kind, inputs, outputs); `launch(steps)` runs only the
+    launches at those indices of `levels`' plan. The entry point counts;
+    this split lets a timing loop replay the bare chain, or one level."""
     if hdr.device.type != "cuda":
         raise ValueError(f"bloom kernel: unsupported device {hdr.device}")
     check_inputs(hdr, threshold, soft_knee, mip_count)
@@ -155,31 +184,33 @@ def launcher(hdr, threshold=0.8, soft_knee=0.5, mip_count=5):
         dst = image(s.dst)
         if s.kind == "down":
             calls.append(("down", lib.ash_bloom_down,
-                          (src.data_ptr(), *s.src, int(s.threshold), *ops,
-                           dst.data_ptr(), *s.dst), (src,), (dst,)))
+                          c_args(src.data_ptr(), *s.src, int(s.threshold),
+                                 *ops, dst.data_ptr(), *s.dst),
+                          (src,), (dst,)))
             down.append(dst)
         else:
             k = len(calls) - n_levels
             add = down[n_levels - 1 - k] if s.add else None
             calls.append(("up", lib.ash_bloom_up,
-                          (src.data_ptr(), *s.src, int(s.threshold), *ops,
-                           None if add is None else add.data_ptr(),
-                           dst.data_ptr(), *s.dst),
+                          c_args(src.data_ptr(), *s.src, int(s.threshold),
+                                 *ops, None if add is None else add.data_ptr(),
+                                 dst.data_ptr(), *s.dst),
                           (src,) if add is None else (src, add), (dst,)))
         src = dst
     out = calls[-1][4][0]
     made = [(kind, ins, outs) for kind, _, _, ins, outs in calls]
     device = hdr.device
 
-    def launch():
+    def launch(steps=None):
+        run = calls if steps is None else [calls[i] for i in steps]
         with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            for kind, entry, args, _, _ in calls:
+            stream = _P(torch.cuda.current_stream(device).cuda_stream)
+            for kind, entry, args, _, _ in run:
                 err = entry(*args, stream)
                 if err != 0:
                     raise RuntimeError(f"bloom kernel ({kind}) launch "
                                        f"failed: CUDA error {err}")
-        return made
+        return made if steps is None else [made[i] for i in steps]
 
     return launch, out
 

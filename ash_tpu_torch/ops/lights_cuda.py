@@ -52,7 +52,26 @@ def _library() -> ctypes.CDLL:
     lib.ash_light_loop.argtypes = ([_P, _I, _P, _I, _I, _I, _I, _P, _I, _P, _P]
                                    + [_P] * 10 + [_I] * 3 + [_P])
     lib.ash_light_loop.restype = _I
+    lib.ash_light_probe_bf16.argtypes = [_P, _I, _P, _P]
+    lib.ash_light_probe_bf16.restype = _I
     return lib
+
+
+def probe_bf16(x: torch.Tensor) -> torch.Tensor:
+    """The bf16 of each element of a contiguous f32 CUDA tensor as the
+    kernel rounds it (the tests' probe of the conversion)."""
+    if x.device.type != "cuda" or x.dtype != torch.float32 or \
+            not x.is_contiguous() or x.numel() == 0:
+        raise ValueError("light probe: a non-empty contiguous f32 CUDA "
+                         "tensor")
+    out = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _library().ash_light_probe_bf16(
+            x.data_ptr(), x.numel(), out.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"light probe launch failed: CUDA error {err}")
+    return out
 
 
 def _check(name, t, dtype, shape, device):

@@ -21,7 +21,7 @@ fails. Phases, one stdout line each:
    (the texture sampler: the five maps and the trilinear tap) and
    csrc/lights.cu (the Forward+ light loop: a tile and an element kernel,
    f32 and bf16) and csrc/bloom.cu (the bloom pyramid: the downsample and
-   the tent upsample, by path, seven instantiations), one nvcc each,
+   the tent upsample, by path, eight instantiations), one nvcc each,
    started together, and prints each instantiation's registers and spills
    (none may spill);
 3. kernels against plain: each CUDA kernel and the plain PyTorch raster on
@@ -196,10 +196,11 @@ fails. Phases, one stdout line each:
    in (u8 and colour, bit for bit), pass_shade's and pass_raster's device
    span beside the plain sampler's pass_shade, and the texture kernel's
    launches and device time a frame, read by name from the frame's trace;
-10. the light kernel (csrc/lights.cu): the 1080p rich, lit and bf16 lit
-   frames' own shade calls (frame 1), recorded from the entry point,
-   through the kernel and the plain loop (ops/lights_cuda.plain): bit for
-   bit on covered elements (torch.equal), the others untouched; the
+10. the light kernel (csrc/lights.cu): its instantiations' registers and
+   spills; the 1080p rich, lit and bf16 lit frames' own shade calls
+   (frame 1), recorded from the entry point, through the kernel and the
+   plain loop (ops/lights_cuda.plain): bit for bit on covered elements
+   (torch.equal), the others untouched; the
    kernel's device time (50 bare launches) and the plain loop's, in turns,
    the entry's time, beside its bound (bytes: a covered element's inputs
    and `lo` once each way, an uncovered one's mask, the counts, the slots
@@ -215,13 +216,16 @@ fails. Phases, one stdout line each:
    pass_bloom input (frame 1) and example 09's farm frame's (256x192, 3
    mips), recorded from the entry point, and BLOOM_SIZES' seeded frames
    (down to 2x2, and mip_count 0), through the kernels and the plain chain
-   (ops/bloom.py): torch.equal; the chain's device time (50 bare chains,
-   in turns with the plain chain), the entry's and the plain chain's, the
-   plain chain's own kernel time, beside its bound (the larger of the
-   frame read and the bloom written once at the memory rate and OPS_BLOOM's
-   f32 operations at the f32 rate) and each kernel's time by name; frames
-   2 and 3 of rich with the kernels (10 launches a frame, counted from 0,
-   the plain chain never called) against the same frames with the plain
+   (ops/bloom.py): torch.equal; the chain's device time (50 bare chains
+   between CUDA events, and bare chains in a CUDA graph, which leaves out
+   the host's launches; in turns with the plain chain; at the rich input
+   each launch alone in a CUDA graph, with the instantiations' registers
+   and spills), the entry's and the plain chain's, the plain chain's own
+   kernel time, beside its bound (the larger of the frame read and the
+   bloom written once at the memory rate and OPS_BLOOM's f32 operations at
+   the f32 rate) and each kernel's time by name; frames 2 and 3 of rich
+   with the kernels (10 launches a frame, counted from 0, the plain chain
+   never called) against the same frames with the plain
    chain patched in (u8 and colour); then kernel and plain-chain frames in
    turns: frame ms, peak memory, pass_bloom's device span and its PyTorch
    kernels' time, kernels and copies and device busy a frame, and the bloom
@@ -230,13 +234,21 @@ fails. Phases, one stdout line each:
    farm frames from 0 as well.
 
 Then one JSON line on the kernels and, last, the device JSON line.
+
+`python3 chip_smoke.py --parent DIR [--variant LABEL=DIR ...]` runs phase 1
+and then, instead of the phases above, ab_phase: another checkout's light
+and bloom kernels (DIR, for example the parent commit unpacked with `git
+archive`) against this tree's, in turns in one process, at phases 10-11's
+inputs and in the rich frame, and prints one JSON line of what it measured.
 """
 
+import argparse
 import concurrent.futures
 import contextlib
 import json
 import math
 import os
+import pathlib
 import re
 import statistics
 import subprocess
@@ -449,6 +461,15 @@ def frame_ms(step, n):
     return statistics.median(times)
 
 
+def bloom_path(kind, path, threshold):
+    """The name of csrc/bloom.cu's bloom_{kind}_kernel<path, threshold>:
+    path 0 the gather, 1 the 2x2 blocks or 2x lerps one thread a target, 2
+    the same staged in shared memory."""
+    name = {"down": ("gather", "blocks", "blocks staged"),
+            "up": ("gather", "double", "double staged")}[kind][path]
+    return f"{kind} {name}{' threshold' if threshold else ''}"
+
+
 def ptxas_usage(log):
     """{kernel: (registers, spill bytes)} from nvcc's -Xptxas -v log;
     raster_warp_kernel<L, HAS_FLOOR> is named by its L and floor, the
@@ -456,17 +477,20 @@ def ptxas_usage(log):
     and texture_trilinear_kernel "texture maps" and "texture trilinear",
     csrc/lights.cu's light_tile_kernel<bf16> and light_element_kernel<bf16>
     "light tile" / "light element", with " bf16" for the bf16 ones,
-    csrc/bloom.cu's bloom_down_kernel<even, threshold> "bloom down blocks" /
-    "bloom down gather" and bloom_up_kernel<double, threshold> "bloom up
-    double" / "bloom up gather", with " threshold" for those that read the
-    HDR frame."""
+    csrc/bloom.cu's bloom_down_kernel<path, threshold> "bloom down gather"
+    / "bloom down blocks" / "bloom down blocks staged" and
+    bloom_up_kernel<path, threshold> "bloom up gather" / "bloom up double" /
+    "bloom up double staged" (bloom_path), with " threshold" for those that
+    read the HDR frame; PR 15's bloom_{down,up}_kernel<bool, threshold>, a
+    build of another tree that ab_phase times, by the same names, its bool
+    as path 0 or 1."""
     usage, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"raster_warp_kernelILi(\d+)ELb([01])E", ln)
         texture_kernel = re.search(r"texture_(maps|trilinear)_kernel", ln)
         light_kernel = re.search(r"light_(tile|element)_kernelILb([01])E", ln)
-        bloom_kernel = re.search(r"bloom_(down|up)_kernelILb([01])ELb([01])E",
-                                 ln)
+        bloom_kernel = re.search(
+            r"bloom_(down|up)_kernelIL[ib]([012])ELb([01])E", ln)
         if "Compiling entry function" in ln and m:
             name = f"L={m.group(1)}{' floor' if m.group(2) == '1' else ''}"
             spill = None
@@ -480,10 +504,8 @@ def ptxas_usage(log):
                     f"{' bf16' if light_kernel.group(2) == '1' else ''}")
             spill = None
         elif "Compiling entry function" in ln and bloom_kernel:
-            kind, fast, thresh = bloom_kernel.groups()
-            path = {"down": ("gather", "blocks"), "up": ("gather", "double")}
-            name = (f"bloom {kind} {path[kind][int(fast)]}"
-                    f"{' threshold' if thresh == '1' else ''}")
+            kind, path, thresh = bloom_kernel.groups()
+            name = f"bloom {bloom_path(kind, int(path), thresh == '1')}"
             spill = None
         elif name and "spill stores" in ln:
             spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill", ln))
@@ -1490,9 +1512,9 @@ OPS_PER_LIGHT_PAIR = 149
 LIGHT_ROW_BYTES = 64
 # csrc/bloom.cu's instantiations, as ptxas_usage names them.
 BLOOM_INSTANTIATIONS = sorted([
-    "bloom down blocks", "bloom down blocks threshold", "bloom down gather",
-    "bloom down gather threshold", "bloom up double", "bloom up gather",
-    "bloom up gather threshold"])
+    "bloom down blocks", "bloom down blocks staged threshold",
+    "bloom down gather", "bloom down gather threshold", "bloom up double",
+    "bloom up double staged", "bloom up gather", "bloom up gather threshold"])
 # Bloom launches a rich 1080p frame: five levels, each down and up.
 RICH_BLOOM_LAUNCHES = 10
 # f32 operations of the bloom chain (ops/bloom.py, as csrc/bloom.cu runs
@@ -1872,7 +1894,7 @@ def light_work(lo, mask, world, normal, view_dir, base_color, metallic,
             nbytes, ops, pairs)
 
 
-def light_phase(card, view, proj, pos, light_launches):
+def light_phase(card, view, proj, pos, light_launches, usage):
     """Phase 10: the light kernel (csrc/lights.cu) against the plain loop
     at the 1080p rich, lit and bf16 lit frames' own shade calls, bit for bit
     on covered elements and the others untouched; each launch timed (CUDA
@@ -1890,6 +1912,11 @@ def light_phase(card, view, proj, pos, light_launches):
         raise AssertionError("a card frame ran the plain light loop")
 
     rows, max_err = {}, 0.0
+    rows["usage"] = {k: v for k, v in usage.items() if k.startswith("light")}
+    print("phase10 light kernel, registers and spill bytes by instantiation: "
+          + "; ".join(f"{k}: {r}, {sp}"
+                      for k, (r, sp) in sorted(rows["usage"].items()))
+          + f" ({card})", flush=True)
     for name, kw in LIGHT_FRAMES:
         rend = build_bench_renderer(1920, 1080, 1000, "cuda", **kw)[0]
         calls = light_calls(rend, view, proj, pos)
@@ -2045,24 +2072,16 @@ def bloom_calls(fn):
     return calls
 
 
-def bloom_kernel_ms(launch, plan, n=20):
+def bloom_kernel_ms(launch, n=20):
     """{instantiation: (launches a chain, device ms a launch)} of n bare
     chains under torch.profiler, read by kernel name (ptxas_usage's names
-    without "bloom "); `plan` is the chain's ops/bloom_cuda.levels. The
-    profiler may miss a chain's first events, so a launch's time is the
-    mean over the launches it recorded."""
+    without "bloom "). The profiler may miss a chain's first events, so the
+    launches a chain are rounded and a launch's time is the mean over the
+    launches it recorded."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def name(kind, fast, thresh):
-        path = {"down": ("gather", "blocks"), "up": ("gather", "double")}
-        return f"{kind} {path[kind][fast]}{' threshold' if thresh else ''}"
-
-    planned = {}
-    for s in plan:
-        key = name(s.kind, s.path != "gather", s.threshold)
-        planned[key] = planned.get(key, 0) + 1
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
@@ -2070,33 +2089,27 @@ def bloom_kernel_ms(launch, plan, n=20):
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        m = re.search(r"bloom_(down|up)_kernel<(true|false), (true|false)>",
-                      e.key)
+        m = re.search(r"bloom_(down|up)_kernel<(\d|true|false), "
+                      r"(true|false)>", e.key)
         if e.device_type != DeviceType.CUDA or not m or not e.count:
             continue
-        key = name(m.group(1), m.group(2) == "true", m.group(3) == "true")
-        out[key] = (planned.get(key, 0),
+        path = m.group(2)
+        path = int(path) if path.isdigit() else int(path == "true")
+        key = bloom_path(m.group(1), path, m.group(3) == "true")
+        out[key] = (round(e.count / n),
                     e.self_device_time_total / 1e3 / e.count)
     return out
 
 
-def bloom_phase(card, view, proj, pos, bloom_launches):
-    """Phase 11: the bloom kernels (csrc/bloom.cu) against the plain chain
-    at the 1080p rich frame's own pass_bloom input (frame 1), example 09's
-    farm frame's and BLOOM_SIZES' seeded frames, by torch.equal; the chain
-    timed (CUDA events, plain, kernel, kernel, plain) beside its bound;
-    frames 2 and 3 of rich with the kernels (launches counted from 0, the
-    plain chain never called) against the same frames with the plain chain
-    patched in; then kernel and plain-chain frames in turns. -> ({name: its
-    numbers}, the largest |kernel - plain|)."""
+def bloom_inputs(view, proj, pos):
+    """The bloom chain's inputs: the 1080p rich frame's own pass_bloom input
+    (frame 1), example 09's farm frame's (256x192, 3 mips) and
+    BLOOM_SIZES' seeded frames -> (the rich renderer, {name: (hdr,
+    keyword arguments)})."""
     import torch
 
-    from ash_tpu_torch.ops import bloom, bloom_cuda
     from ash_tpu_torch.render import bench_scene, frame
     from ash_tpu_torch.render.bench_scene import build_bench_renderer
-
-    def no_plain_chain(*args, **kwargs):
-        raise AssertionError("a card frame ran the plain bloom chain")
 
     rend = build_bench_renderer(1920, 1080, 1000, "cuda", rich=True)[0]
     calls = bloom_calls(lambda: rend.render_frame(view, proj, pos))
@@ -2119,6 +2132,37 @@ def bloom_phase(card, view, proj, pos, bloom_launches):
         inputs[f"{h}x{w} mips {mips}"] = (
             torch.from_numpy(img.astype(np.float32)).cuda(),
             dict(threshold=0.8, soft_knee=0.5, mip_count=mips))
+    return rend, inputs
+
+
+def bloom_timed(name):
+    """Whether bloom_inputs' input `name` is timed (the tiny and empty
+    chains are only compared)."""
+    return not (name.endswith("mips 0") or name.startswith(("2x2", "3x5")))
+
+
+def bloom_phase(card, view, proj, pos, bloom_launches, usage):
+    """Phase 11: the bloom kernels (csrc/bloom.cu) against the plain chain
+    at the 1080p rich frame's own pass_bloom input (frame 1), example 09's
+    farm frame's and BLOOM_SIZES' seeded frames, by torch.equal; the chain
+    timed (plain, kernel, kernel, plain: CUDA events around the plain chain,
+    CUDA events around 50 bare chains and a CUDA graph of them) beside its
+    bound;
+    frames 2 and 3 of rich with the kernels (launches counted from 0, the
+    plain chain never called) against the same frames with the plain chain
+    patched in; then kernel and plain-chain frames in turns. At the rich
+    frame's input each launch is also timed alone (a CUDA graph), and the
+    kernels' registers and spills are printed (`usage`: phase 2's
+    ptxas_usage). -> ({name: its numbers}, the largest |kernel - plain|)."""
+    import torch
+
+    from ash_tpu_torch.ops import bloom, bloom_cuda
+    from ash_tpu_torch.render.bench_scene import build_bench_renderer
+
+    def no_plain_chain(*args, **kwargs):
+        raise AssertionError("a card frame ran the plain bloom chain")
+
+    rend, inputs = bloom_inputs(view, proj, pos)
     rows, max_err = {}, 0.0
     for name, (hdr, kw) in inputs.items():
         want = bloom.bloom_pyramid(hdr, **kw)
@@ -2132,19 +2176,24 @@ def bloom_phase(card, view, proj, pos, bloom_launches):
                    launches=len(bloom_cuda.levels(h, w, kw["mip_count"])),
                    max_abs_err=err)
         rows[name] = row
-        if name.endswith("mips 0") or name.startswith(("2x2", "3x5")):
+        if not bloom_timed(name):
             continue
         launch, _ = bloom_cuda.launcher(hdr, **kw)
-        kern, plain = [], []
+        kern, graphed, plain = [], [], []
         for order in ("plain", "kernel", "kernel", "plain"):
             if order == "kernel":
                 kern.append(cuda_ms(launch, 50))
+                graphed.append(graph_ms(launch))
             else:
                 plain.append(cuda_ms(lambda: bloom.bloom_pyramid(hdr, **kw),
                                      3))
         bound, bound_by, nbytes, ops, level_bytes = bloom_work(
             h, w, kw["mip_count"])
+        # The chain's device time as PR 15 took it: 50 bare chains launched
+        # from Python between CUDA events; and in a CUDA graph (`graph_ms`),
+        # without the host's launches, which short kernels wait on.
         row.update(device_ms=statistics.mean(kern),
+                   graph_ms=statistics.mean(graphed),
                    plain_ms=statistics.mean(plain),
                    plain_busy_ms=busy_ms(lambda: bloom.bloom_pyramid(hdr,
                                                                      **kw)),
@@ -2153,14 +2202,28 @@ def bloom_phase(card, view, proj, pos, bloom_launches):
                    bound_ms=bound, bound_by=bound_by, bytes=nbytes,
                    operations=ops, level_bytes=level_bytes,
                    level_bound_ms=level_bytes / MEM_RATE * 1e3,
-                   by_kernel=bloom_kernel_ms(
-                       launch, bloom_cuda.levels(h, w, kw["mip_count"])))
+                   by_kernel=bloom_kernel_ms(launch))
         row["share_of_bound"] = bound / row["device_ms"]
+        if name == "rich frame 1":
+            row["by_level"] = {
+                f"{s.kind} {s.path}{' threshold' if s.threshold else ''} "
+                f"{s.src[1]}x{s.src[0]} -> {s.dst[1]}x{s.dst[0]}":
+                graph_ms(lambda: launch([i]))
+                for i, s in enumerate(bloom_cuda.levels(h, w,
+                                                        kw["mip_count"]))}
+            print(f"phase11 bloom kernels, {name}, each launch alone (device "
+                  f"ms, a CUDA graph of 20 launches): " + "; ".join(
+                      f"{k}: {v:.4f}" for k, v in row["by_level"].items())
+                  + "; registers and spill bytes: " + "; ".join(
+                      f"{k}: {r}, {sp}" for k, (r, sp) in sorted(
+                          usage.items()) if k.startswith("bloom"))
+                  + f" ({card})", flush=True)
         print(f"phase11 bloom kernels, {name} ({row['size']}, "
               f"{row['mips']} mips, {row['launches']} launches): equal to "
               f"the plain chain (torch.equal), max |err| {err}; device "
-              f"{row['device_ms']} ms (mean of 50 bare chains), entry "
-              f"{row['wrapper_ms']} ms, plain {row['plain_ms']} ms "
+              f"{row['device_ms']} ms (mean of 50 bare chains; "
+              f"{row['graph_ms']} ms in a CUDA graph), "
+              f"entry {row['wrapper_ms']} ms, plain {row['plain_ms']} ms "
               f"({row['plain_busy_ms']:.3f} ms of its kernels); bound "
               f"{bound} ms by {bound_by} ({nbytes} bytes, {ops} f32 "
               f"operations), {100 * row['share_of_bound']:.1f}% of it; each "
@@ -2240,7 +2303,268 @@ def bloom_phase(card, view, proj, pos, bloom_launches):
     return rows, max_err
 
 
+def out_of_reach(lo, mask, world, normal, view_dir, base_color, metallic,
+                 roughness, f0, ndotv, lights, tile_indices, tile_counts,
+                 light_tile_size, pixel_xy=None):
+    """The share of a grid call's live pixel-light pairs whose light is a
+    point light out of reach: its window clamp(1 - (d / r)^4, 0, 1) is 0
+    (in PyTorch's f32 ops, as light_slots computes it)."""
+    import torch
+
+    ty, tx, k = tile_indices.shape
+    yy, xx = torch.nonzero(mask, as_tuple=True)
+    tile = ((yy // light_tile_size).clamp(max=ty - 1) * tx
+            + (xx // light_tile_size).clamp(max=tx - 1))
+    slots = tile_indices.reshape(ty * tx, -1)[:, :k][tile]
+    count = tile_counts.reshape(-1)[tile].clamp(0, k)
+    live = (torch.arange(k, device=mask.device) < count[:, None]) & (
+        slots >= 0)
+    rows = lights[slots.clamp_min(0).long()]
+    dist = torch.linalg.vector_norm(rows[..., :3] - world[yy, xx][:, None],
+                                    dim=-1)
+    q = dist / rows[..., 3].clamp_min(1e-3)
+    q2 = q * q
+    window = (1.0 - q2 * q2).clamp(0.0, 1.0)
+    out = live & (window == 0) & (rows[..., 11] < 0.5)
+    return float(out.sum()) / max(float(live.sum()), 1.0)
+
+
+def ab_builds(trees):
+    """Build each tree's ash_tpu_torch/csrc/bloom.cu and lights.cu, where
+    it has them, with ops/_build.py's flags, one nvcc a source, all started
+    together, into build/ash_tpu_torch/ab/; bind each library with this
+    tree's C signatures (the C entries are the same) -> {(kind, label):
+    (library, ptxas_usage)}; this tree's own libraries under "change"."""
+    import ctypes
+
+    from ash_tpu_torch.ops import _build, bloom_cuda, lights_cuda
+
+    own = {"bloom": (bloom_cuda._library(),
+                     ("ash_bloom_down", "ash_bloom_up")),
+           "lights": (lights_cuda._library(), ("ash_light_loop",))}
+    libs = {(kind, "change"): (lib, ptxas_usage(
+        _build.library_path(kind).with_suffix(".log").read_text()))
+        for kind, (lib, _) in own.items()}
+    jobs = {}
+    for i, (label, tree) in enumerate(trees.items()):
+        for kind in own:
+            src = tree / "ash_tpu_torch" / "csrc" / f"{kind}.cu"
+            if src.is_file():
+                out = _build.BUILD_DIR / "ab" / f"lib{kind}-{i}.so"
+                jobs[kind, label] = (out, [_build.find_nvcc(),
+                                           *_build.NVCC_FLAGS, "-o", str(out),
+                                           str(src)])
+    (_build.BUILD_DIR / "ab").mkdir(parents=True, exist_ok=True)
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        procs = dict(zip(jobs, pool.map(
+            lambda cmd: subprocess.run(cmd, capture_output=True, text=True),
+            [cmd for _, cmd in jobs.values()])))
+    for key, proc in procs.items():
+        log = proc.stdout + proc.stderr
+        check(proc.returncode == 0, f"ab: nvcc failed for {key}:\n{log}")
+        lib = ctypes.CDLL(str(jobs[key][0]))
+        this, entries = own[key[0]]
+        for entry in entries:
+            getattr(lib, entry).argtypes = getattr(this, entry).argtypes
+            getattr(lib, entry).restype = getattr(this, entry).restype
+        libs[key] = (lib, ptxas_usage(log))
+    return libs
+
+
+def ab_phase(card, view, proj, pos, trees):
+    """--parent DIR [--variant LABEL=DIR ...]: this tree's light and bloom
+    kernels against DIR's, built from DIR's csrc/ and bound to this tree's
+    entry points, in one process. Both are held to the plain versions at
+    phases 10-11's inputs as those phases hold them (torch.equal; the light
+    kernel on covered elements, the others untouched) and timed there in
+    turns (DIR's, this tree's, each variant's, this tree's, DIR's): the
+    light launch by CUDA events around 50 launches; the bloom chain by CUDA
+    events around 50 bare chains (phase 11's `device_ms`) and in a CUDA
+    graph (`graph_ms`), and at the rich and example 09 inputs each launch
+    alone in a CUDA graph; beside the unchanged bounds (light_work,
+    bloom_work). A variant is a copy of a tree's csrc/ with one change made
+    to measure a part of the time (its output may be wrong by design:
+    whether it equals the plain version is printed, not required). Then the
+    1080p rich frame with DIR's and this tree's kernels in turns (median of
+    5 frames, four turns), its pass_bloom span and the kernels' device ms a
+    frame by name. ->
+    {measurement: numbers}."""
+    import torch
+
+    from ash_tpu_torch.ops import bloom, bloom_cuda, lights_cuda
+    from ash_tpu_torch.render.bench_scene import build_bench_renderer
+
+    libs = ab_builds(trees)
+    results = {"usage": {" / ".join(k): u for k, (_, u) in libs.items()}}
+    for key, u in results["usage"].items():
+        print(f"ab build {key}: " + "; ".join(
+            f"{k}: {r} registers, {sp} spill bytes"
+            for k, (r, sp) in sorted(u.items())), flush=True)
+
+    def use(module, label):
+        kind = "bloom" if module is bloom_cuda else "lights"
+        return mock.patch.object(module, "_library",
+                                 lambda: libs[kind, label][0])
+
+    def order(kind):
+        others = [lb for k, lb in libs if k == kind
+                  and lb not in ("parent", "change")]
+        return ["parent", "change", *others, "change", "parent"]
+
+    def held(label, equal, what):
+        if label in ("parent", "change"):
+            check(equal, f"ab: {label}'s {what} != the plain version")
+        return equal
+
+    # The light kernel at the rich, lit and lit bf16 shade calls.
+    for name, kw in LIGHT_FRAMES:
+        rend = build_bench_renderer(1920, 1080, 1000, "cuda", **kw)[0]
+        calls = light_calls(rend, view, proj, pos)
+        del rend
+        args = calls[0]
+        lo_in, mask = args[0], args[1]
+        want = lights_cuda.plain(lo_in.clone(), *args[1:])
+        int_view = torch.int16 if lo_in.dtype == torch.bfloat16 \
+            else torch.int32
+        launches, equal = {}, {}
+        for label in dict.fromkeys(order("lights")):
+            work = lo_in.clone()
+            with use(lights_cuda, label):
+                launch, _ = lights_cuda.launcher(work, *args[1:])
+            launch()
+            torch.cuda.synchronize()
+            equal[label] = held(label, bool(
+                torch.equal(work[mask], want[mask])
+                and torch.equal(work[~mask].view(int_view),
+                                lo_in[~mask].view(int_view))),
+                f"light kernel at the {name} shade call")
+            launches[label] = launch
+        times = {}
+        for label in order("lights"):
+            times.setdefault(label, []).append(cuda_ms(launches[label], 50))
+        bound = light_work(*args)[0]
+        mean = {k: statistics.mean(v) for k, v in times.items()}
+        reach = out_of_reach(*args)
+        results[f"lights {name}"] = dict(turns=times, equal=equal,
+                                         bound_ms=bound, out_of_reach=reach)
+        print(f"ab light kernel, {name} shade call ("
+              f"{str(lo_in.dtype).replace('torch.', '')}): device ms (mean "
+              f"of 50 launches, in turns) " + "; ".join(
+                  f"{k} {v} -> {mean[k]:.4f} ({100 * bound / mean[k]:.1f}% "
+                  f"of the bound; equal to the plain loop {equal[k]})"
+                  for k, v in times.items())
+              + f"; bound {bound:.4f} ms; live pairs out of a point light's "
+              f"reach {100 * reach:.1f}% ({card})", flush=True)
+        del calls, args, want, launches
+
+    # The bloom chain at phase 11's timed inputs.
+    rich, inputs = bloom_inputs(view, proj, pos)
+    for name, (hdr, kw) in inputs.items():
+        if not bloom_timed(name):
+            continue
+        h, w = hdr.shape[:2]
+        plan = bloom_cuda.levels(h, w, kw["mip_count"])
+        want = bloom.bloom_pyramid(hdr, **kw)
+        chains, equal = {}, {}
+        for label in dict.fromkeys(order("bloom")):
+            with use(bloom_cuda, label):
+                launch, out = bloom_cuda.launcher(hdr, **kw)
+            launch()
+            torch.cuda.synchronize()
+            equal[label] = held(label, bool(torch.equal(out, want)),
+                                f"bloom chain at {name}")
+            chains[label] = launch
+        chain, graphed = {}, {}
+        for label in order("bloom"):
+            chain.setdefault(label, []).append(cuda_ms(chains[label], 50))
+            graphed.setdefault(label, []).append(graph_ms(chains[label]))
+        bound = bloom_work(h, w, kw["mip_count"])[0]
+        row = dict(device_ms=chain, graph_ms=graphed, equal=equal,
+                   bound_ms=bound)
+        mean = {k: statistics.mean(v) for k, v in chain.items()}
+        line = (f"ab bloom chain, {name} ({w}x{h}, {kw['mip_count']} mips, "
+                f"{len(plan)} launches): device ms (mean of 50 bare chains; "
+                f"in a CUDA graph; in turns) " + "; ".join(
+                    f"{k} {v}; {graphed[k]} -> {mean[k]:.4f}; "
+                    f"{statistics.mean(graphed[k]):.4f} "
+                    f"({100 * bound / mean[k]:.1f}% of the bound; equal to "
+                    f"the plain chain {equal[k]})" for k, v in chain.items())
+                + f"; bound {bound:.4f} ms")
+        if name in ("rich frame 1", "example 09 farm frame"):
+            steps = {}
+            for i, s in enumerate(plan):
+                t = {}
+                for label in order("bloom"):
+                    t.setdefault(label, []).append(
+                        graph_ms(lambda: chains[label]([i])))
+                steps[f"{s.kind} {s.path}"
+                      f"{' threshold' if s.threshold else ''} "
+                      f"{s.src[1]}x{s.src[0]} -> {s.dst[1]}x{s.dst[0]}"] = {
+                    k: statistics.mean(v) for k, v in t.items()}
+            row["by_launch"] = steps
+            line += ("; each launch alone (device ms, a CUDA graph of 20; "
+                     + ", ".join(dict.fromkeys(order("bloom"))) + "): "
+                     + "; ".join(f"{k}: " + ", ".join(
+                         f"{v:.4f}" for v in t.values())
+                         for k, t in steps.items()))
+        results[f"bloom {name}"] = row
+        print(f"{line} ({card})", flush=True)
+        del chains, want
+
+    # The rich frame with DIR's kernels and this tree's, in turns.
+    def step(i):
+        rich.render_frame(view, proj, pos)
+
+    frames = {"parent": [], "change": []}
+    for label in ("parent", "change", "change", "parent"):
+        with use(bloom_cuda, label), use(lights_cuda, label):
+            frames[label].append(frame_ms_spread(step, 5)[0][0])
+    traced = {}
+    for label in ("parent", "change"):
+        with use(bloom_cuda, label), use(lights_cuda, label):
+            traced[label] = dict(
+                pass_bloom_span_ms=scope_device_ms(step, "pass_bloom")[0],
+                bloom_kernels=kernel_device_ms(
+                    step, ("bloom_down_kernel", "bloom_up_kernel")),
+                light_kernel=kernel_device_ms(
+                    step, ("light_tile_kernel", "light_element_kernel")))
+    results["rich frame"] = dict(frame_ms=frames, traced=traced)
+    print(f"ab rich frame (1920x1080), frame ms (median of 5, in turns) "
+          f"parent {frames['parent']}, change {frames['change']}; "
+          + "; ".join(
+              f"{label}: pass_bloom span {v['pass_bloom_span_ms']:.4f} ms, "
+              f"bloom kernels {v['bloom_kernels'][0]:g} launches "
+              f"{v['bloom_kernels'][1]:.4f} ms, light kernel "
+              f"{v['light_kernel'][0]:g} launches {v['light_kernel'][1]:.4f} "
+              f"ms a frame" for label, v in traced.items()) + f" ({card})",
+          flush=True)
+    return results
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(
+        description="Drive the port on one CUDA card (see the module's "
+        "docstring); with --parent, time another tree's light and bloom "
+        "kernels against this tree's instead (ab_phase).")
+    ap.add_argument("--parent", type=pathlib.Path, metavar="DIR",
+                    help="another checkout of the repository, for example "
+                    "the parent commit unpacked with git archive")
+    ap.add_argument("--variant", action="append", default=[],
+                    metavar="LABEL=DIR", help="with --parent: a copy of a "
+                    "tree's csrc/ changed to measure a part of the time, "
+                    "timed between the turns")
+    args = ap.parse_args()
+    trees = {}
+    if args.parent is not None:
+        trees["parent"] = args.parent
+        for v in args.variant:
+            label, _, tree = v.partition("=")
+            check(label and tree and label not in ("parent", "change"),
+                  f"--variant {v!r}: LABEL=DIR")
+            trees[label] = pathlib.Path(tree)
+    else:
+        check(not args.variant, "--variant needs --parent")
+
     import torch
 
     if not torch.cuda.is_available():
@@ -2277,6 +2601,12 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"phase1 device: {card} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | {kind}", flush=True)
+    if trees:
+        cam = build_bench_renderer(1920, 1080, 1000, "cuda")[2]
+        print(json.dumps({"ab": ab_phase(
+            card, cam.view_matrix(), cam.projection_matrix(), cam.position,
+            trees)}, default=str))
+        return 0
 
     # 2. Build: one nvcc per source, started together.
     t0 = time.perf_counter()
@@ -3648,10 +3978,12 @@ def main() -> int:
     tex_rows, tex_err = texture_phase(card, view, proj, pos, tex_launches)
     # 10. The light kernel at the rich and lit frames' inputs, their frames
     # against the plain loop's.
-    light_rows, light_err = light_phase(card, view, proj, pos, light_launches)
+    light_rows, light_err = light_phase(card, view, proj, pos, light_launches,
+                                        usage)
     # 11. The bloom kernels at the rich frame's input, its frames against the
     # plain chain's.
-    bloom_rows, bloom_err = bloom_phase(card, view, proj, pos, bloom_launches)
+    bloom_rows, bloom_err = bloom_phase(card, view, proj, pos, bloom_launches,
+                                        usage)
 
     foreign = sorted(m for m in sys.modules if m in ("jax", "ash_tpu")
                      or m.startswith(("jax.", "ash_tpu.")))

@@ -13,6 +13,8 @@ CPU; the kernels themselves (csrc/bloom.cu) on the card.
   and pass the frames' own calls; `launcher` refuses CPU tensors.
 - finalize_frame hands pass_bloom to the entry once a post frame with bloom
   (f32, contiguous: what the card takes), and never with bloom off.
+- chip_smoke.py's build phase names every instantiation the C entries
+  launch.
 - On the card (marked `cuda`, skipped here): the kernels against the plain
   chain on the same CUDA tensors, by torch.equal, with one launch a level
   each way; and the probes that pin the roundings the kernels code: a
@@ -263,6 +265,115 @@ def _kernels_match_plain(x, mips, threshold=0.8, soft_knee=0.5):
 def test_cuda_kernels_match_plain(h, w, mips):
     _need_card()
     _kernels_match_plain(_hdr(7, h, w), mips)
+
+
+# The edges of the staged paths: one texel; odd sides; rows whose start is
+# not 16-byte aligned (482 texels of 12 bytes); targets that fill neither
+# the downsample's 32x8 tile nor the tent's 16x64 one (1918 = 29 * 64 + 62
+# at the last tent, 959 = 29 * 32 + 31 at the first downsample); and a 2x
+# tent of 2^16 targets (staged) beside one just under (one thread a
+# target).
+STAGED_CASES = [(1, 1, 5), (5, 7, 3), (270, 482, 5), (66, 130, 4),
+                (1080, 1918, 5), (256, 256, 1), (256, 254, 1)]
+
+
+def test_chip_smoke_names_every_launched_instantiation():
+    """Each kernel instantiation that csrc/bloom.cu's C entries launch, as
+    nvcc would name it in its -Xptxas -v log, gets a distinct name from
+    chip_smoke.py's ptxas_usage, and those are BLOOM_INSTANTIATIONS, the
+    list its build phase requires; PR 15's bool form parses too."""
+    import re
+    import sys
+
+    sys.path.insert(0, str(_build.CSRC.parents[1]))
+    import chip_smoke
+
+    source = (_build.CSRC / "bloom.cu").read_text()
+    paths = {"kGatherPath": 0, "kDirectPath": 1, "kStagedPath": 2}
+    launched = set(re.findall(
+        r"bloom_(down|up)_kernel<(k\w+Path), (true|false)>\s*<<<", source))
+    assert len(launched) == len(chip_smoke.BLOOM_INSTANTIATIONS)
+
+    def entry(mangled, regs):
+        return (f"ptxas info    : Compiling entry function '{mangled}' for "
+                "'sm_90a'\n    0 bytes stack frame, 0 bytes spill stores, "
+                f"0 bytes spill loads\nptxas info    : Used {regs} registers\n")
+
+    log = "".join(
+        entry(f"_ZN12_GLOBAL__N_117bloom_{kind}_kernelILi{paths[path]}ELb"
+              f"{int(thr == 'true')}EEEv", 30 + i)
+        for i, (kind, path, thr) in enumerate(sorted(launched)))
+    usage = chip_smoke.ptxas_usage(log)
+    assert sorted(usage) == chip_smoke.BLOOM_INSTANTIATIONS
+    assert len(set(usage.values())) == len(usage)
+    old = chip_smoke.ptxas_usage(
+        entry("_ZN12_GLOBAL__N_117bloom_down_kernelILb1ELb1EEEv", 72))
+    assert old == {"bloom down blocks threshold": (72, 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,mips", STAGED_CASES)
+def test_cuda_kernels_match_plain_at_the_tiles_edges(h, w, mips):
+    _need_card()
+    _kernels_match_plain(_hdr(9, h, w), mips)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain_on_an_unaligned_frame():
+    """A frame 4 bytes past a 16-byte boundary: the staging takes scalar
+    loads."""
+    _need_card()
+    x = _hdr(11, 136, 246)
+    store = torch.zeros(x.size + 1, dtype=torch.float32, device="cuda")
+    hdr = store[1:].view(x.shape)
+    hdr.copy_(torch.from_numpy(x))
+    assert hdr.is_contiguous() and hdr.data_ptr() % 16 == 4
+    want = bloom.bloom_pyramid(hdr, 0.8, 0.5, 5)
+    got = bloom_cuda.bloom_pyramid(hdr, 0.8, 0.5, 5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_launches_replay_one_level():
+    """launch(steps) runs only those launches of the plan: replaying the
+    last one rewrites the same bloom."""
+    _need_card()
+    hdr = torch.from_numpy(_hdr(7, 270, 480)).cuda()
+    launch, out = bloom_cuda.launcher(hdr, 0.8, 0.5, 5)
+    made = launch()
+    first = out.clone()
+    out.zero_()
+    again = launch([len(made) - 1])
+    torch.cuda.synchronize()
+    assert len(again) == 1 and again[0][0] == "up"
+    assert torch.equal(out, first)
+    assert torch.equal(first, bloom.bloom_pyramid(hdr, 0.8, 0.5, 5))
+
+
+@pytest.mark.cuda
+def test_cuda_reciprocal_is_the_quotient():
+    """__frcp_rn(x), which the Karis weight takes, equals __fdiv_rn(1, x) and
+    PyTorch's reciprocal on the card, bit for bit, over hard values:
+    subnormals, zeros, infinities, powers of two, the largest and smallest
+    normals, and random bit patterns (NaNs give NaN)."""
+    _need_card()
+    rng = np.random.default_rng(12)
+    bits = rng.integers(0, 2**32, 1 << 20, dtype=np.uint64).astype(np.uint32)
+    edges = np.array([0x00000000, 0x80000000, 0x7F800000, 0xFF800000,
+                      0x00000001, 0x80000001, 0x007FFFFF, 0x00800000,
+                      0x00400000, 0x7F7FFFFF, 0xFF7FFFFF, 0x7F000000,
+                      0x7E800000, 0x7E7FFFFF, 0x3F800000, 0x3F800001,
+                      0x3FFFFFFF, 0x40000000, 0x7FC00000], np.uint32)
+    x = torch.from_numpy(np.concatenate([bits, edges]).view(
+        np.float32)).cuda()
+    rcp, quot = bloom_cuda.probe_reciprocal(x)
+    torch.cuda.synchronize()
+    nan = torch.isnan(x)
+    assert torch.equal(torch.isnan(rcp), nan)
+    assert torch.equal(torch.isnan(quot), nan)
+    assert torch.equal(rcp[~nan], quot[~nan])
+    assert torch.equal(rcp[~nan], torch.reciprocal(x)[~nan])
 
 
 @pytest.mark.cuda

@@ -131,6 +131,19 @@ CASES = {
     "pixel_xy bf16": ((24, 40), 16, 12, 16, True, True, True),
     "one row": ((1, 300), 16, 9, 9, True, True, False),
 }
+# Cases that reach the edges of the kernel's paths, with the table's light
+# count last: tiles cut by the frame's last row and column, more lights than
+# the kernel's table of light terms holds (64: the tile's slots are staged
+# instead), more slots than one round, and the element kernel over them.
+EXTRA_CASES = {
+    "edge tiles": ((33, 47), 16, 12, 16, True, False, False, 24),
+    "edge tiles bf16": ((33, 47), 16, 12, 16, True, False, True, 24),
+    "many lights": ((40, 56), 16, 12, 16, True, False, False, 100),
+    "many lights bf16": ((40, 56), 16, 12, 16, True, False, True, 100),
+    "many slots": ((40, 56), 16, 80, 96, True, False, False, 100),
+    "many lights pixel_xy": ((24, 40), 16, 12, 16, True, True, False, 100),
+}
+ALL_CASES = sorted(CASES) + sorted(EXTRA_CASES)
 # The light-list grid of the pixel_xy cases (render pixels 64 x 80).
 XY_TILES = (4, 5)
 
@@ -138,9 +151,15 @@ XY_TILES = (4, 5)
 def _case(name, device="cpu"):
     """The entry's arguments for case `name` (lo first), and the plain
     loop's n_iter at the trimmed count."""
-    shape, tile, k, stride, with_counts, with_xy, bf16 = CASES[name]
-    rng = np.random.default_rng(sorted(CASES).index(name) + 40)
-    lights = _light_rows(7)
+    if name in CASES:
+        shape, tile, k, stride, with_counts, with_xy, bf16 = CASES[name]
+        rng = np.random.default_rng(sorted(CASES).index(name) + 40)
+        lights = _light_rows(7)
+    else:
+        (shape, tile, k, stride, with_counts, with_xy, bf16,
+         n_lights) = EXTRA_CASES[name]
+        rng = np.random.default_rng(sorted(EXTRA_CASES).index(name) + 140)
+        lights = _light_rows(7, n_lights)
     if with_xy:
         tiles = XY_TILES
     else:
@@ -201,7 +220,7 @@ def no_library(monkeypatch):
     monkeypatch.setattr(_build, "build", refuse)
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("name", ALL_CASES)
 def test_cpu_entry_is_the_plain_loop(name, no_library):
     """In place, bit for bit the plain loop at the trimmed trip count and at
     every slot, on every element; no launch counted."""
@@ -458,7 +477,7 @@ def _kernel_matches_plain(args, n_iter):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("name", ALL_CASES)
 def test_cuda_kernel_matches_plain(name):
     _need_card()
     _kernel_matches_plain(*_case(name, "cuda"))
@@ -555,3 +574,89 @@ def test_cuda_scalar_division_reciprocal_and_cos():
     xc = x.cuda()
     assert not torch.equal(xc / light_loop.PI, xc / torch.full_like(
         xc, float(np.float32(light_loop.PI))))
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_conversion_is_pytorchs():
+    """The kernel's bf16 rounding (__float2bfloat16_rn, widened back) gives
+    the bits of tensor.to(torch.bfloat16) on the card: over every kind of
+    f32 bit pattern (NaNs, infinities, subnormals, zeros), over ties to even
+    either way, and at the edges of the bf16 range."""
+    _need_card()
+    rng = np.random.default_rng(6)
+    bits = rng.integers(0, 2**32, 1 << 20, dtype=np.uint64).astype(np.uint32)
+    ties = (rng.integers(0, 2**16, 1 << 12, dtype=np.uint64).astype(np.uint32)
+            << 16) | np.uint32(0x8000)
+    edges = np.array([0x00000000, 0x80000000, 0x7F800000, 0xFF800000,
+                      0x7FC00000, 0xFFC00001, 0x7F800001, 0x00000001,
+                      0x80000001, 0x007FFFFF, 0x00008000, 0x00018000,
+                      0x7F7FFFFF, 0x7F7F8000, 0x7F7F7FFF, 0xFF7FFFFF,
+                      0x3F808000, 0x3F818000, 0x3F80FFFF], np.uint32)
+    x = torch.from_numpy(np.concatenate([bits, ties, edges]).view(
+        np.float32)).cuda()
+    got = lights_cuda.probe_bf16(x)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), x.to(torch.bfloat16).view(
+        torch.int16))
+
+
+def _degenerate(args, seed):
+    """`args` (CPU tensors) with pixels and lights outside the bounds under
+    which the kernel leaves out a point light that is out of reach
+    (csrc/lights.cu, Pixel::tame and Light::tame): roughness 0 and 2,
+    NaN, infinite and negative inputs, a long normal, a far position; a
+    light with a huge colour, one with a NaN position."""
+    (lo, mask, world, normal, view, base, metallic, rough, f0, ndotv, lights,
+     indices, counts, tile, pixel_xy) = (a.clone() if isinstance(
+         a, torch.Tensor) else a for a in args)
+    rng = np.random.default_rng(seed)
+    h, w = mask.shape
+
+    def some():
+        return torch.from_numpy(rng.random((h, w)) < 0.04)
+
+    rough[some()] = 0.0
+    rough[some()] = 2.0
+    base[some()] = float("nan")
+    f0[some()] = float("inf")
+    f0[some()] = -0.5
+    metallic[some()] = float("-inf")
+    ndotv[some()] = -0.25
+    longer = some()
+    normal[longer] = normal[longer] * 1.5
+    view[some()] = 1e30
+    world[some()] = 1e30
+    lights[3, 7] = 1e38
+    lights[5, 0] = float("nan")
+    return (lo, mask, world, normal, view, base, metallic, rough, f0, ndotv,
+            lights, indices, counts, tile, pixel_xy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["f32", "bf16", "pixel_xy"])
+def test_cuda_kernel_matches_plain_on_degenerate_inputs(name):
+    """Where the plain loop gives a number the kernel gives the same one
+    (torch's ==, so +0 and -0 agree), and NaN where it gives NaN; the
+    uncovered elements untouched. The out-of-reach pairs the kernel leaves
+    out add +-0 in the plain loop."""
+    _need_card()
+    args, n_iter = _case(name)
+
+    def cuda(a):
+        if isinstance(a, torch.Tensor):
+            return a.cuda()
+        return tuple(c.cuda() for c in a) if isinstance(a, tuple) else a
+
+    args = tuple(cuda(a) for a in _degenerate(args, 21))
+    lo_in, mask = args[0].clone(), args[1]
+    want = _plain((lo_in.clone(), *args[1:]), n_iter)
+    got = lights_cuda.add_lights(*args)
+    torch.cuda.synchronize()
+    g, w = got[mask].float(), want[mask].float()
+    nan = torch.isnan(w)
+    assert bool(nan.any()) and bool((~nan).any())
+    assert torch.equal(torch.isnan(g), nan)
+    assert torch.equal(g[~nan], w[~nan])
+    int_view = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got[~mask].view(int_view), lo_in[~mask].view(int_view))
