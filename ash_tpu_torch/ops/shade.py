@@ -15,7 +15,9 @@ five maps (base colour, normal, metallic-roughness, occlusion, emissive)
 are sampled with anisotropic filtering (ops/texture_cuda.py: a CUDA kernel
 on the card), and the normal map goes through the Gram-Schmidt TBN frame.
 The Forward+ light loop is ops/lights_cuda.py's (a CUDA kernel on the
-card; its plain version and the BRDF terms are in ops/light_loop.py).
+card; its plain version and the BRDF terms are in ops/light_loop.py). The
+shadow term is ops/shadow_cuda.py's (one CUDA kernel on the card for the
+single map and the cascades; its plain version is ops/shadow.py).
 `resolve_alpha_test` lets cut-out pixels fall through to the second peel
 layer; `pixel_alpha` and `composite_over` blend the shaded layers of a depth
 peel. With an environment, split-sum image-based lighting replaces the flat
@@ -30,10 +32,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from . import lights_cuda
-from . import shadow as shadow_ops
+from . import lights_cuda, shadow_cuda
 from . import texture_cuda, texture_sample
-from .geometry import TransformedVerts, TriangleSetup, _cross, transform_points
+from .geometry import TransformedVerts, TriangleSetup, _cross
 # The BRDF terms and the plain light loop live in ops/light_loop.py, which
 # ops/lights_cuda.py imports too; their names stay importable from here.
 from .light_loop import (  # noqa: F401
@@ -302,7 +303,11 @@ def shade_pbr(
     covered pixel's own tile count, at most K slots (no host sync); on the
     CPU the plain loop runs min(largest tile count, K) slots (a host sync).
     Without tile_light_counts every one of the K slots is walked; slots
-    past a tile's count hold -1 and add nothing."""
+    past a tile's count hold -1 and add nothing. The shadow term goes
+    through ops/shadow_cuda.shadow_pcf16 (with the light-space projection
+    by uniforms.light_space_matrix) or shadow_pcf16_csm: on the card one
+    kernel launch a call, reading the matrices, splits and view on the
+    device (no host sync); on the CPU the plain ops/shadow.py."""
     if dtype == torch.float32:
         def cast(x):
             return x
@@ -388,16 +393,18 @@ def shade_pbr(
     diffuse = kd * base_color / PI
 
     # The shadow uses the (flipped) geometric normal, not the mapped one;
-    # PCF runs in f32 and its result re-enters the working dtype.
+    # PCF runs in f32 and its result re-enters the working dtype. On the
+    # card one kernel launch (ops/shadow_cuda.py), the single map's
+    # light-space projection included.
     if shadow_map is not None and csm is not None:
         matrices, splits, view = csm
-        shadow = shadow_ops.shadow_pcf16_csm(
+        shadow = shadow_cuda.shadow_pcf16_csm(
             shadow_map, matrices, splits, view, gbuf.world, n, light_dir,
             blend_size=csm_blend_size,
         )
     elif shadow_map is not None:
-        pos_light = transform_points(uniforms.light_space_matrix, gbuf.world)
-        shadow = shadow_ops.shadow_pcf16(shadow_map, pos_light, n, light_dir)
+        shadow = shadow_cuda.shadow_pcf16(
+            shadow_map, uniforms.light_space_matrix, gbuf.world, n, light_dir)
     else:
         shadow = torch.zeros_like(ndotl)
     shadow = cast(shadow)

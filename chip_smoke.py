@@ -5,9 +5,9 @@ frame, the standard frame with Hi-Z occlusion culling, with MSAA and with
 the diagnostics overlay, the file sink and the profilers, the sharded
 frames (example 07's LOD scene among them), the frame farms (example 09),
 example 10's chunked frame and the frame loop's host profile on one
-NVIDIA GPU; and the four hand-written kernels against their plain
+NVIDIA GPU; and the five hand-written kernels against their plain
 versions: the raster kernels, the texture sampler, the Forward+ light
-loop and the bloom pyramid.
+loop, the bloom pyramid and the shadow PCF.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It needs one CUDA device and `nvcc`; it exits non-zero without a result when
@@ -20,8 +20,10 @@ fails. Phases, one stdout line each:
    pre-pass that computes their candidate rectangles), csrc/texture.cu
    (the texture sampler: the five maps and the trilinear tap) and
    csrc/lights.cu (the Forward+ light loop: a tile and an element kernel,
-   f32 and bf16) and csrc/bloom.cu (the bloom pyramid: the downsample and
-   the tent upsample, by path, eight instantiations), one nvcc each,
+   f32 and bf16), csrc/bloom.cu (the bloom pyramid: the downsample and
+   the tent upsample, by path, eight instantiations) and csrc/shadow.cu
+   (the shadow PCF: the single map and 2-4 cascades, with and without the
+   blend, f32 and bf16 normals, fourteen instantiations), one nvcc each,
    started together, and prints each instantiation's registers and spills
    (none may spill);
 3. kernels against plain: each CUDA kernel and the plain PyTorch raster on
@@ -231,7 +233,26 @@ fails. Phases, one stdout line each:
    kernels' time, kernels and copies and device busy a frame, and the bloom
    kernels' launches and device time a frame, read by name from the trace.
    Phases 4 and 6 count the bloom launches of the rich, the sharded and the
-   farm frames from 0 as well.
+   farm frames from 0 as well;
+12. the shadow kernel (csrc/shadow.cu): its instantiations' registers and
+   spills; the 1080p standard (one 2048^2 map), glass (a call a shaded
+   layer), rich (3 cascades of 1024^2, blend 0.1) and edge MSAA x4 (the
+   centres and the worklist) frames' own shade calls (frame 1), recorded
+   from the entry points, the rich frame's at 2 and 4 cascades, and from
+   them rich without the blend, the standard and rich calls in bf16 and
+   seeded 257^2 and 1000^2 maps, through the kernel and the plain PCF
+   (ops/shadow_cuda.plain, plain_csm): bit for bit, NaN in the same
+   places; each call's device time (50 bare launches between CUDA events,
+   and in a CUDA graph), the entry's and the plain PCF's, in turns, beside
+   its bound by bytes (a position, a normal and a result an element, and
+   each texel the taps touch, once); frames 2 and 3 of standard, rich and
+   glass with the kernel (one launch a shade call, counted from 0, the
+   plain PCF never called) against the same frames with the plain PCF
+   patched in (u8 and colour); then kernel and plain frames in turns:
+   frame ms, kernels and copies a frame, device busy and idle, and for
+   rich pass_shade's device span and the kernel's time a frame by name.
+   Phases 4 and 6 count the shadow launches of the standard, glass, lit,
+   rich and sharded frames from 0 as well.
 
 Then one JSON line on the kernels and, last, the device JSON line.
 
@@ -483,7 +504,8 @@ def ptxas_usage(log):
     "bloom up double staged" (bloom_path), with " threshold" for those that
     read the HDR frame; PR 15's bloom_{down,up}_kernel<bool, threshold>, a
     build of another tree that ab_phase times, by the same names, its bool
-    as path 0 or 1."""
+    as path 0 or 1; csrc/shadow.cu's shadow_pcf_kernel<C, blend, bf16>
+    "shadow C=<C>", with " blend" and " bf16"."""
     usage, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"raster_warp_kernelILi(\d+)ELb([01])E", ln)
@@ -491,6 +513,8 @@ def ptxas_usage(log):
         light_kernel = re.search(r"light_(tile|element)_kernelILb([01])E", ln)
         bloom_kernel = re.search(
             r"bloom_(down|up)_kernelIL[ib]([012])ELb([01])E", ln)
+        shadow_kernel = re.search(
+            r"shadow_pcf_kernelILi(\d)ELb([01])ELb([01])E", ln)
         if "Compiling entry function" in ln and m:
             name = f"L={m.group(1)}{' floor' if m.group(2) == '1' else ''}"
             spill = None
@@ -506,6 +530,11 @@ def ptxas_usage(log):
         elif "Compiling entry function" in ln and bloom_kernel:
             kind, path, thresh = bloom_kernel.groups()
             name = f"bloom {bloom_path(kind, int(path), thresh == '1')}"
+            spill = None
+        elif "Compiling entry function" in ln and shadow_kernel:
+            c, blend, bf16 = shadow_kernel.groups()
+            name = (f"shadow C={c}{' blend' if blend == '1' else ''}"
+                    f"{' bf16' if bf16 == '1' else ''}")
             spill = None
         elif name and "spill stores" in ln:
             spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill", ln))
@@ -729,6 +758,20 @@ def zero_bloom():
         bloom_cuda.launches[k] = 0
 
 
+def shadow_launched():
+    """The shadow kernel's launches since its counts were zeroed."""
+    from ash_tpu_torch.ops import shadow_cuda
+
+    return sum(shadow_cuda.launches.values())
+
+
+def zero_shadow():
+    from ash_tpu_torch.ops import shadow_cuda
+
+    for k in shadow_cuda.launches:
+        shadow_cuda.launches[k] = 0
+
+
 def bloom_per_frame(cfg):
     """The bloom kernels' launches a frame of `cfg`: one a level each way
     (ops/bloom_cuda.levels), none without the post chain's bloom."""
@@ -742,13 +785,15 @@ def bloom_per_frame(cfg):
 def counted(fn):
     """Zero the kernels' launch counts, run fn() -> (its result, one-layer
     launches, peel launches); the light kernel's count is left in
-    lights_cuda.launches["loop"], the bloom kernels' in bloom_launched()."""
+    lights_cuda.launches["loop"], the bloom kernels' in bloom_launched(),
+    the shadow kernel's in shadow_launched()."""
     from ash_tpu_torch.ops import lights_cuda, raster_cuda
 
     raster_cuda.rasterize.launches = 0
     raster_cuda.rasterize.layer_launches = 0
     lights_cuda.launches["loop"] = 0
     zero_bloom()
+    zero_shadow()
     out = fn()
     return (out, raster_cuda.rasterize.launches,
             raster_cuda.rasterize.layer_launches)
@@ -792,7 +837,7 @@ def single_frame(inputs, history=None):
 
 
 def sharded_paths(card, view, proj, pos, launches, layer_launches, mem,
-                  light_launches, bloom_launches):
+                  light_launches, bloom_launches, shadow_launches):
     """A18's screen bands on the card: the standard frame, the rich frame
     and the rich frame at render_scale 0.5, each sharded over four bands on
     cuda:0 (mesh ["cuda:0"] * 4), against the same inputs' single-device
@@ -838,6 +883,10 @@ def sharded_paths(card, view, proj, pos, launches, layer_launches, mem,
         bloomed = bloom_launched()
         if bloomed:
             bloom_launches[path] = bloomed
+        shadow_launches[path] = shadow_launched()
+        check(shadow_launches[path] == len(devices),
+              f"{path}: shadow kernel launches {shadow_launches[path]}, want "
+              "one a band")
         check(bloomed == bloom_per_frame(cfg),
               f"{path}: bloom kernel launches {bloomed}, want "
               f"{bloom_per_frame(cfg)}")
@@ -1540,6 +1589,25 @@ LIGHT_FRAMES = [("rich", dict(rich=True)), ("lit", dict(lights=32)),
 # A textured frame 1's sampler calls, in order: the shadow pass's alpha
 # test, the main pass's, then shade_pbr's five maps in one call.
 SAMPLER_CALLS = ["alpha test shadow", "alpha test main", "maps"]
+# csrc/shadow.cu's instantiations, as ptxas_usage names them: C cascades
+# (1: the single map), the blend of the next cascade, bf16 normals.
+SHADOW_INSTANTIATIONS = sorted(
+    [f"shadow C=1{d}" for d in ("", " bf16")]
+    + [f"shadow C={c}{b}{d}" for c in (2, 3, 4) for b in ("", " blend")
+       for d in ("", " bf16")])
+# The 1080p frames whose shade calls phase 12 replays: (name, bench scene
+# keywords, with "cascades" for a CsmConfig of that many 1024^2 cascades,
+# MSAA preset); of them, the frames it renders with the kernel and with the
+# plain PCF.
+SHADOW_CALL_FRAMES = [("standard", {}, None), ("glass", dict(glass=True), None),
+                      ("rich", dict(rich=True), None),
+                      ("rich 2 cascades", dict(rich=True, cascades=2), None),
+                      ("rich 4 cascades", dict(rich=True, cascades=4), None),
+                      ("edge x4", dict(msaa_resolve="edge"), "x4")]
+SHADOW_FRAMES = ("standard", "rich", "glass")
+# Seeded square maps of sizes that are not powers of two, at the standard
+# and rich calls' elements.
+SHADOW_ODD_SIZES = (257, 1000)
 # The textured frame's kernels and copies a frame in PR 12's benchmark
 # trace (PERF.md section 5), before the maps were fused.
 PR12_TEXTURED_LAUNCHES = 1032
@@ -2303,6 +2371,313 @@ def bloom_phase(card, view, proj, pos, bloom_launches, usage):
     return rows, max_err
 
 
+def shadow_calls(rend, view, proj, pos):
+    """Render a frame of `rend` with the shadow entries wrapped -> [(csm?,
+    the entry's arguments, the blend size)] in call order."""
+    from ash_tpu_torch.ops import shadow_cuda
+
+    calls = []
+    real_pcf = shadow_cuda.shadow_pcf16
+    real_csm = shadow_cuda.shadow_pcf16_csm
+
+    def pcf(*args):
+        calls.append((False, args, 0.0))
+        return real_pcf(*args)
+
+    def csm(*args, blend_size=0.0):
+        calls.append((True, args, blend_size))
+        return real_csm(*args, blend_size=blend_size)
+
+    with mock.patch.multiple(shadow_cuda, shadow_pcf16=pcf,
+                             shadow_pcf16_csm=csm):
+        rend.render_frame(view, proj, pos)
+    return calls
+
+
+def shadow_entry(kind, is_csm, args, blend):
+    """shadow_cuda's entry (kind "entry"), bare launcher ("launcher") or
+    plain version ("plain") for one recorded call."""
+    from ash_tpu_torch.ops import shadow_cuda
+
+    if kind == "launcher":
+        if is_csm:
+            return shadow_cuda.launcher_csm(*args, blend_size=blend)
+        return shadow_cuda.launcher(*args)
+    if is_csm:
+        fn = {"entry": shadow_cuda.shadow_pcf16_csm,
+              "plain": shadow_cuda.plain_csm}[kind]
+        return fn(*args, blend_size=blend)
+    return {"entry": shadow_cuda.shadow_pcf16,
+            "plain": shadow_cuda.plain}[kind](*args)
+
+
+def shadow_work(is_csm, args, blend):
+    """(bound ms, "bytes", bytes, texels touched, elements) of one launch of
+    the shadow kernel at the memory rate. Bytes: each element's position
+    and normal read and its result written once, the direction, matrices,
+    splits and view once, and each texel that the taps read once: the
+    in-bounds taps of the elements at or before the far plane, at their
+    layer and, where the blend is not 0, the next, as ops/shadow.py
+    indexes them."""
+    import torch
+
+    from ash_tpu_torch.ops import shadow_cuda
+
+    if is_csm:
+        maps, mats, splits, view, world, normal, light_dir = args
+    else:
+        maps, mats, world, normal, light_dir = args
+        maps, mats, splits, view = maps[None], mats[None], None, None
+    c, rows, cols = maps.shape
+    w = world.reshape(-1, 3)
+    n = w.shape[0]
+    layer = torch.zeros(n, dtype=torch.int64, device=w.device)
+    if c > 1:
+        view_z = -(((view[2, 0] * w[:, 0] + view[2, 1] * w[:, 1])
+                    + view[2, 2] * w[:, 2]) + view[2, 3])
+        layer = (view_z[:, None] > splits[:c]).sum(-1).clamp(0, c - 1)
+    ts = 1.0 / rows
+
+    def texels(at, keep):
+        m = mats[at]
+        p = ((m[:, :, 0] * w[:, 0:1] + m[:, :, 1] * w[:, 1:2])
+             + m[:, :, 2] * w[:, 2:3]) + m[:, :, 3]
+        pw = torch.where(p[:, 3].abs() < 1e-8, 1e-8, p[:, 3])
+        pr = p[:, :3] / pw[:, None] * 0.5 + 0.5
+        keep = keep & ~(pr[:, 2] > 1.0)
+        ids = []
+        for ox, oy in ((-1.0, -1.0), (1.0, -1.0), (-1.0, 1.0), (1.0, 1.0)):
+            x0 = torch.floor((pr[:, 0] + ox * ts) * cols - 0.5).long()
+            y0 = torch.floor((pr[:, 1] + oy * ts) * rows - 0.5).long()
+            for dy in (0, 1):
+                for dx in (0, 1):
+                    xi, yi = x0 + dx, y0 + dy
+                    inb = keep & (xi >= 0) & (xi < cols) & (yi >= 0) & (
+                        yi < rows)
+                    ids.append(((at * rows + yi) * cols + xi)[inb])
+        return torch.cat(ids)
+
+    ids = texels(layer, torch.ones(n, dtype=torch.bool, device=w.device))
+    if is_csm and blend > 0.0 and c > 1:
+        split = splits[layer]
+        frac = ((view_z - split * (1.0 - blend))
+                / (split * blend).clamp_min(1e-6)).clamp(0.0, 1.0)
+        nxt = (layer + 1).clamp(0, c - 1)
+        ids = torch.cat([ids, texels(nxt, torch.where(nxt > layer, frac, 0.0)
+                                     != 0)])
+    touched = int(ids.unique().numel())
+    d = normal.element_size()
+    per_dir = 3 * d * (n if shadow_cuda.light_dir_stride(light_dir, world)
+                       else 1)
+    nbytes = (n * (12 + 3 * d + 4) + per_dir + 4 * touched + 64 * c
+              + (4 * c + 64 if c > 1 else 0))
+    return nbytes / MEM_RATE * 1e3, "bytes", nbytes, touched, n
+
+
+def shadow_same(got, want):
+    """Bit for bit where want has a number, NaN where it has NaN."""
+    import torch
+
+    nan = torch.isnan(want)
+    return (got.shape == want.shape and got.dtype == want.dtype
+            and bool(torch.equal(torch.isnan(got), nan))
+            and bool(torch.equal(got[~nan].view(torch.int32),
+                                 want[~nan].view(torch.int32))))
+
+
+def shadow_phase(card, view, proj, pos, shadow_launches, usage):
+    """Phase 12: the shadow kernel (csrc/shadow.cu) against the plain PCF
+    (ops/shadow_cuda.plain, plain_csm) at the 1080p frames' own shade calls
+    (frame 1): the standard frame's single 2048^2 map, glass's shaded
+    layers, rich's 3 cascades of 1024^2 with the blend of 0.1, and edge
+    MSAA x4's two calls (the centres and the worklist), recorded from the
+    entry points, and the rich frame's at 2 and 4 cascades; from those,
+    rich without the blend, the standard and rich calls in bf16 (the normal
+    and direction rounded as a bf16 frame rounds them) and seeded maps of
+    257^2 and 1000^2: bit for bit, NaN in the same places. Each call timed
+    (plain, kernel, kernel, plain: CUDA events around 50 bare launches, a
+    CUDA graph of them, and 3 plain calls) beside its bound by bytes
+    (shadow_work). Frames 2 and 3 of the standard, rich
+    and glass frames with the kernel (launches counted from 0, the plain
+    PCF never called) against the same frames with the plain version
+    patched in (u8 and colour); then kernel and plain frames in turns:
+    frame ms, kernels and copies a frame, device busy and idle, and for
+    rich pass_shade's device span and the kernel's time a frame by name.
+    -> ({name: its numbers}, the largest |kernel - plain|)."""
+    import torch
+
+    from ash_tpu_torch.ops import shadow, shadow_cuda
+    from ash_tpu_torch.render.bench_scene import build_bench_renderer
+    from ash_tpu_torch.render.csm import CsmConfig
+
+    def no_plain_pcf(*args, **kwargs):
+        raise AssertionError("a card frame ran the plain PCF")
+
+    rows, max_err = {}, 0.0
+    rows["usage"] = {k: v for k, v in usage.items() if k.startswith("shadow")}
+    print("phase12 shadow kernel, registers and spill bytes by "
+          "instantiation: " + "; ".join(
+              f"{k}: {r}, {sp}" for k, (r, sp) in sorted(
+                  rows["usage"].items())) + f" ({card})", flush=True)
+    cases, rends = {}, {}
+    for name, kw, preset in SHADOW_CALL_FRAMES:
+        kw = dict(kw)
+        if "cascades" in kw:
+            kw["csm"] = CsmConfig(cascade_count=kw.pop("cascades"),
+                                  resolution=1024)
+        rend = build_bench_renderer(1920, 1080, 1000, "cuda", **kw)[0]
+        if preset is not None:
+            rend.set_msaa_preset(preset)
+        calls = shadow_calls(rend, view, proj, pos)
+        check(len(calls) >= 1, f"{name}: no shadow call")
+        for i, call in enumerate(calls):
+            cases[name if len(calls) == 1 else f"{name} call {i + 1}"] = call
+        if name in SHADOW_FRAMES:
+            rends[name] = (rend, kw, len(calls))
+        del rend
+    check("edge x4 call 2" in cases and "edge x4 call 3" not in cases,
+          "edge x4: not two shade calls (the centres and the worklist)")
+    std, rich = cases["standard"], cases["rich"]
+    check(not std[0] and rich[0] and rich[1][0].shape == (3, 1024, 1024)
+          and rich[2] > 0.0, "the rich call is not 3 blended cascades")
+    for c in (2, 4):
+        check(cases[f"rich {c} cascades"][1][0].shape == (c, 1024, 1024),
+              f"the rich frame's call at {c} cascades")
+    cases["rich hard"] = (True, rich[1], 0.0)
+
+    def bf16(args):
+        *head, n, d = args
+        return (*head, n.to(torch.bfloat16),
+                d[(0,) * (d.dim() - 1)].to(torch.bfloat16).expand(d.shape))
+
+    cases["standard bf16"] = (False, bf16(std[1]), 0.0)
+    cases["rich bf16"] = (True, bf16(rich[1]), rich[2])
+    rng = np.random.default_rng(12)
+    for s in SHADOW_ODD_SIZES:
+        seeded = torch.from_numpy(
+            rng.uniform(0.2, 1.0, (s, s)).astype(np.float32)).cuda()
+        cases[f"standard {s}^2 seeded"] = (False, (seeded, *std[1][1:]), 0.0)
+        cases[f"rich 3x{s}^2 seeded"] = (True, (
+            torch.stack([seeded, seeded.flip(0), seeded.flip(1)]),
+            *rich[1][1:]), rich[2])
+
+    for label, (is_csm, args, blend) in cases.items():
+        want = shadow_entry("plain", is_csm, args, blend)
+        got = shadow_entry("entry", is_csm, args, blend)
+        torch.cuda.synchronize()
+        check(shadow_same(got, want), f"shadow kernel != plain PCF at {label}")
+        nan = torch.isnan(want)
+        err = float((got - want)[~nan].abs().max()) if bool(
+            (~nan).any()) else 0.0
+        max_err = max(max_err, err)
+        launch, _ = shadow_entry("launcher", is_csm, args, blend)
+        kern, graphed, plain = [], [], []
+        for order in ("plain", "kernel", "kernel", "plain"):
+            if order == "kernel":
+                kern.append(cuda_ms(launch, 50))
+                graphed.append(graph_ms(launch))
+            else:
+                plain.append(cuda_ms(
+                    lambda: shadow_entry("plain", is_csm, args, blend), 3))
+        bound, bound_by, nbytes, touched, n = shadow_work(is_csm, args, blend)
+        row = dict(elements=n, shape=list(args[-3].shape[:-1]),
+                   map="x".join(map(str, args[0].shape)),
+                   blend=blend, dtype=str(args[-2].dtype).replace(
+                       "torch.", ""),
+                   device_ms=statistics.mean(kern),
+                   graph_ms=statistics.mean(graphed),
+                   plain_ms=statistics.mean(plain),
+                   wrapper_ms=cuda_ms(
+                       lambda: shadow_entry("entry", is_csm, args, blend), 20),
+                   bound_ms=bound, bound_by=bound_by, bytes=nbytes,
+                   texels_touched=touched, shadowed=float(want[~nan].mean()),
+                   nan=int(nan.sum()), max_abs_err=err)
+        row["share_of_bound"] = bound / row["graph_ms"]
+        rows[label] = row
+        print(f"phase12 shadow kernel, {label} ({row['map']} map, "
+              f"{n} elements {row['shape']}, {row['dtype']}, blend "
+              f"{blend}): equal to the plain PCF (bit for bit, {row['nan']} "
+              f"NaN in the same places), mean shadow "
+              f"{row['shadowed']:.4f}; device {row['device_ms']} ms (mean of "
+              f"50 bare launches; {row['graph_ms']} ms in a CUDA graph), "
+              f"entry {row['wrapper_ms']} ms, plain {row['plain_ms']} ms; "
+              f"bound {bound} ms by bytes ({nbytes} bytes, {touched} texels), "
+              f"{100 * row['share_of_bound']:.1f}% of it ({card})",
+              flush=True)
+    del cases
+
+    # Frames 2 and 3 with the kernel, counted from 0, and the same frames
+    # with the plain PCF patched in, which launches nothing.
+    plain_pcf = mock.patch.multiple(
+        shadow_cuda, shadow_pcf16=shadow_cuda.plain,
+        shadow_pcf16_csm=shadow_cuda.plain_csm)
+    for name, (rend, kw, per_frame) in rends.items():
+        zero_shadow()
+        frames = []
+        with mock.patch.multiple(shadow, shadow_pcf16=no_plain_pcf,
+                                 shadow_pcf16_csm=no_plain_pcf):
+            for _ in range(2):
+                rend.render_frame(view, proj, pos)
+                frames.append((rend.read_back().copy(),
+                               rend.last_outputs().color.clone()))
+        launched = shadow_launched()
+        shadow_launches[f"{name} frames 2-3"] = launched
+        check(launched == 2 * per_frame, f"{name}: shadow kernel launches "
+              f"{launched} in frames 2 and 3, want {2 * per_frame}")
+        plain_r = build_bench_renderer(1920, 1080, 1000, "cuda", **kw)[0]
+        with plain_pcf:
+            plain_r.render_frame(view, proj, pos)
+            for image, color in frames:
+                plain_r.render_frame(view, proj, pos)
+                check(np.array_equal(plain_r.read_back(), image)
+                      and torch.equal(plain_r.last_outputs().color, color),
+                      f"{name}: a frame with the shadow kernel != the frame "
+                      "with the plain PCF")
+        check(shadow_launched() == launched,
+              f"{name}: the plain-PCF frames launched the shadow kernel")
+
+        def step(i, r=rend):
+            r.render_frame(view, proj, pos)
+
+        def plain_step(i, r=plain_r):
+            with plain_pcf:
+                r.render_frame(view, proj, pos)
+
+        timed = {"kernel": [], "plain": []}
+        for order in ("plain", "kernel", "kernel", "plain"):
+            timed[order].append(frame_ms_spread(
+                step if order == "kernel" else plain_step, 5)[0][0])
+        frame_row = {}
+        for k, st in (("kernel", step), ("plain", plain_step)):
+            wall, busy, idle, n_ops = busy_profile(st)
+            frame_row[k] = dict(ms=timed[k], busy_ms=busy, idle=idle,
+                                ops=n_ops)
+            if name == "rich":
+                frame_row[k]["pass_shade_ms"] = scope_device_ms(
+                    st, "pass_shade", n=2)[0]
+        if name == "rich":
+            frame_row["kernel"]["shadow_kernel"] = kernel_device_ms(
+                step, ("shadow_pcf_kernel",))
+        rows[f"{name} frame"] = frame_row
+        kf, pf = frame_row["kernel"], frame_row["plain"]
+        line = (f"phase12 {name} frames 2 and 3: equal to the plain PCF's (u8 "
+                f"and colour); shadow kernel launches {launched}; frame ms "
+                f"(median of 5, in turns) kernel {kf['ms']}, plain PCF "
+                f"{pf['ms']}; kernels and copies a frame {kf['ops']:g} / "
+                f"{pf['ops']:g}; device busy {kf['busy_ms']:.2f} / "
+                f"{pf['busy_ms']:.2f} ms, idle {100 * kf['idle']:.1f} / "
+                f"{100 * pf['idle']:.1f}% (kernel / plain)")
+        if name == "rich":
+            line += (f"; pass_shade device span {kf['pass_shade_ms']:.3f} / "
+                     f"{pf['pass_shade_ms']:.3f} ms; the shadow kernel in the "
+                     f"frame's trace: {kf['shadow_kernel'][0]:g} launches, "
+                     f"{kf['shadow_kernel'][1]} ms a frame")
+        print(f"{line} ({card})", flush=True)
+        del plain_r, frames
+    del rends
+    return rows, max_err
+
+
 def out_of_reach(lo, mask, world, normal, view_dir, base_color, metallic,
                  roughness, f0, ndotv, lights, tile_indices, tile_counts,
                  light_tile_size, pixel_xy=None):
@@ -2610,9 +2985,9 @@ def main() -> int:
 
     # 2. Build: one nvcc per source, started together.
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
-        lib, tex_lib, light_lib, bloom_lib = pool.map(
-            _build.build, ["raster", "texture", "lights", "bloom"])
+    with concurrent.futures.ThreadPoolExecutor(5) as pool:
+        lib, tex_lib, light_lib, bloom_lib, shadow_lib = pool.map(
+            _build.build, ["raster", "texture", "lights", "bloom", "shadow"])
     build_s = time.perf_counter() - t0
     usage = ptxas_usage(lib.with_suffix(".log").read_text())
     check(len(usage) == 16, f"{len(usage)} kernels, want 15 raster "
@@ -2630,9 +3005,14 @@ def main() -> int:
     check(sorted(bloom_usage) == BLOOM_INSTANTIATIONS,
           f"bloom library kernels {list(bloom_usage)}")
     usage.update(bloom_usage)
+    shadow_usage = ptxas_usage(shadow_lib.with_suffix(".log").read_text())
+    check(sorted(shadow_usage) == SHADOW_INSTANTIATIONS,
+          f"shadow library kernels {list(shadow_usage)}")
+    usage.update(shadow_usage)
     print(f"phase2 build: {lib.name} (both raster kernels), "
           f"{tex_lib.name} (the texture sampler), {light_lib.name} (the "
-          f"light loop) and {bloom_lib.name} (the bloom pyramid) in "
+          f"light loop), {bloom_lib.name} (the bloom pyramid) and "
+          f"{shadow_lib.name} (the shadow PCF) in "
           f"{build_s:.3f} s; "
           + "; ".join(f"{k}: {r} registers, {sp} spill bytes"
                       for k, (r, sp) in sorted(usage.items())), flush=True)
@@ -2879,12 +3259,16 @@ def main() -> int:
     # each path from 0.
     raster_cuda.rasterize.launches = 0
     raster_cuda.rasterize.layer_launches = 0
+    zero_shadow()
     deltas, outs = [], []
     for _ in range(6):
         before = raster_cuda.rasterize.launches
         outs.append(r.render_frame(view, proj, pos))
         deltas.append(raster_cuda.rasterize.launches - before)
     launches = {"standard": raster_cuda.rasterize.launches}
+    shadow_launches = {"standard": shadow_launched()}
+    check(shadow_launches["standard"] == 6, "standard: shadow kernel "
+          f"launches {shadow_launches['standard']} in 6 frames")
     layer_launches = {"standard": raster_cuda.rasterize.layer_launches}
     image = r.read_back().copy()
     out = outs[0]
@@ -2916,6 +3300,7 @@ def main() -> int:
         path = f"glass_passes{tp}"
         raster_cuda.rasterize.launches = 0
         raster_cuda.rasterize.layer_launches = 0
+        zero_shadow()
         one, peel, gouts = [], [], []
         for _ in range(4):
             b1 = raster_cuda.rasterize.launches
@@ -2925,6 +3310,10 @@ def main() -> int:
             peel.append(raster_cuda.rasterize.layer_launches - b2)
         launches[path] = raster_cuda.rasterize.launches
         layer_launches[path] = raster_cuda.rasterize.layer_launches
+        shadow_launches[path] = shadow_launched()
+        check(shadow_launches[path] >= 4 and shadow_launches[path] % 4 == 0,
+              f"{path}: shadow kernel launches {shadow_launches[path]} in 4 "
+              "frames, want the same number a frame, at least one")
         gout = gouts[0]
         gimage = rg.read_back().copy()
         check(peel == [tp] * 4, f"{path}: peel launches per frame {peel}")
@@ -3007,7 +3396,11 @@ def main() -> int:
     raster_cuda.rasterize.launches = 0
     raster_cuda.rasterize.layer_launches = 0
     lights_cuda.launches["loop"] = 0
+    zero_shadow()
     l_one, l_peel, l_outs = launches_per_frame(rl, view, proj, pos, 6)
+    shadow_launches["lit"] = shadow_launched()
+    check(shadow_launches["lit"] == 6,
+          f"lit: shadow kernel launches {shadow_launches['lit']} in 6 frames")
     launches["lit"] = raster_cuda.rasterize.launches
     layer_launches["lit"] = raster_cuda.rasterize.layer_launches
     light_launches = {"lit": lights_cuda.launches["loop"]}
@@ -3046,7 +3439,12 @@ def main() -> int:
     raster_cuda.rasterize.layer_launches = 0
     lights_cuda.launches["loop"] = 0
     zero_bloom()
+    zero_shadow()
     r_one, r_peel, r_outs = launches_per_frame(rr, view, proj, pos, 8)
+    shadow_launches["rich"] = shadow_launched()
+    check(shadow_launches["rich"] == 8,
+          f"rich: shadow kernel launches {shadow_launches['rich']} in 8 "
+          "frames")
     launches["rich"] = raster_cuda.rasterize.launches
     layer_launches["rich"] = raster_cuda.rasterize.layer_launches
     light_launches["rich"] = lights_cuda.launches["loop"]
@@ -3107,8 +3505,12 @@ def main() -> int:
         1920, 1080, 1000, "cuda", rich=True, render_scale=0.5,
         max_tris_per_tile=HALF_SCALE_TILE_CAP)
     zero_bloom()
+    zero_shadow()
     h_one, h_peel, h_outs = launches_per_frame(r_half, view, proj, pos, 8)
     bloom_launches["rich 0.5"] = bloom_launched()
+    shadow_launches["rich 0.5"] = shadow_launched()
+    check(shadow_launches["rich 0.5"] == 8, "rich at render_scale 0.5: "
+          f"shadow kernel launches {shadow_launches['rich 0.5']} in 8 frames")
     check(bloom_launches["rich 0.5"] == 8 * RICH_BLOOM_LAUNCHES,
           f"rich at render_scale 0.5: bloom kernel launches "
           f"{bloom_launches['rich 0.5']} in 8 frames")
@@ -3671,6 +4073,8 @@ def main() -> int:
           f"{taau_psnr:.2f} dB after 8 frames, {taau_first:.2f} dB after 1; "
           f"bloom kernel launches in 8 frames {bloom_launches['rich 0.5']}",
           flush=True)
+    print(f"phase4 shadow kernel launches, counted from 0 on each path "
+          f"(one a shade call): {shadow_launches}", flush=True)
 
     print(f"phase4 animated frame: 1920x1080, 1000 cubes, {ANIM_POSES} "
           f"poses of update_transforms_trs + orbit_camera after frame 1: "
@@ -3961,7 +4365,8 @@ def main() -> int:
     # 6. A18 and A16's chunked frame: the sharded frames, the farms, and
     # example 10 chunked; each path's counts from 0.
     sharded = sharded_paths(card, view, proj, pos, launches, layer_launches,
-                            mem, light_launches, bloom_launches)
+                            mem, light_launches, bloom_launches,
+                            shadow_launches)
     farms = farm_paths(card, launches, layer_launches, mem, bloom_launches)
     chunked, chunk_err = chunked_paths(card, launches, layer_launches, mem,
                                        timed)
@@ -3984,6 +4389,10 @@ def main() -> int:
     # plain chain's.
     bloom_rows, bloom_err = bloom_phase(card, view, proj, pos, bloom_launches,
                                         usage)
+    # 12. The shadow kernel at the frames' shade calls, their frames against
+    # the plain PCF's.
+    shadow_rows, shadow_err = shadow_phase(card, view, proj, pos,
+                                           shadow_launches, usage)
 
     foreign = sorted(m for m in sys.modules if m in ("jax", "ash_tpu")
                      or m.startswith(("jax.", "ash_tpu.")))
@@ -4076,6 +4485,30 @@ def main() -> int:
         "wrapper_ms": bloom_main["wrapper_ms"],
         "by_shape": bloom_rows,
     }
+    # The shadow kernel's main shape: the rich frame's shade call (three
+    # blended cascades).
+    shadow_main = shadow_rows["rich"]
+    shadow_line = {
+        "name": "shadow_pcf",
+        "route": "cuda",
+        "source": "ash_tpu_torch/csrc/shadow.cu",
+        # jax.numpy, not a TPU kernel: XLA fuses the reference's PCF.
+        "replaces": "ash_tpu/ops/shadow.py:46 and :117",
+        "launches": sum(shadow_launches.values()),
+        "launches_by_path": shadow_launches,
+        "max_abs_err": shadow_err,
+        "ms": shadow_main["device_ms"],
+        "plain_ms": shadow_main["plain_ms"],
+        "bound_ms": shadow_main["bound_ms"],
+        "bound_by": shadow_main["bound_by"],
+        # No PyTorch call takes a white-bordered comparison gather of 16
+        # taps.
+        "library_ms": None,
+        "device_ms": shadow_main["device_ms"],
+        "graph_ms": shadow_main["graph_ms"],
+        "wrapper_ms": shadow_main["wrapper_ms"],
+        "by_shape": shadow_rows,
+    }
     print(json.dumps({"kernels": [
         kernel_line("raster", "ash_tpu/ops/raster_pallas.py:106", launches,
                     max_err, ("main", 1, False),
@@ -4091,6 +4524,7 @@ def main() -> int:
         texture_line,
         light_line,
         bloom_line,
+        shadow_line,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -1,9 +1,11 @@
-"""What the frames hand the bloom and light kernels, checked on the CPU.
+"""What the frames hand the bloom, light and shadow kernels, checked on the
+CPU.
 
-The entries (ops/bloom_cuda.py:bloom_pyramid, ops/lights_cuda.py:add_lights)
-run their argument checks only on the card: on CPU tensors they run the
-plain versions, which take any float dtype. Here each check is patched in
-front of every CPU call of its entry, over the small bench frames (96x64,
+The entries (ops/bloom_cuda.py:bloom_pyramid, ops/lights_cuda.py:add_lights,
+ops/shadow_cuda.py:shadow_pcf16 and shadow_pcf16_csm) run their argument
+checks only on the card: on CPU tensors they run the plain versions, which
+take any float dtype. Here each check is patched in front of every CPU
+call of its entry, over the small bench frames (96x64,
 16 cubes) in the configurations that reach the kernels on the card: the
 rich frame, alone and with bf16 shading, glass, textures, render_scale 0.7,
 SSAA x4, edge MSAA x4 and edge x8 in bf16; the lit frame in bf16, and lit
@@ -15,7 +17,7 @@ changed.
 import pytest
 import torch
 
-from ash_tpu_torch.ops import bloom_cuda, lights_cuda
+from ash_tpu_torch.ops import bloom_cuda, lights_cuda, shadow_cuda
 from ash_tpu_torch.render import bench_scene
 
 torch.set_num_threads(1)
@@ -40,9 +42,11 @@ FRAMES = {
 @pytest.mark.parametrize("name", sorted(FRAMES))
 def test_frames_hand_the_kernels_what_they_take(name, monkeypatch):
     kw, preset = FRAMES[name]
-    checked = {"bloom": 0, "lights": 0}
+    checked = {"bloom": 0, "lights": 0, "shadow": 0}
     real_bloom = bloom_cuda.bloom_pyramid
     real_lights = lights_cuda.add_lights
+    real_pcf = shadow_cuda.shadow_pcf16
+    real_csm = shadow_cuda.shadow_pcf16_csm
 
     def bloom_pyramid(hdr, *args, **kwargs):
         bloom_cuda.check_inputs(hdr, *args, **kwargs)
@@ -54,8 +58,20 @@ def test_frames_hand_the_kernels_what_they_take(name, monkeypatch):
         checked["lights"] += 1
         return real_lights(*args)
 
+    def shadow_pcf16(*args):
+        shadow_cuda.check_inputs(*args)
+        checked["shadow"] += 1
+        return real_pcf(*args)
+
+    def shadow_pcf16_csm(*args, **kwargs):
+        shadow_cuda.check_inputs_csm(*args, **kwargs)
+        checked["shadow"] += 1
+        return real_csm(*args, **kwargs)
+
     monkeypatch.setattr(bloom_cuda, "bloom_pyramid", bloom_pyramid)
     monkeypatch.setattr(lights_cuda, "add_lights", add_lights)
+    monkeypatch.setattr(shadow_cuda, "shadow_pcf16", shadow_pcf16)
+    monkeypatch.setattr(shadow_cuda, "shadow_pcf16_csm", shadow_pcf16_csm)
     r, _, cam, _ = bench_scene.build_bench_renderer(96, 64, 16, "cpu", **kw)
     if preset is not None:
         r.set_msaa_preset(preset)
@@ -64,6 +80,8 @@ def test_frames_hand_the_kernels_what_they_take(name, monkeypatch):
                              cam.position)
     assert bool(torch.isfinite(out.color).all())
     # Two frames: a rich frame blooms once each, and every frame here shades
-    # its lights at least once each (edge MSAA twice: centres, worklist).
+    # its lights and its shadow at least once each (edge MSAA twice:
+    # centres, worklist).
     assert checked["bloom"] == (2 if kw.get("rich") else 0)
     assert checked["lights"] >= 2
+    assert checked["shadow"] == checked["lights"]
