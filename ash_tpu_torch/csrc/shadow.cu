@@ -46,17 +46,39 @@
 // plain one. Beyond the far plane (proj z > 1) the result is 0 whatever the
 // taps read, so such an element reads no texel.
 //
-// What bounds it: the bytes. An element reads its position (12 bytes) and
-// normal (12 in f32, 6 in bf16) and writes 4; the texels its taps touch are
-// read once: about 58 MB for a 1080p call, plus at most the 2048^2 map's
-// 16.8 MB or the three 1024^2 cascades' 12.6 MB, 0.02-0.03 ms at 3.35
-// TB/s. The design is the simple one: one thread an element over the
-// flattened element grid (edge MSAA hands shade_pbr a worklist, not a pixel
-// grid), the matrices, the splits and the view row staged in shared memory
-// once a block from their device tensors (no copy to the host, so a frame
-// takes no host sync), and the 16 (or 32) taps as scalar __ldg gathers,
-// which neighbouring pixels share through L1. No TMA: the taps are
-// data-dependent gathers of one float.
+// What bounds it: the bytes, in principle. An element reads its position
+// (12 bytes) and normal (12 in f32, 6 in bf16) and writes 4; the texels its
+// taps touch are read once: about 58 MB for a 1080p call, plus at most the
+// 2048^2 map's 16.8 MB or the three 1024^2 cascades' 12.6 MB, 0.014-0.019
+// ms at 3.35 TB/s. What holds the kernel short of that is the taps, 16 (32
+// with the blend) data-dependent gathers a lookup (PERF.md section 6).
+// Design:
+// - one thread an element over the flattened element grid (edge MSAA hands
+//   shade_pbr a worklist, not a pixel grid), its position and normal read
+//   with scalar loads: staging a block's elements through shared memory
+//   with 16-byte loads measured slower at every f32 call;
+// - the matrices, the splits and the view row are staged in shared memory
+//   once a block from their device tensors (no copy to the host, so a
+//   frame takes no host sync);
+// - the taps take one of two paths, each its own kernel, chosen once a
+//   launch by windows_pay. Where a layer holds more texels than the
+//   launch has elements (the standard frame's 2048^2 map at 1080p, the
+//   edge worklist), shadow_pcf_kernel takes them quad by quad as above,
+//   64-bit indices and the white border, which measured fastest there.
+//   Where it holds at most as many (the rich frame's 1024^2 cascades),
+//   neighbouring lanes' taps share L1 lines, and shadow_window_kernel
+//   reads a lookup's 16 taps as one 4x4 window where they are one: its
+//   two x floors and two y floors are computed once, and its taps are the
+//   product of columns {xa, xa + 1, xb, xb + 1} and rows {ya, ya + 1, yb,
+//   yb + 1}; where xb = xa + 2, yb = ya + 2 and the window lies inside
+//   the map (window_axis), 16 loads with 32-bit indices and no bounds to
+//   test, all issued before the compares (as scalars: 16-byte row reads
+//   measured slower). The count is a sum of integers, so the order of the
+//   compares cannot change it. Every other lookup (floors not two apart,
+//   a window on the border, NaN, infinite or huge coordinates) it takes
+//   quad by quad. It keeps at most 36 registers (kBlocksPerSM), so that
+//   an SM keeps 14 blocks of 128: left to itself it took 39-70, fitting
+//   fewer, and ran slower. No TMA: the taps are gathers.
 
 #include <climits>
 #include <cuda_bf16.h>
@@ -64,7 +86,11 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+// Threads a block (at least 64, for the staging): 128 measured faster than
+// 256 and 512, and as fast as 64 (PERF.md section 6).
+constexpr int kThreads = 128;
+// Blocks an SM keeps in flight on the window path: caps its registers at 36.
+constexpr int kBlocksPerSM = 14;
 constexpr int kMaxCascades = 4;
 
 // The Python float constants of the plain version, as PyTorch's CUDA kernels
@@ -124,33 +150,28 @@ struct Args {
   const void* normal;  // (n, 3), f32 or bf16
   const void* light_dir;  // 3 values an element at ld_stride (0 or 3)
   float* out;  // (n,)
+  // (2,): the lookups that reach the taps and those read as one window, on
+  // the window path; null but in ash_shadow_pcf16_probe.
+  unsigned long long* counts;
   long long ld_stride;
   int n, rows, cols;
   float ts;  // f32(1.0 / rows)
   float blend, one_minus_blend;  // f32(blend_size), f32(1.0 - blend_size)
 };
 
-// _pcf16_at_layer (and shadow_pcf16 after transform_points): the light-space
-// position by the cascade's matrix `m`, the projection, and the 16 taps of
-// four gather quads against `compare` = proj z - bias.
-__device__ __forceinline__ float pcf_at(const Args& a, const float* m,
-                                        int layer, float x, float y, float z,
-                                        float bias) {
-  float p[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    p[i] = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(x, m[4 * i]),
-                                         __fmul_rn(y, m[4 * i + 1])),
-                               __fmul_rn(z, m[4 * i + 2])),
-                     m[4 * i + 3]);
-  }
-  const float w = fabsf(p[3]) < kWFloor ? kWFloor : p[3];
-  const float u = __fadd_rn(__fmul_rn(__fdiv_rn(p[0], w), 0.5f), 0.5f);
-  const float v = __fadd_rn(__fmul_rn(__fdiv_rn(p[1], w), 0.5f), 0.5f);
-  const float current = __fadd_rn(__fmul_rn(__fdiv_rn(p[2], w), 0.5f), 0.5f);
-  // Beyond the light frustum's far plane: no shadow, whatever the taps say.
-  if (current > 1.0f) return 0.0f;
-  const float compare = __fsub_rn(current, bias);
+// Whether a lookup's two floors along an axis of `size` texels, f0 (the
+// quads at -1 texel) and f1 (at +1), make its taps one window along it:
+// f1 = f0 + 2, f0 >= 0 and f1 + 1 < size. `lim` is min(size, 2^24): below
+// it the integral floats add and compare exactly; NaN fails.
+__device__ __forceinline__ bool window_axis(float f0, float f1, float lim) {
+  return f0 >= 0.0f && f1 == f0 + 2.0f && f1 + 1.0f < lim;
+}
+
+// The 16 taps of four gather quads at (u, v) of `layer` against `compare`,
+// quad by quad: each quad floors its own coordinates, its taps take 64-bit
+// indices, and those off the map read the white border.
+__device__ __forceinline__ int taps_by_quad(const Args& a, int layer, float u,
+                                            float v, float compare) {
   const float* map =
       a.maps + static_cast<long long>(layer) * a.rows * a.cols;
   const float sx = static_cast<float>(a.cols), sy = static_cast<float>(a.rows);
@@ -173,22 +194,88 @@ __device__ __forceinline__ float pcf_at(const Args& a, const float* m,
       count += compare > d;
     }
   }
+  return count;
+}
+
+// _pcf16_at_layer (and shadow_pcf16 after transform_points): the light-space
+// position by the cascade's matrix `m`, the projection, and the 16 taps of
+// four gather quads against `compare` = proj z - bias. W: a lookup whose
+// taps are one 4x4 window inside the map reads them as such; `reads` and
+// `windows` count the lookups that reach the taps and those read so.
+template <bool W>
+__device__ __forceinline__ float pcf_at(const Args& a, const float* m,
+                                        int layer, float x, float y, float z,
+                                        float bias, int& reads,
+                                        int& windows) {
+  float p[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    p[i] = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(x, m[4 * i]),
+                                         __fmul_rn(y, m[4 * i + 1])),
+                               __fmul_rn(z, m[4 * i + 2])),
+                     m[4 * i + 3]);
+  }
+  const float w = fabsf(p[3]) < kWFloor ? kWFloor : p[3];
+  const float u = __fadd_rn(__fmul_rn(__fdiv_rn(p[0], w), 0.5f), 0.5f);
+  const float v = __fadd_rn(__fmul_rn(__fdiv_rn(p[1], w), 0.5f), 0.5f);
+  const float current = __fadd_rn(__fmul_rn(__fdiv_rn(p[2], w), 0.5f), 0.5f);
+  // Beyond the light frustum's far plane: no shadow, whatever the taps say.
+  if (current > 1.0f) return 0.0f;
+  const float compare = __fsub_rn(current, bias);
+  int count = 0;
+  if (W) {
+    // The quads at -1 texel floor (fx[0], fy[0]), those at +1 (fx[1],
+    // fy[1]), as taps_by_quad floors them.
+    const float sx = static_cast<float>(a.cols);
+    const float sy = static_cast<float>(a.rows);
+    float fx[2], fy[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      fx[j] = floorf(__fsub_rn(__fmul_rn(__fadd_rn(u, j ? a.ts : -a.ts), sx),
+                               0.5f));
+      fy[j] = floorf(__fsub_rn(__fmul_rn(__fadd_rn(v, j ? a.ts : -a.ts), sy),
+                               0.5f));
+    }
+    const bool one = window_axis(fx[0], fx[1], fminf(sx, 16777216.0f)) &&
+                     window_axis(fy[0], fy[1], fminf(sy, 16777216.0f));
+    ++reads;
+    windows += one;
+    if (one) {
+      // Four rows of four texels, 32-bit indices, no bounds to test; all 16
+      // loads issued before the compares.
+      const float* window =
+          a.maps + (layer * a.rows + static_cast<int>(fy[0])) * a.cols +
+          static_cast<int>(fx[0]);  // < 2^31 texels
+      float d[16];
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        d[k] = __ldg(window + (k >> 2) * a.cols + (k & 3));
+      }
+#pragma unroll
+      for (int k = 0; k < 16; ++k) count += compare > d[k];
+    } else {
+      count = taps_by_quad(a, layer, u, v, compare);
+    }
+  } else {
+    count = taps_by_quad(a, layer, u, v, compare);
+  }
   // The tap count over 16 (a product with 1/16, exact).
   return __fmul_rn(static_cast<float>(count), 0.0625f);
 }
 
-// C cascades (1: the single map), BLEND: the next cascade's lookup mixed in,
-// B: the normal and light direction in bf16.
-template <int C, bool BLEND, bool B>
-__global__ void __launch_bounds__(kThreads) shadow_pcf_kernel(Args a) {
+// One block's elements: C cascades (1: the single map), BLEND: the next
+// cascade's lookup mixed in, B: the normal and light direction in bf16, W:
+// the window path.
+template <int C, bool BLEND, bool B, bool W>
+__device__ __forceinline__ void shadow_pcf(const Args& a) {
   __shared__ float mats[C * 16];
   __shared__ float splits[C];
   __shared__ float view_row[4];
   const int t = threadIdx.x;
   if (t < C * 16) mats[t] = __ldg(a.mats + t);
   if (C > 1) {
-    if (t >= 64 && t < 64 + C) splits[t - 64] = __ldg(a.splits + (t - 64));
-    if (t >= 96 && t < 100) view_row[t - 96] = __ldg(a.view + 8 + (t - 96));
+    if (t < C) splits[t] = __ldg(a.splits + t);
+    if (t >= 32 && t < 36) view_row[t - 32] = __ldg(a.view + 8 + (t - 32));
   }
   __syncthreads();
   const long long e = static_cast<long long>(blockIdx.x) * kThreads + t;
@@ -226,7 +313,9 @@ __global__ void __launch_bounds__(kThreads) shadow_pcf_kernel(Args a) {
     for (int i = 0; i < C; ++i) passed += view_z > splits[i];
     layer = min(passed, C - 1);
   }
-  float shadow = pcf_at(a, mats + 16 * layer, layer, x, y, z, bias);
+  int reads = 0, windows = 0;
+  float shadow =
+      pcf_at<W>(a, mats + 16 * layer, layer, x, y, z, bias, reads, windows);
   if (BLEND) {
     const float split = splits[layer];
     const float frac = clamp(
@@ -236,33 +325,102 @@ __global__ void __launch_bounds__(kThreads) shadow_pcf_kernel(Args a) {
     const int next = min(layer + 1, C - 1);
     const float blend = next > layer ? frac : 0.0f;
     if (blend != 0.0f) {  // NaN too
-      const float shadow_next = pcf_at(a, mats + 16 * next, next, x, y, z,
-                                       bias);
+      const float shadow_next = pcf_at<W>(a, mats + 16 * next, next, x, y,
+                                          z, bias, reads, windows);
       shadow = __fadd_rn(__fmul_rn(shadow, __fsub_rn(1.0f, blend)),
                          __fmul_rn(shadow_next, blend));
     }
   }
   a.out[e] = shadow;
+  if (W && a.counts != nullptr) {
+    if (reads) atomicAdd(a.counts, static_cast<unsigned long long>(reads));
+    if (windows) {
+      atomicAdd(a.counts + 1, static_cast<unsigned long long>(windows));
+    }
+  }
+}
+
+// The taps quad by quad, with no cap on the registers (ptxas takes 32-34).
+template <int C, bool BLEND, bool B>
+__global__ void __launch_bounds__(kThreads) shadow_pcf_kernel(Args a) {
+  shadow_pcf<C, BLEND, B, false>(a);
+}
+
+// The window path, kBlocksPerSM blocks an SM.
+template <int C, bool BLEND, bool B>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+    shadow_window_kernel(Args a) {
+  shadow_pcf<C, BLEND, B, true>(a);
+}
+
+template <int C, bool BLEND, bool B>
+void launch_path(const Args& a, bool windows, cudaStream_t s) {
+  const unsigned blocks =
+      static_cast<unsigned>((a.n + kThreads - 1) / kThreads);
+  if (windows) {
+    shadow_window_kernel<C, BLEND, B><<<blocks, kThreads, 0, s>>>(a);
+  } else {
+    shadow_pcf_kernel<C, BLEND, B><<<blocks, kThreads, 0, s>>>(a);
+  }
 }
 
 template <int C, bool BLEND>
-void launch_dtype(const Args& a, bool bf16, cudaStream_t s) {
-  const unsigned blocks =
-      static_cast<unsigned>((a.n + kThreads - 1) / kThreads);
+void launch_dtype(const Args& a, bool bf16, bool windows, cudaStream_t s) {
   if (bf16) {
-    shadow_pcf_kernel<C, BLEND, true><<<blocks, kThreads, 0, s>>>(a);
+    launch_path<C, BLEND, true>(a, windows, s);
   } else {
-    shadow_pcf_kernel<C, BLEND, false><<<blocks, kThreads, 0, s>>>(a);
+    launch_path<C, BLEND, false>(a, windows, s);
   }
 }
 
 template <int C>
-void launch_blend(const Args& a, bool blend, bool bf16, cudaStream_t s) {
+void launch_blend(const Args& a, bool blend, bool bf16, bool windows,
+                  cudaStream_t s) {
   if (blend) {
-    launch_dtype<C, true>(a, bf16, s);
+    launch_dtype<C, true>(a, bf16, windows, s);
   } else {
-    launch_dtype<C, false>(a, bf16, s);
+    launch_dtype<C, false>(a, bf16, windows, s);
   }
+}
+
+// Whether a launch takes the window path: where a layer holds at most as
+// many texels as the launch has elements, so that neighbouring elements'
+// windows overlap (PERF.md section 6 has the times of both paths).
+bool windows_pay(int rows, int cols, int n) {
+  return static_cast<long long>(rows) * cols <= n;
+}
+
+// Both entries: check the arguments, take the window path where `path` is
+// 1, or -1 and windows_pay says so, and launch. -> the path taken in *taken.
+int pcf16(const float* maps, int cascades, int rows, int cols,
+          const float* mats, const float* splits, const float* view,
+          const float* world, const void* normal, const void* light_dir,
+          int ld_stride, int n, int bf16, int blend, float ts,
+          float blend_size, float one_minus_blend, float* out, int path,
+          unsigned long long* counts, int* taken, void* stream) {
+  if (maps == nullptr || mats == nullptr || world == nullptr ||
+      normal == nullptr || light_dir == nullptr || out == nullptr ||
+      cascades < 1 || cascades > kMaxCascades || rows <= 0 || cols <= 0 ||
+      n <= 0 || (ld_stride != 0 && ld_stride != 3) ||
+      (cascades > 1 && (splits == nullptr || view == nullptr)) ||
+      (blend && cascades == 1) || path < -1 || path > 1 ||
+      static_cast<long long>(cascades) * rows * cols > INT_MAX ||
+      static_cast<long long>(n) * 3 > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Args a{maps, mats, splits, view, world, normal, light_dir, out,
+               counts, ld_stride, n, rows, cols, ts, blend_size,
+               one_minus_blend};
+  const bool windows = path < 0 ? windows_pay(rows, cols, n) : path == 1;
+  if (taken != nullptr) *taken = windows ? 1 : 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (cascades) {
+    case 1: launch_dtype<1, false>(a, bf16 != 0, windows, s); break;
+    case 2: launch_blend<2>(a, blend != 0, bf16 != 0, windows, s); break;
+    case 3: launch_blend<3>(a, blend != 0, bf16 != 0, windows, s); break;
+    default: launch_blend<4>(a, blend != 0, bf16 != 0, windows, s); break;
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The probe of tests/test_torch_shadow_kernel.py: floor(x) converted to
@@ -292,26 +450,29 @@ extern "C" int ash_shadow_pcf16(
     const void* normal, const void* light_dir, int ld_stride, int n, int bf16,
     int blend, float ts, float blend_size, float one_minus_blend, float* out,
     void* stream) {
-  if (maps == nullptr || mats == nullptr || world == nullptr ||
-      normal == nullptr || light_dir == nullptr || out == nullptr ||
-      cascades < 1 || cascades > kMaxCascades || rows <= 0 || cols <= 0 ||
-      n <= 0 || (ld_stride != 0 && ld_stride != 3) ||
-      (cascades > 1 && (splits == nullptr || view == nullptr)) ||
-      (blend && cascades == 1) ||
-      static_cast<long long>(cascades) * rows * cols > INT_MAX ||
-      static_cast<long long>(n) * 3 > INT_MAX) {
+  return pcf16(maps, cascades, rows, cols, mats, splits, view, world, normal,
+               light_dir, ld_stride, n, bf16, blend, ts, blend_size,
+               one_minus_blend, out, -1, nullptr, nullptr, stream);
+}
+
+// ash_shadow_pcf16_probe: ash_shadow_pcf16 on the path `path` (-1: the
+// one ash_shadow_pcf16 takes, 0: quad by quad, 1: the window path), the
+// path taken written to the host's *taken; on the window path the kernel
+// adds the lookups that reach the taps to counts[0] and those it reads as
+// one window to counts[1] (device, zeroed by the caller). The tests' and
+// chip_smoke.py's probe of both paths.
+extern "C" int ash_shadow_pcf16_probe(
+    const float* maps, int cascades, int rows, int cols, const float* mats,
+    const float* splits, const float* view, const float* world,
+    const void* normal, const void* light_dir, int ld_stride, int n, int bf16,
+    int blend, float ts, float blend_size, float one_minus_blend, float* out,
+    int path, unsigned long long* counts, int* taken, void* stream) {
+  if (counts == nullptr || taken == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a{maps, mats, splits, view, world, normal, light_dir, out,
-               ld_stride, n, rows, cols, ts, blend_size, one_minus_blend};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (cascades) {
-    case 1: launch_dtype<1, false>(a, bf16 != 0, s); break;
-    case 2: launch_blend<2>(a, blend != 0, bf16 != 0, s); break;
-    case 3: launch_blend<3>(a, blend != 0, bf16 != 0, s); break;
-    default: launch_blend<4>(a, blend != 0, bf16 != 0, s); break;
-  }
-  return static_cast<int>(cudaGetLastError());
+  return pcf16(maps, cascades, rows, cols, mats, splits, view, world, normal,
+               light_dir, ld_stride, n, bf16, blend, ts, blend_size,
+               one_minus_blend, out, path, counts, taken, stream);
 }
 
 // ash_shadow_probe_floor: out[i] = floor(x[i]) as an int64, by the kernel's

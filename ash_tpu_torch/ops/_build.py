@@ -1,4 +1,5 @@
-"""Build the CUDA sources under ash_tpu_torch/csrc/ at first use.
+"""Build the CUDA sources under ash_tpu_torch/csrc/ at first use, and
+call their C entries on PyTorch's current stream.
 
 Each library is compiled by `nvcc` into `build/ash_tpu_torch/` at the root of
 the checkout, under a name keyed on a hash of the flags and of every file
@@ -18,6 +19,8 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+
+import torch
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -88,3 +91,17 @@ def build(name: str) -> pathlib.Path:
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load library `name` once per process."""
     return ctypes.CDLL(str(build(name)))
+
+
+def launch(device: torch.device, entry, *args) -> int:
+    """entry(*args, stream) -> its error code: a C entry called on the
+    current CUDA stream of `device` (a tensor's, so its index is set). The
+    stream comes from PyTorch's raw getter, which its own kernels launch
+    with, and not through a Stream object; the runtime, which launches on
+    its current device, is switched to `device` only where that is
+    another."""
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if torch.cuda.current_device() == device.index:
+        return entry(*args, stream)
+    with torch.cuda.device(device):
+        return entry(*args, stream)

@@ -114,10 +114,9 @@ def probe_reciprocal(x: torch.Tensor):
         raise ValueError("bloom probe: a non-empty contiguous f32 CUDA "
                          "tensor")
     rcp, quot = torch.empty_like(x), torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = _library().ash_bloom_probe_rcp(
-            x.data_ptr(), x.numel(), rcp.data_ptr(), quot.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream)
+    err = _build.launch(x.device, _library().ash_bloom_probe_rcp,
+                        x.data_ptr(), x.numel(), rcp.data_ptr(),
+                        quot.data_ptr())
     if err != 0:
         raise RuntimeError(f"bloom probe launch failed: CUDA error {err}")
     return rcp, quot
@@ -203,13 +202,11 @@ def launcher(hdr, threshold=0.8, soft_knee=0.5, mip_count=5):
 
     def launch(steps=None):
         run = calls if steps is None else [calls[i] for i in steps]
-        with torch.cuda.device(device):
-            stream = _P(torch.cuda.current_stream(device).cuda_stream)
-            for kind, entry, args, _, _ in run:
-                err = entry(*args, stream)
-                if err != 0:
-                    raise RuntimeError(f"bloom kernel ({kind}) launch "
-                                       f"failed: CUDA error {err}")
+        for kind, entry, args, _, _ in run:
+            err = _build.launch(device, entry, *args)
+            if err != 0:
+                raise RuntimeError(f"bloom kernel ({kind}) launch "
+                                   f"failed: CUDA error {err}")
         return made if steps is None else [made[i] for i in steps]
 
     return launch, out

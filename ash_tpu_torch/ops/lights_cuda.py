@@ -65,10 +65,8 @@ def probe_bf16(x: torch.Tensor) -> torch.Tensor:
         raise ValueError("light probe: a non-empty contiguous f32 CUDA "
                          "tensor")
     out = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _library().ash_light_probe_bf16(
-            x.data_ptr(), x.numel(), out.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream)
+    err = _build.launch(x.device, _library().ash_light_probe_bf16,
+                        x.data_ptr(), x.numel(), out.data_ptr())
     if err != 0:
         raise RuntimeError(f"light probe launch failed: CUDA error {err}")
     return out
@@ -184,8 +182,7 @@ def launcher(lo, mask, world, normal, view_dir, base_color, metallic,
     def launch() -> bool:
         if rows == 0 or cols == 0 or k == 0 or lights.shape[0] == 0:
             return False
-        with torch.cuda.device(device):
-            err = entry(*args, torch.cuda.current_stream(device).cuda_stream)
+        err = _build.launch(device, entry, *args)
         if err != 0:
             raise RuntimeError(f"light kernel launch failed: CUDA error {err}")
         return True

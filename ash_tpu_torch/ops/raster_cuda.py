@@ -102,14 +102,12 @@ def launcher(
     def launch():
         ptrs = [x.data_ptr() for x in ins]
         outs = (depth.data_ptr(), tri_id.data_ptr())
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            if layers == 1:
-                err = lib.ash_raster(*ptrs, *outs, *dims, stream)
-            else:
-                floor = None if depth_floor is None else depth_floor.data_ptr()
-                err = lib.ash_raster_layers(*ptrs, floor, *outs, *dims,
-                                            layers, stream)
+        if layers == 1:
+            err = _build.launch(device, lib.ash_raster, *ptrs, *outs, *dims)
+        else:
+            floor = None if depth_floor is None else depth_floor.data_ptr()
+            err = _build.launch(device, lib.ash_raster_layers, *ptrs, floor,
+                                *outs, *dims, layers)
         if err != 0:
             raise RuntimeError(f"raster kernel launch failed: CUDA error {err}")
 
@@ -167,11 +165,9 @@ def device_rects(setup: TriangleSetup, height: int, width: int,
     t = setup.edge.shape[0]
     _check("setup.edge", setup.edge, torch.float32, (t, 3, 3), device)
     rects = torch.empty((t, 4), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        err = _library().ash_candidate_rects(
-            setup.edge.data_ptr(), rects.data_ptr(), t, height, width,
-            int(y0),
-            torch.cuda.current_stream(device).cuda_stream)
+    err = _build.launch(device, _library().ash_candidate_rects,
+                        setup.edge.data_ptr(), rects.data_ptr(), t, height,
+                        width, int(y0))
     if err != 0:
         raise RuntimeError(f"candidate rects launch failed: CUDA error {err}")
     return rects

@@ -27,7 +27,9 @@ elements with stride 0 as shade_pbr hands it, or one direction an element.
 `launches["pcf"]` and `launches["csm"]` count the kernel's launches (and
 nothing else), so a run can show that its frames went through it. Each
 callable in `observers` is handed every launch's input and output tensors
-(render/cost_analysis.py counts their bytes).
+(render/cost_analysis.py counts their bytes). `probe_path` runs the kernel
+on either of its two tap paths with its own counts of the lookups read as
+one window, for the tests and chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -56,9 +58,12 @@ observers = []
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load("shadow")
-    lib.ash_shadow_pcf16.argtypes = ([_P, _I, _I, _I] + [_P] * 6
-                                     + [_I] * 4 + [_F] * 3 + [_P, _P])
+    pcf16 = [_P, _I, _I, _I] + [_P] * 6 + [_I] * 4 + [_F] * 3 + [_P]
+    lib.ash_shadow_pcf16.argtypes = pcf16 + [_P]
     lib.ash_shadow_pcf16.restype = _I
+    lib.ash_shadow_pcf16_probe.argtypes = pcf16 + [
+        _I, _P, ctypes.POINTER(ctypes.c_int), _P]
+    lib.ash_shadow_pcf16_probe.restype = _I
     lib.ash_shadow_probe_floor.argtypes = [_P, _I, _P, _P]
     lib.ash_shadow_probe_floor.restype = _I
     return lib
@@ -73,10 +78,8 @@ def probe_floor(x: torch.Tensor) -> torch.Tensor:
         raise ValueError("shadow probe: a non-empty contiguous f32 CUDA "
                          "tensor")
     out = torch.empty(x.shape, dtype=torch.int64, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _library().ash_shadow_probe_floor(
-            x.data_ptr(), x.numel(), out.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream)
+    err = _build.launch(x.device, _library().ash_shadow_probe_floor,
+                        x.data_ptr(), x.numel(), out.data_ptr())
     if err != 0:
         raise RuntimeError(f"shadow probe launch failed: CUDA error {err}")
     return out
@@ -111,9 +114,9 @@ def light_dir_stride(light_dir: torch.Tensor, world: torch.Tensor) -> int:
         f"{tuple(world.shape)} contiguous or expanded from (3,)")
 
 
-def _check_elements(maps, world, normal, light_dir) -> None:
+def _check_elements(maps, world, normal, light_dir) -> int:
     """What both entries check: the maps' dtype, layout and index range,
-    and the elements' world, normal and light_dir."""
+    and the elements' world, normal and light_dir. -> light_dir_stride."""
     if not isinstance(world, torch.Tensor):
         raise ValueError("shadow kernel: world is not a tensor")
     device = world.device
@@ -131,44 +134,47 @@ def _check_elements(maps, world, normal, light_dir) -> None:
             light_dir.device != device or light_dir.dtype != normal.dtype:
         raise ValueError("shadow kernel: light_dir must be a tensor of the "
                          f"normal's dtype {normal.dtype} on {device}")
-    light_dir_stride(light_dir, world)
+    stride = light_dir_stride(light_dir, world)
     _check("maps", maps, torch.float32, tuple(maps.shape), device)
     if maps.numel() == 0:
         raise ValueError("shadow kernel: the shadow map is empty")
     if maps.numel() >= 2**31 or world.numel() >= 2**31:
         raise ValueError("shadow kernel: 32-bit index range exceeded")
+    return stride
 
 
 def check_inputs(shadow_map, light_space_matrix, world, normal,
-                 light_dir) -> None:
+                 light_dir) -> int:
     """Raise ValueError unless shadow_pcf16's inputs are what the kernel
     takes: one device; a contiguous f32 (S_y, S_x) `shadow_map` and (4, 4)
     `light_space_matrix`; contiguous f32 `world` (..., 3); `normal` of
     world's shape in f32 or bf16, contiguous; `light_dir` of the normal's
     dtype, (3,) or world's shape (contiguous, or expanded from (3,) with
     stride 0); fewer than 2^31 texels and position floats. Both devices
-    check, so a CPU run shows what the card would refuse."""
+    check, so a CPU run shows what the card would refuse. -> the elements'
+    stride in light_dir (light_dir_stride)."""
     if not isinstance(shadow_map, torch.Tensor) or shadow_map.dim() != 2:
         raise ValueError("shadow kernel: shadow_map must be (S_y, S_x)")
-    _check_elements(shadow_map, world, normal, light_dir)
+    stride = _check_elements(shadow_map, world, normal, light_dir)
     _check("light_space_matrix", light_space_matrix, torch.float32, (4, 4),
            world.device)
+    return stride
 
 
 def check_inputs_csm(cascade_maps, cascade_matrices, split_distances, view,
-                     world, normal, light_dir, blend_size=0.0) -> None:
+                     world, normal, light_dir, blend_size=0.0) -> int:
     """Raise ValueError unless shadow_pcf16_csm's inputs are what the kernel
     takes: as check_inputs, with a contiguous f32 (C, S_y, S_x)
     `cascade_maps` for C in 1..4, f32 `cascade_matrices` (C, 4, 4), f32
     `split_distances` (K,) with K >= C and f32 `view` (4, 4), contiguous;
-    `blend_size` a finite float >= 0."""
+    `blend_size` a finite float >= 0. -> light_dir_stride."""
     if not isinstance(cascade_maps, torch.Tensor) or cascade_maps.dim() != 3:
         raise ValueError("shadow kernel: cascade_maps must be (C, S_y, S_x)")
     c = cascade_maps.shape[0]
     if not 1 <= c <= MAX_CASCADES:
         raise ValueError(f"shadow kernel: {c} cascades; the kernel takes 1 "
                          f"to {MAX_CASCADES}")
-    _check_elements(cascade_maps, world, normal, light_dir)
+    stride = _check_elements(cascade_maps, world, normal, light_dir)
     device = world.device
     _check("cascade_matrices", cascade_matrices, torch.float32, (c, 4, 4),
            device)
@@ -184,11 +190,13 @@ def check_inputs_csm(cascade_maps, cascade_matrices, split_distances, view,
             or not math.isfinite(blend_size) or blend_size < 0):
         raise ValueError(f"shadow kernel: blend_size {blend_size!r} is not a "
                          "finite float >= 0")
+    return stride
 
 
-def _launcher(maps, mats, splits, view, world, normal, light_dir,
-              blend_size):
-    """(launch, out) over (C, S_y, S_x) maps; see launcher."""
+def _arguments(maps, mats, splits, view, world, normal, light_dir,
+               blend_size, stride):
+    """(the C entry's arguments but its stream, out, elements) over (C,
+    S_y, S_x) maps, `stride` the elements' in light_dir."""
     device = world.device
     if device.type != "cuda":
         raise ValueError(f"shadow kernel: unsupported device {device}")
@@ -201,18 +209,25 @@ def _launcher(maps, mats, splits, view, world, normal, light_dir,
     args = (maps.data_ptr(), c, rows, cols, mats.data_ptr(),
             None if splits is None else splits.data_ptr(),
             None if view is None else view.data_ptr(), world.data_ptr(),
-            normal.data_ptr(), light_dir.data_ptr(),
-            light_dir_stride(light_dir, world), n,
+            normal.data_ptr(), light_dir.data_ptr(), stride, n,
             int(normal.dtype == torch.bfloat16), int(blend),
             float(np.float32(1.0 / rows)), float(np.float32(blend_size)),
             float(np.float32(1.0 - blend_size)), out.data_ptr())
-    entry = _library().ash_shadow_pcf16
+    return args, out, n
+
+
+def _launcher(maps, mats, splits, view, world, normal, light_dir,
+              blend_size, stride):
+    """(launch, out) over (C, S_y, S_x) maps, `stride` the elements' in
+    light_dir; see launcher."""
+    args, out, n = _arguments(maps, mats, splits, view, world, normal,
+                              light_dir, blend_size, stride)
+    device, entry = world.device, _library().ash_shadow_pcf16
 
     def launch() -> bool:
         if n == 0:
             return False
-        with torch.cuda.device(device):
-            err = entry(*args, torch.cuda.current_stream(device).cuda_stream)
+        err = _build.launch(device, entry, *args)
         if err != 0:
             raise RuntimeError(
                 f"shadow kernel launch failed: CUDA error {err}")
@@ -227,18 +242,53 @@ def launcher(shadow_map, light_space_matrix, world, normal, light_dir):
     writing the shadow fraction into `out`, counts nothing, and returns
     whether it launched (not for an empty element grid). The entry point
     counts; this split lets a timing loop replay the bare launch."""
-    check_inputs(shadow_map, light_space_matrix, world, normal, light_dir)
+    stride = check_inputs(shadow_map, light_space_matrix, world, normal,
+                          light_dir)
     return _launcher(shadow_map[None], light_space_matrix, None, None, world,
-                     normal, light_dir, 0.0)
+                     normal, light_dir, 0.0, stride)
 
 
 def launcher_csm(cascade_maps, cascade_matrices, split_distances, view,
                  world, normal, light_dir, blend_size=0.0):
     """launcher for shadow_pcf16_csm's inputs."""
-    check_inputs_csm(cascade_maps, cascade_matrices, split_distances, view,
-                     world, normal, light_dir, blend_size)
+    stride = check_inputs_csm(cascade_maps, cascade_matrices,
+                              split_distances, view, world, normal, light_dir,
+                              blend_size)
     return _launcher(cascade_maps, cascade_matrices, split_distances, view,
-                     world, normal, light_dir, blend_size)
+                     world, normal, light_dir, blend_size, stride)
+
+
+def probe_path(path: int, csm: bool, *args, blend_size: float = 0.0):
+    """Run the kernel once through ash_shadow_pcf16_probe on the taps' path
+    `path` at shadow_pcf16's arguments (`csm` false) or
+    shadow_pcf16_csm's (true, with `blend_size`) -> (out, the path taken,
+    the lookups that reached the taps, those read as one 4x4 window).
+    `path` -1 takes the entries' own path (csrc/shadow.cu, windows_pay),
+    0 the taps quad by quad, 1 the window path. The counts are the
+    kernel's own, made on the window path: quad by quad they stay 0.
+    Counts no launch; the tests and chip_smoke.py read it, no frame
+    does."""
+    if path not in (-1, 0, 1):
+        raise ValueError(f"shadow probe: path {path!r} is not -1, 0 or 1")
+    if csm:
+        stride = check_inputs_csm(*args, blend_size)
+        maps, mats, splits, view, world, normal, light_dir = args
+    else:
+        stride = check_inputs(*args)
+        shadow_map, mats, world, normal, light_dir = args
+        maps, splits, view, blend_size = shadow_map[None], None, None, 0.0
+    c_args, out, n = _arguments(maps, mats, splits, view, world, normal,
+                                light_dir, blend_size, stride)
+    if n == 0:
+        raise ValueError("shadow probe: no elements")
+    counts = torch.zeros(2, dtype=torch.int64, device=world.device)
+    taken = ctypes.c_int(-1)
+    err = _build.launch(world.device, _library().ash_shadow_pcf16_probe,
+                        *c_args, path, counts.data_ptr(), ctypes.byref(taken))
+    if err != 0:
+        raise RuntimeError(f"shadow probe launch failed: CUDA error {err}")
+    reads, windows = counts.tolist()
+    return out, taken.value, reads, windows
 
 
 def plain(shadow_map, light_space_matrix, world, normal,
@@ -262,6 +312,8 @@ def plain_csm(cascade_maps, cascade_matrices, split_distances, view, world,
 
 
 def _observe(inputs, out, light_dir):
+    if not observers:
+        return
     # The elements read one direction where light_dir is expanded.
     if light_dir_stride(light_dir, inputs[-2]) == 0:
         light_dir = light_dir.as_strided((3,), (light_dir.stride(-1),))

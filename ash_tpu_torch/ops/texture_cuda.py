@@ -145,8 +145,7 @@ def _launch_fn(device, rows, entry, *args):
     def launch():
         if rows == 0:
             return
-        with torch.cuda.device(device):
-            err = entry(*args, torch.cuda.current_stream(device).cuda_stream)
+        err = _build.launch(device, entry, *args)
         if err != 0:
             raise RuntimeError(
                 f"texture kernel launch failed: CUDA error {err}")

@@ -245,27 +245,34 @@ fails. Phases, one stdout line each:
    places; each call's device time (50 bare launches between CUDA events,
    and in a CUDA graph), the entry's and the plain PCF's, in turns, beside
    its bound by bytes (a position, a normal and a result an element, and
-   each texel the taps touch, once); frames 2 and 3 of standard, rich and
-   glass with the kernel (one launch a shade call, counted from 0, the
-   plain PCF never called) against the same frames with the plain PCF
-   patched in (u8 and colour); then kernel and plain frames in turns:
-   frame ms, kernels and copies a frame, device busy and idle, and for
-   rich pass_shade's device span and the kernel's time a frame by name.
+   each texel the taps touch, once), the taps' path the launch takes and,
+   by the kernel's own counts (shadow_cuda.probe_path), the share of its
+   lookups read as one 4x4 window, and the entry's host time by part
+   (checks, launcher, bare launch, whole entry); frames 2 and 3 of
+   standard, rich and glass with the kernel (one launch a shade call,
+   counted from 0, the plain PCF never called) against the same frames
+   with the plain PCF patched in (u8 and colour); then kernel and plain
+   frames in turns: frame ms, kernels and copies a frame, device busy and
+   idle, and for rich pass_shade's device span and the kernel's time a
+   frame by name.
    Phases 4 and 6 count the shadow launches of the standard, glass, lit,
    rich and sharded frames from 0 as well.
 
 Then one JSON line on the kernels and, last, the device JSON line.
 
 `python3 chip_smoke.py --parent DIR [--variant LABEL=DIR ...]` runs phase 1
-and then, instead of the phases above, ab_phase: another checkout's light
-and bloom kernels (DIR, for example the parent commit unpacked with `git
-archive`) against this tree's, in turns in one process, at phases 10-11's
-inputs and in the rich frame, and prints one JSON line of what it measured.
+and then, instead of the phases above, ab_phase: another checkout's light,
+bloom and shadow kernels (DIR, for example the parent commit unpacked with
+`git archive`) against this tree's, in turns in one process, at phases
+10-12's inputs and in the rich and glass frames, DIR's shadow entry
+against this tree's on the host, and prints one JSON line of what it
+measured.
 """
 
 import argparse
 import concurrent.futures
 import contextlib
+import functools
 import json
 import math
 import os
@@ -505,7 +512,8 @@ def ptxas_usage(log):
     read the HDR frame; PR 15's bloom_{down,up}_kernel<bool, threshold>, a
     build of another tree that ab_phase times, by the same names, its bool
     as path 0 or 1; csrc/shadow.cu's shadow_pcf_kernel<C, blend, bf16>
-    "shadow C=<C>", with " blend" and " bf16"."""
+    "shadow C=<C>", with " blend" and " bf16", and shadow_window_kernel
+    by the same names with " windows"."""
     usage, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"raster_warp_kernelILi(\d+)ELb([01])E", ln)
@@ -514,7 +522,7 @@ def ptxas_usage(log):
         bloom_kernel = re.search(
             r"bloom_(down|up)_kernelIL[ib]([012])ELb([01])E", ln)
         shadow_kernel = re.search(
-            r"shadow_pcf_kernelILi(\d)ELb([01])ELb([01])E", ln)
+            r"shadow_(pcf|window)_kernelILi(\d)ELb([01])ELb([01])E", ln)
         if "Compiling entry function" in ln and m:
             name = f"L={m.group(1)}{' floor' if m.group(2) == '1' else ''}"
             spill = None
@@ -532,9 +540,10 @@ def ptxas_usage(log):
             name = f"bloom {bloom_path(kind, int(path), thresh == '1')}"
             spill = None
         elif "Compiling entry function" in ln and shadow_kernel:
-            c, blend, bf16 = shadow_kernel.groups()
+            path, c, blend, bf16 = shadow_kernel.groups()
             name = (f"shadow C={c}{' blend' if blend == '1' else ''}"
-                    f"{' bf16' if bf16 == '1' else ''}")
+                    f"{' bf16' if bf16 == '1' else ''}"
+                    f"{' windows' if path == 'window' else ''}")
             spill = None
         elif name and "spill stores" in ln:
             spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill", ln))
@@ -1590,11 +1599,14 @@ LIGHT_FRAMES = [("rich", dict(rich=True)), ("lit", dict(lights=32)),
 # test, the main pass's, then shade_pbr's five maps in one call.
 SAMPLER_CALLS = ["alpha test shadow", "alpha test main", "maps"]
 # csrc/shadow.cu's instantiations, as ptxas_usage names them: C cascades
-# (1: the single map), the blend of the next cascade, bf16 normals.
+# (1: the single map), the blend of the next cascade, bf16 normals, the
+# window path.
 SHADOW_INSTANTIATIONS = sorted(
-    [f"shadow C=1{d}" for d in ("", " bf16")]
-    + [f"shadow C={c}{b}{d}" for c in (2, 3, 4) for b in ("", " blend")
-       for d in ("", " bf16")])
+    [f"shadow C=1{d}{w}" for d in ("", " bf16") for w in ("", " windows")]
+    + [f"shadow C={c}{b}{d}{w}" for c in (2, 3, 4) for b in ("", " blend")
+       for d in ("", " bf16") for w in ("", " windows")])
+# Its kernels' names, as a trace shows them: quad by quad, the window path.
+SHADOW_KERNELS = ("shadow_pcf_kernel", "shadow_window_kernel")
 # The 1080p frames whose shade calls phase 12 replays: (name, bench scene
 # keywords, with "cascades" for a CsmConfig of that many 1024^2 cascades,
 # MSAA preset); of them, the frames it renders with the kernel and with the
@@ -2474,6 +2486,38 @@ def shadow_work(is_csm, args, blend):
     return nbytes / MEM_RATE * 1e3, "bytes", nbytes, touched, n
 
 
+def entry_parts(module, is_csm, args, blend, n=200):
+    """{part: host microseconds a call} of a shadow entry module (this
+    tree's ops/shadow_cuda, or another tree's in ab_phase) at one recorded
+    call: "check" (check_inputs or check_inputs_csm), "launcher" (the
+    checks, the output's allocation and the arguments), "launch" (the bare
+    ctypes launch) and "entry" (the whole entry point, counts and observers
+    included); the mean of n calls after a warm one, the device
+    synchronised around each loop."""
+    import torch
+
+    kw = {"blend_size": blend} if is_csm else {}
+    suffix = "_csm" if is_csm else ""
+    parts = {name: functools.partial(getattr(module, attr + suffix), *args,
+                                     **kw)
+             for name, attr in (("check", "check_inputs"),
+                                ("launcher", "launcher"),
+                                ("entry", "shadow_pcf16"))}
+    # The output stays alive while its bare launch is timed.
+    parts["launch"], kept = parts["launcher"]()
+    out = {}
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out[name] = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+    del kept
+    return out
+
+
 def shadow_same(got, want):
     """Bit for bit where want has a number, NaN where it has NaN."""
     import torch
@@ -2485,40 +2529,20 @@ def shadow_same(got, want):
                                  want[~nan].view(torch.int32))))
 
 
-def shadow_phase(card, view, proj, pos, shadow_launches, usage):
-    """Phase 12: the shadow kernel (csrc/shadow.cu) against the plain PCF
-    (ops/shadow_cuda.plain, plain_csm) at the 1080p frames' own shade calls
-    (frame 1): the standard frame's single 2048^2 map, glass's shaded
-    layers, rich's 3 cascades of 1024^2 with the blend of 0.1, and edge
-    MSAA x4's two calls (the centres and the worklist), recorded from the
-    entry points, and the rich frame's at 2 and 4 cascades; from those,
-    rich without the blend, the standard and rich calls in bf16 (the normal
-    and direction rounded as a bf16 frame rounds them) and seeded maps of
-    257^2 and 1000^2: bit for bit, NaN in the same places. Each call timed
-    (plain, kernel, kernel, plain: CUDA events around 50 bare launches, a
-    CUDA graph of them, and 3 plain calls) beside its bound by bytes
-    (shadow_work). Frames 2 and 3 of the standard, rich
-    and glass frames with the kernel (launches counted from 0, the plain
-    PCF never called) against the same frames with the plain version
-    patched in (u8 and colour); then kernel and plain frames in turns:
-    frame ms, kernels and copies a frame, device busy and idle, and for
-    rich pass_shade's device span and the kernel's time a frame by name.
-    -> ({name: its numbers}, the largest |kernel - plain|)."""
+def shadow_cases(view, proj, pos):
+    """-> ({label: (csm?, the entry's arguments, the blend size)}, {name:
+    (renderer, its keywords, shade calls a frame)}): the 1080p shade calls
+    of SHADOW_CALL_FRAMES (frame 1, recorded from the entry points; "<name>
+    call <i>" where a frame makes more than one), and from them rich
+    without the blend, the standard and rich calls in bf16 (the normal and
+    direction rounded as a bf16 frame rounds them) and seeded maps of
+    257^2 and 1000^2; the renderers of those frames that are in
+    SHADOW_FRAMES."""
     import torch
 
-    from ash_tpu_torch.ops import shadow, shadow_cuda
     from ash_tpu_torch.render.bench_scene import build_bench_renderer
     from ash_tpu_torch.render.csm import CsmConfig
 
-    def no_plain_pcf(*args, **kwargs):
-        raise AssertionError("a card frame ran the plain PCF")
-
-    rows, max_err = {}, 0.0
-    rows["usage"] = {k: v for k, v in usage.items() if k.startswith("shadow")}
-    print("phase12 shadow kernel, registers and spill bytes by "
-          "instantiation: " + "; ".join(
-              f"{k}: {r}, {sp}" for k, (r, sp) in sorted(
-                  rows["usage"].items())) + f" ({card})", flush=True)
     cases, rends = {}, {}
     for name, kw, preset in SHADOW_CALL_FRAMES:
         kw = dict(kw)
@@ -2560,6 +2584,47 @@ def shadow_phase(card, view, proj, pos, shadow_launches, usage):
         cases[f"rich 3x{s}^2 seeded"] = (True, (
             torch.stack([seeded, seeded.flip(0), seeded.flip(1)]),
             *rich[1][1:]), rich[2])
+    return cases, rends
+
+
+def shadow_phase(card, view, proj, pos, shadow_launches, usage):
+    """Phase 12: the shadow kernel (csrc/shadow.cu) against the plain PCF
+    (ops/shadow_cuda.plain, plain_csm) at the 1080p frames' own shade calls
+    (frame 1): the standard frame's single 2048^2 map, glass's shaded
+    layers, rich's 3 cascades of 1024^2 with the blend of 0.1, and edge
+    MSAA x4's two calls (the centres and the worklist), recorded from the
+    entry points, and the rich frame's at 2 and 4 cascades; from those,
+    rich without the blend, the standard and rich calls in bf16 (the normal
+    and direction rounded as a bf16 frame rounds them) and seeded maps of
+    257^2 and 1000^2: bit for bit, NaN in the same places. Each call timed
+    (plain, kernel, kernel, plain: CUDA events around 50 bare launches, a
+    CUDA graph of them, and 3 plain calls) beside its bound by bytes
+    (shadow_work), with the taps' path the entry takes there and, by the
+    kernel's own counts on that path (shadow_cuda.probe_path), the share
+    of the lookups that reach the taps read as one 4x4 window (none quad
+    by quad), and the entry's host time by part (entry_parts). Frames 2
+    and 3 of the standard, rich and glass frames with the kernel
+    (launches counted from 0, the plain PCF never called) against the same
+    frames with the plain version patched in (u8 and colour); then kernel
+    and plain frames in turns: frame ms, kernels and copies a frame, device
+    busy and idle, and for rich pass_shade's device span and the kernel's
+    time a frame by name.
+    -> ({name: its numbers}, the largest |kernel - plain|)."""
+    import torch
+
+    from ash_tpu_torch.ops import shadow, shadow_cuda
+    from ash_tpu_torch.render.bench_scene import build_bench_renderer
+
+    def no_plain_pcf(*args, **kwargs):
+        raise AssertionError("a card frame ran the plain PCF")
+
+    rows, max_err = {}, 0.0
+    rows["usage"] = {k: v for k, v in usage.items() if k.startswith("shadow")}
+    print("phase12 shadow kernel, registers and spill bytes by "
+          "instantiation: " + "; ".join(
+              f"{k}: {r}, {sp}" for k, (r, sp) in sorted(
+                  rows["usage"].items())) + f" ({card})", flush=True)
+    cases, rends = shadow_cases(view, proj, pos)
 
     for label, (is_csm, args, blend) in cases.items():
         want = shadow_entry("plain", is_csm, args, blend)
@@ -2579,7 +2644,14 @@ def shadow_phase(card, view, proj, pos, shadow_launches, usage):
             else:
                 plain.append(cuda_ms(
                     lambda: shadow_entry("plain", is_csm, args, blend), 3))
-        bound, bound_by, nbytes, touched, n = shadow_work(is_csm, args, blend)
+        bound, bound_by, nbytes, touched, n = shadow_work(is_csm, args,
+                                                          blend)
+        probed, path, reads, windows = shadow_cuda.probe_path(
+            -1, is_csm, *args, **({"blend_size": blend} if is_csm else {}))
+        torch.cuda.synchronize()
+        check(shadow_same(probed, want),
+              f"shadow kernel's probe != plain PCF at {label}")
+        del probed
         row = dict(elements=n, shape=list(args[-3].shape[:-1]),
                    map="x".join(map(str, args[0].shape)),
                    blend=blend, dtype=str(args[-2].dtype).replace(
@@ -2591,7 +2663,10 @@ def shadow_phase(card, view, proj, pos, shadow_launches, usage):
                        lambda: shadow_entry("entry", is_csm, args, blend), 20),
                    bound_ms=bound, bound_by=bound_by, bytes=nbytes,
                    texels_touched=touched, shadowed=float(want[~nan].mean()),
-                   nan=int(nan.sum()), max_abs_err=err)
+                   nan=int(nan.sum()), max_abs_err=err,
+                   path="windows" if path else "quads", lookups=reads,
+                   windows=windows, window_share=windows / max(reads, 1),
+                   entry_us=entry_parts(shadow_cuda, is_csm, args, blend))
         row["share_of_bound"] = bound / row["graph_ms"]
         rows[label] = row
         print(f"phase12 shadow kernel, {label} ({row['map']} map, "
@@ -2602,7 +2677,15 @@ def shadow_phase(card, view, proj, pos, shadow_launches, usage):
               f"50 bare launches; {row['graph_ms']} ms in a CUDA graph), "
               f"entry {row['wrapper_ms']} ms, plain {row['plain_ms']} ms; "
               f"bound {bound} ms by bytes ({nbytes} bytes, {touched} texels), "
-              f"{100 * row['share_of_bound']:.1f}% of it ({card})",
+              f"{100 * row['share_of_bound']:.1f}% of it; "
+              + (f"the window path: of {reads} lookups that reach the taps, "
+                 f"{windows} read as one 4x4 window "
+                 f"({100 * row['window_share']:.2f}%, the kernel's count)"
+                 if path else "the taps quad by quad: no lookup read as a "
+                 "window")
+              + "; the entry's host us a call: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in row["entry_us"].items())
+              + f" ({card})",
               flush=True)
     del cases
 
@@ -2657,7 +2740,7 @@ def shadow_phase(card, view, proj, pos, shadow_launches, usage):
                     st, "pass_shade", n=2)[0]
         if name == "rich":
             frame_row["kernel"]["shadow_kernel"] = kernel_device_ms(
-                step, ("shadow_pcf_kernel",))
+                step, SHADOW_KERNELS)
         rows[f"{name} frame"] = frame_row
         kf, pf = frame_row["kernel"], frame_row["plain"]
         line = (f"phase12 {name} frames 2 and 3: equal to the plain PCF's (u8 "
@@ -2705,18 +2788,20 @@ def out_of_reach(lo, mask, world, normal, view_dir, base_color, metallic,
 
 
 def ab_builds(trees):
-    """Build each tree's ash_tpu_torch/csrc/bloom.cu and lights.cu, where
-    it has them, with ops/_build.py's flags, one nvcc a source, all started
-    together, into build/ash_tpu_torch/ab/; bind each library with this
-    tree's C signatures (the C entries are the same) -> {(kind, label):
-    (library, ptxas_usage)}; this tree's own libraries under "change"."""
+    """Build each tree's ash_tpu_torch/csrc/bloom.cu, lights.cu and
+    shadow.cu, where it has them, with ops/_build.py's flags, one nvcc a
+    source, all started together, into build/ash_tpu_torch/ab/; bind each
+    library with this tree's C signatures (the C entries are the same) ->
+    {(kind, label): (library, ptxas_usage)}; this tree's own libraries
+    under "change"."""
     import ctypes
 
-    from ash_tpu_torch.ops import _build, bloom_cuda, lights_cuda
+    from ash_tpu_torch.ops import _build, bloom_cuda, lights_cuda, shadow_cuda
 
     own = {"bloom": (bloom_cuda._library(),
                      ("ash_bloom_down", "ash_bloom_up")),
-           "lights": (lights_cuda._library(), ("ash_light_loop",))}
+           "lights": (lights_cuda._library(), ("ash_light_loop",)),
+           "shadow": (shadow_cuda._library(), ("ash_shadow_pcf16",))}
     libs = {(kind, "change"): (lib, ptxas_usage(
         _build.library_path(kind).with_suffix(".log").read_text()))
         for kind, (lib, _) in own.items()}
@@ -2746,27 +2831,49 @@ def ab_builds(trees):
     return libs
 
 
+def tree_module(tree, name):
+    """Another tree's ash_tpu_torch/ops/<name>.py, loaded as a module of
+    this tree's package (its relative imports are this tree's modules), or
+    None where the tree has none."""
+    import importlib.util
+
+    path = tree / "ash_tpu_torch" / "ops" / f"{name}.py"
+    if not path.is_file():
+        return None
+    spec = importlib.util.spec_from_file_location(
+        f"ash_tpu_torch.ops._ab_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def ab_phase(card, view, proj, pos, trees):
-    """--parent DIR [--variant LABEL=DIR ...]: this tree's light and bloom
-    kernels against DIR's, built from DIR's csrc/ and bound to this tree's
-    entry points, in one process. Both are held to the plain versions at
-    phases 10-11's inputs as those phases hold them (torch.equal; the light
-    kernel on covered elements, the others untouched) and timed there in
-    turns (DIR's, this tree's, each variant's, this tree's, DIR's): the
-    light launch by CUDA events around 50 launches; the bloom chain by CUDA
+    """--parent DIR [--variant LABEL=DIR ...]: this tree's light, bloom and
+    shadow kernels against DIR's, built from DIR's csrc/ and bound to this
+    tree's entry points, in one process. Both are held to the plain
+    versions at phases 10-12's inputs as those phases hold them
+    (torch.equal; the light kernel on covered elements, the others
+    untouched; the shadow kernel by shadow_same) and timed there in turns
+    (DIR's, this tree's, each variant's, this tree's, DIR's): the light
+    launch by CUDA events around 50 launches; the bloom chain by CUDA
     events around 50 bare chains (phase 11's `device_ms`) and in a CUDA
     graph (`graph_ms`), and at the rich and example 09 inputs each launch
-    alone in a CUDA graph; beside the unchanged bounds (light_work,
-    bloom_work). A variant is a copy of a tree's csrc/ with one change made
-    to measure a part of the time (its output may be wrong by design:
-    whether it equals the plain version is printed, not required). Then the
-    1080p rich frame with DIR's and this tree's kernels in turns (median of
-    5 frames, four turns), its pass_bloom span and the kernels' device ms a
-    frame by name. ->
-    {measurement: numbers}."""
+    alone in a CUDA graph; the shadow launch at every call phase 12
+    replays (shadow_cases) by events around 50 launches and in a CUDA
+    graph; beside the unchanged bounds (light_work, bloom_work,
+    shadow_work). DIR's shadow entry
+    (its ops/shadow_cuda.py, on DIR's kernel) and this tree's are timed on
+    the host in turns at the standard and rich calls (entry_parts). A
+    variant is a copy of a tree's csrc/ (or of one source there) with one
+    change made to measure a part of the time (its output may be wrong by
+    design: whether it equals the plain version is printed, not required).
+    Then the 1080p rich and glass frames with DIR's and this tree's
+    kernels in turns (median of 5 frames, four turns), rich's pass_bloom
+    span and the kernels' device ms a frame by name. -> {measurement:
+    numbers}."""
     import torch
 
-    from ash_tpu_torch.ops import bloom, bloom_cuda, lights_cuda
+    from ash_tpu_torch.ops import bloom, bloom_cuda, lights_cuda, shadow_cuda
     from ash_tpu_torch.render.bench_scene import build_bench_renderer
 
     libs = ab_builds(trees)
@@ -2775,11 +2882,12 @@ def ab_phase(card, view, proj, pos, trees):
         print(f"ab build {key}: " + "; ".join(
             f"{k}: {r} registers, {sp} spill bytes"
             for k, (r, sp) in sorted(u.items())), flush=True)
+    kinds = {bloom_cuda: "bloom", lights_cuda: "lights",
+             shadow_cuda: "shadow"}
 
-    def use(module, label):
-        kind = "bloom" if module is bloom_cuda else "lights"
-        return mock.patch.object(module, "_library",
-                                 lambda: libs[kind, label][0])
+    def use(module, label, kind=None):
+        return mock.patch.object(
+            module, "_library", lambda: libs[kind or kinds[module], label][0])
 
     def order(kind):
         others = [lb for k, lb in libs if k == kind
@@ -2801,9 +2909,10 @@ def ab_phase(card, view, proj, pos, trees):
         want = lights_cuda.plain(lo_in.clone(), *args[1:])
         int_view = torch.int16 if lo_in.dtype == torch.bfloat16 \
             else torch.int32
-        launches, equal = {}, {}
+        launches, works, equal = {}, {}, {}
         for label in dict.fromkeys(order("lights")):
-            work = lo_in.clone()
+            # Each launch's output stays alive while it is timed.
+            work = works[label] = lo_in.clone()
             with use(lights_cuda, label):
                 launch, _ = lights_cuda.launcher(work, *args[1:])
             launch()
@@ -2830,7 +2939,7 @@ def ab_phase(card, view, proj, pos, trees):
                   for k, v in times.items())
               + f"; bound {bound:.4f} ms; live pairs out of a point light's "
               f"reach {100 * reach:.1f}% ({card})", flush=True)
-        del calls, args, want, launches
+        del calls, args, want, launches, works
 
     # The bloom chain at phase 11's timed inputs.
     rich, inputs = bloom_inputs(view, proj, pos)
@@ -2886,32 +2995,106 @@ def ab_phase(card, view, proj, pos, trees):
         print(f"{line} ({card})", flush=True)
         del chains, want
 
-    # The rich frame with DIR's kernels and this tree's, in turns.
+    # The shadow kernel at phase 12's calls.
+    cases, rends = shadow_cases(view, proj, pos)
+    entries = {"parent": tree_module(trees["parent"], "shadow_cuda"),
+               "change": shadow_cuda}
+    for name, (is_csm, args, blend) in cases.items():
+        want = shadow_entry("plain", is_csm, args, blend)
+        launches, outs, equal = {}, {}, {}
+        for label in dict.fromkeys(order("shadow")):
+            with use(shadow_cuda, label):
+                launch, outs[label] = shadow_entry("launcher", is_csm, args,
+                                                   blend)
+            launch()
+            torch.cuda.synchronize()
+            equal[label] = held(label, shadow_same(outs[label], want),
+                                f"shadow kernel at the {name} call")
+            launches[label] = launch
+        events, graphed = {}, {}
+        for label in order("shadow"):
+            events.setdefault(label, []).append(cuda_ms(launches[label], 50))
+            graphed.setdefault(label, []).append(graph_ms(launches[label]))
+        bound = shadow_work(is_csm, args, blend)[0]
+        row = dict(device_ms=events, graph_ms=graphed, equal=equal,
+                   bound_ms=bound)
+        shape = "x".join(map(str, args[0].shape))
+        line = (f"ab shadow kernel, {name} call ({shape} map, "
+                f"{args[-3].numel() // 3} elements, "
+                f"{str(args[-2].dtype).replace('torch.', '')}, blend "
+                f"{blend}): device ms (mean of 50 launches; in a CUDA graph; "
+                "in turns) " + "; ".join(
+                    f"{k} {v}; {graphed[k]} -> "
+                    f"{statistics.mean(graphed[k]):.4f} "
+                    f"({100 * bound / statistics.mean(graphed[k]):.1f}% of "
+                    f"the bound; equal to the plain PCF {equal[k]})"
+                    for k, v in events.items()) + f"; bound {bound:.4f} ms")
+        if name in ("standard", "rich") and entries["parent"] is not None:
+            host = {}
+            for label in ("parent", "change", "change", "parent"):
+                with use(entries[label], label, "shadow"):
+                    for k, v in entry_parts(entries[label], is_csm, args,
+                                            blend).items():
+                        host.setdefault(k, {}).setdefault(label, []).append(v)
+            row["entry_us"] = host
+            line += ("; the entry's host us a call, in turns (parent; "
+                     "change): " + ", ".join(
+                         f"{k} {v['parent']}; {v['change']}"
+                         for k, v in host.items()))
+        results[f"shadow {name}"] = row
+        print(f"{line} ({card})", flush=True)
+        del launches, outs, want
+    glass = rends["glass"][0]
+    del cases, rends
+
+    # The rich and glass frames with DIR's kernels and this tree's, in
+    # turns.
     def step(i):
         rich.render_frame(view, proj, pos)
 
+    def glass_step(i):
+        glass.render_frame(view, proj, pos)
+
+    @contextlib.contextmanager
+    def _uses(label):
+        with use(bloom_cuda, label), use(lights_cuda, label), \
+                use(shadow_cuda, label):
+            yield
+
     frames = {"parent": [], "change": []}
+    glass_frames = {"parent": [], "change": []}
     for label in ("parent", "change", "change", "parent"):
-        with use(bloom_cuda, label), use(lights_cuda, label):
+        with _uses(label):
             frames[label].append(frame_ms_spread(step, 5)[0][0])
+            glass_frames[label].append(frame_ms_spread(glass_step, 5)[0][0])
     traced = {}
     for label in ("parent", "change"):
-        with use(bloom_cuda, label), use(lights_cuda, label):
+        with _uses(label):
             traced[label] = dict(
                 pass_bloom_span_ms=scope_device_ms(step, "pass_bloom")[0],
                 bloom_kernels=kernel_device_ms(
                     step, ("bloom_down_kernel", "bloom_up_kernel")),
                 light_kernel=kernel_device_ms(
-                    step, ("light_tile_kernel", "light_element_kernel")))
+                    step, ("light_tile_kernel", "light_element_kernel")),
+                shadow_kernel=kernel_device_ms(step, SHADOW_KERNELS),
+                glass_shadow_kernel=kernel_device_ms(
+                    glass_step, SHADOW_KERNELS))
     results["rich frame"] = dict(frame_ms=frames, traced=traced)
+    results["glass frame"] = dict(frame_ms=glass_frames)
     print(f"ab rich frame (1920x1080), frame ms (median of 5, in turns) "
-          f"parent {frames['parent']}, change {frames['change']}; "
+          f"parent {frames['parent']}, change {frames['change']}; glass "
+          f"frame parent {glass_frames['parent']}, change "
+          f"{glass_frames['change']}; "
           + "; ".join(
               f"{label}: pass_bloom span {v['pass_bloom_span_ms']:.4f} ms, "
               f"bloom kernels {v['bloom_kernels'][0]:g} launches "
               f"{v['bloom_kernels'][1]:.4f} ms, light kernel "
               f"{v['light_kernel'][0]:g} launches {v['light_kernel'][1]:.4f} "
-              f"ms a frame" for label, v in traced.items()) + f" ({card})",
+              f"ms, shadow kernel {v['shadow_kernel'][0]:g} launches "
+              f"{v['shadow_kernel'][1]:.4f} ms a frame (glass "
+              f"{v['glass_shadow_kernel'][0]:g} launches "
+              f"{v['glass_shadow_kernel'][1]:.4f} ms)"
+              for label, v in traced.items()) + f" ({card})",
           flush=True)
     return results
 
@@ -2919,8 +3102,8 @@ def ab_phase(card, view, proj, pos, trees):
 def main() -> int:
     ap = argparse.ArgumentParser(
         description="Drive the port on one CUDA card (see the module's "
-        "docstring); with --parent, time another tree's light and bloom "
-        "kernels against this tree's instead (ab_phase).")
+        "docstring); with --parent, time another tree's light, bloom and "
+        "shadow kernels against this tree's instead (ab_phase).")
     ap.add_argument("--parent", type=pathlib.Path, metavar="DIR",
                     help="another checkout of the repository, for example "
                     "the parent commit unpacked with git archive")

@@ -17,6 +17,11 @@ CPU; the kernel itself (csrc/shadow.cu) on the card.
   stride, cascade count and blend size.
 - shade_pbr makes one entry call a shaded layer, with the map's matrix and
   the frame's cascades.
+- The kernel's window predicate (csrc/shadow.cu's window_axis, written out
+  here as _one_window) against the plain version's own taps: where it
+  holds, the 16 texels gather_quad reads are the 4x4 window. The probe of
+  both tap paths (shadow_cuda.probe_path) refuses the CPU and unknown
+  paths; chip_smoke.py names every instantiation of the kernel.
 - On the card (marked `cuda`, skipped here): the kernel against the plain
   version on the same CUDA tensors, bit for bit with NaN in the same
   places, over the seeded cases, texels on the map's border and just
@@ -24,7 +29,15 @@ CPU; the kernel itself (csrc/shadow.cu) on the card.
   positions and normals, and the 1080p frames' own shade calls (standard,
   glass, rich with and without the blend, 2 and 4 cascades, bf16, edge
   MSAA x4); the probe of the int64 conversion of floor against
-  `.to(torch.int64)`.
+  `.to(torch.int64)`; lookups whose floors rounding brings 1 or 3 apart
+  (257^2 and 1000^2 maps), windows on each border and corner, every
+  alignment of a window's rows, positions and normals one element off an
+  aligned address, and texels equal to the compare value. Every one of
+  them also runs the kernel on each of its two tap paths (quad by quad,
+  and the window path) through shadow_cuda.probe_path, bit for bit the
+  plain version; where the lookups are known, the window path's own
+  counts equal _one_window's; the entries take the window path where a
+  layer's texels do not outnumber the elements.
 """
 
 from unittest import mock
@@ -276,6 +289,47 @@ def test_argument_checks_raise(bad, no_library):
         _check(is_csm, args, blend)
 
 
+def test_probe_path_refuses_the_cpu_and_unknown_paths(no_library):
+    for name in ("single", "csm 3 blend"):
+        is_csm, args, blend = _case(name)
+        kw = {"blend_size": blend} if is_csm else {}
+        with pytest.raises(ValueError, match="unsupported device cpu"):
+            shadow_cuda.probe_path(1, is_csm, *args, **kw)
+        with pytest.raises(ValueError, match="path 2 is not"):
+            shadow_cuda.probe_path(2, is_csm, *args, **kw)
+
+
+def test_chip_smoke_names_every_instantiation():
+    """Each instantiation of csrc/shadow.cu's two kernels (quad by quad and
+    the window path, SHADOW_KERNELS, each launched by the C entry), as
+    nvcc names it in its -Xptxas -v log (C cascades, the blend for C > 1,
+    bf16), gets a distinct name from chip_smoke.py's ptxas_usage, and
+    those are SHADOW_INSTANTIATIONS, the list its build phase requires."""
+    import sys
+
+    sys.path.insert(0, str(_build.CSRC.parents[1]))
+    import chip_smoke
+
+    def entry(kernel, args, regs):
+        return ("ptxas info    : Compiling entry function "
+                f"'_ZN12_GLOBAL__N_1{len(kernel)}{kernel}IL{args}EEvNS_4ArgsE' "
+                "for 'sm_90a'\n    0 bytes stack frame, 0 bytes spill "
+                "stores, 0 bytes spill loads\nptxas info    : Used "
+                f"{regs} registers\n")
+
+    combos = [(c, b, d, k) for c in (1, 2, 3, 4) for b in (0, 1)
+              for d in (0, 1) for k in chip_smoke.SHADOW_KERNELS
+              if c > 1 or not b]
+    usage = chip_smoke.ptxas_usage("".join(
+        entry(k, f"i{c}ELb{b}ELb{d}E", 30 + i)
+        for i, (c, b, d, k) in enumerate(combos)))
+    assert sorted(usage) == chip_smoke.SHADOW_INSTANTIATIONS
+    assert len(set(usage.values())) == len(usage) == 28
+    source = (_build.CSRC / "shadow.cu").read_text()
+    for kernel in chip_smoke.SHADOW_KERNELS:
+        assert f"{kernel}<C, BLEND, B><<<" in source
+
+
 def test_launchers_refuse_the_cpu(no_library):
     for name in ("single", "csm 3 blend"):
         is_csm, args, blend = _case(name)
@@ -364,6 +418,89 @@ def test_shade_pbr_without_a_shadow_map_calls_no_entry():
     assert unlit.shape == lit.shape and not torch.equal(unlit, lit)
 
 
+def _floors(u, v, rows, cols):
+    """A lookup's int64 floors at (u, v) as ops/shadow.py's shadow_pcf16
+    takes them: (xa, xb, ya, yb), xa and ya those of the quads at -1
+    texel, xb and yb at +1."""
+    ts = 1.0 / rows
+
+    def floor(c, o, size):
+        return torch.floor((c + o * ts) * size - 0.5).to(torch.int64)
+
+    return floor(u, -1.0, cols), floor(u, 1.0, cols), floor(v, -1.0, rows), \
+        floor(v, 1.0, rows)
+
+
+def _one_window(xa, xb, ya, yb, rows, cols):
+    """Where a lookup's 16 taps are one 4x4 window inside the (rows, cols)
+    map, as the kernel's window_axis tests it (for maps under 2^24 texels
+    a side), from its _floors: two apart on both axes, the window at (ya,
+    xa) inside the map."""
+    return ((xa >= 0) & (xb == xa + 2) & (xb + 1 < cols)
+            & (ya >= 0) & (yb == ya + 2) & (yb + 1 < rows))
+
+
+def _near_texel_edges(size, rng, count=2000):
+    """Seeded positions x (u = x * 0.5 + 0.5 under the identity matrix) for
+    a map `size` texels wide: those where u * size - 0.5 is a texel edge
+    (so the quads at +-1 texel floor next to one), u nudged by up to six
+    ulps either way, where rounding can bring two quads' floors 1 or 3
+    apart; then `count` uniform ones, some off the map."""
+    u = ((np.arange(-4, size + 4) + 0.5) / size).astype(np.float32)
+    out, up, down = [u], u, u
+    for _ in range(6):
+        up, down = np.nextafter(up, np.float32(2)), np.nextafter(
+            down, np.float32(-2))
+        out += [up, down]
+    x = (np.concatenate(out) - np.float32(0.5)) * np.float32(2)
+    return np.concatenate([x, rng.uniform(-1.1, 1.1, count).astype(
+        np.float32)])
+
+
+@pytest.mark.parametrize("size", [(257, 257), (1000, 1000), (48, 64),
+                                  (61, 67)])
+def test_one_window_is_the_plain_versions_taps(size):
+    """Wherever _one_window holds (the lookups the kernel's window path
+    reads as one window), the 16 texels that ops/shadow.gather_quad reads
+    for the four quads are exactly the 4x4 window at (ya, xa); on a map
+    whose texels hold their own index. On a square map it holds for most
+    lookups on the map, and not where rounding brings two floors 1 or 3
+    apart."""
+    rows, cols = size
+    rng = np.random.default_rng(rows + cols)
+    xs = _near_texel_edges(cols, rng)
+    ys = _near_texel_edges(rows, rng)
+    xs, ys = np.meshgrid(xs, ys[rng.permutation(len(ys))][:64])
+    u = torch.from_numpy(xs.ravel()) * 0.5 + 0.5
+    v = torch.from_numpy(ys.ravel()) * 0.5 + 0.5
+    index = torch.arange(rows * cols, dtype=torch.float32).reshape(rows,
+                                                                   cols)
+    ts = 1.0 / rows
+    taps = torch.cat([shadow.gather_quad(index, u + ox * ts, v + oy * ts)
+                      for ox, oy in ((-1.0, -1.0), (1.0, -1.0), (-1.0, 1.0),
+                                     (1.0, 1.0))], -1)
+    xa, xb, ya, yb = _floors(u, v, rows, cols)
+    fast = _one_window(xa, xb, ya, yb, rows, cols)
+    r = torch.arange(4)
+    window = ((ya[:, None, None] + r[None, :, None]) * cols
+              + xa[:, None, None] + r[None, None, :]).reshape(-1, 16)
+    assert torch.equal(taps[fast].to(torch.int64).sort(-1).values,
+                       window[fast].sort(-1).values)
+    inside = (xa >= 0) & (xb + 1 < cols) & (ya >= 0) & (yb + 1 < rows)
+    apart = (xb - xa != 2) | (yb - ya != 2)
+    assert not bool((fast & apart).any())
+    assert torch.equal(fast, inside & ~apart)
+    if rows == cols:
+        assert float(fast.sum()) > 0.9 * float(inside.sum())
+        # The search finds floors 3 apart at both sizes, 1 apart at 1000.
+        for d in (1, 3) if rows == 1000 else (3,):
+            assert bool((inside & ((xb - xa == d) | (yb - ya == d))).any())
+    else:
+        # The texel size is 1 / rows on both axes, so the x floors of a
+        # map wider than tall are often 3 apart.
+        assert bool(fast.any()) and bool((inside & apart).any())
+
+
 # -- on the card -----------------------------------------------------------
 
 def _need_card():
@@ -381,16 +518,46 @@ def _assert_same(got, want):
                        want[~nan].view(torch.int32))
 
 
+def _probe(path, is_csm, args, blend):
+    kw = {"blend_size": blend} if is_csm else {}
+    return shadow_cuda.probe_path(path, is_csm, *args, **kw)
+
+
 def _kernel_matches_plain(is_csm, args, blend):
     """One counted launch against the plain version on the same CUDA
-    tensors."""
+    tensors, and one on each tap path through the probe, which counts no
+    launch -> (the entry's result, the plain one, the window path's
+    (lookups that reached the taps, those read as windows))."""
     want = _plain(is_csm, args, blend)
     key = "csm" if is_csm else "pcf"
-    before = shadow_cuda.launches[key]
+    before = dict(shadow_cuda.launches)
     got = _entry(is_csm, args, blend)
-    assert shadow_cuda.launches[key] == before + 1
+    counts = None
+    for path in (0, 1):
+        out, taken, reads, windows = _probe(path, is_csm, args, blend)
+        torch.cuda.synchronize()
+        assert taken == path
+        _assert_same(out, want)
+        if path == 0:
+            assert (reads, windows) == (0, 0)
+        else:
+            assert 0 <= windows <= reads
+            counts = reads, windows
+    assert shadow_cuda.launches == {**before, key: before[key] + 1}
     torch.cuda.synchronize()
     _assert_same(got, want)
+    return got, want, counts
+
+
+def _window_counts_are_one_windows(args, rows, cols):
+    """The window path's own counts at a single-map _window_case: the
+    lookups at or before the far plane, and of them those _one_window
+    takes as one window."""
+    got, want, (reads, windows) = _kernel_matches_plain(False, args, 0.0)
+    world = args[-3]
+    reach = ~(world[:, 2] * 0.5 + 0.5 > 1.0)
+    one = reach & _one_window(*_lookup_floors(args, rows, cols), rows, cols)
+    assert (reads, windows) == (int(reach.sum()), int(one.sum()))
     return got, want
 
 
@@ -433,7 +600,7 @@ def _on_the_border(rows, cols, seed, bf16=False):
 def test_cuda_kernel_on_the_maps_border(size):
     _need_card()
     args = _on_the_border(*size, seed=size[0])
-    got, _ = _kernel_matches_plain(False, args, 0.0)
+    got = _kernel_matches_plain(False, args, 0.0)[0]
     # The border's white taps and the map's both show.
     assert 0.0 < float(got.mean()) < 1.0
 
@@ -477,7 +644,7 @@ def test_cuda_kernel_matches_plain_on_degenerate_inputs(name):
     blend), the numbers bit for bit; w at 0 takes 1e-8, w below 0 mirrors
     the projection; huge coordinates read the white border."""
     _need_card()
-    got, want = _kernel_matches_plain(*_degenerate(name, 5))
+    got, want, _ = _kernel_matches_plain(*_degenerate(name, 5))
     finite = want[~torch.isnan(want)]
     assert finite.numel() > 0
     if "csm" in name:
@@ -558,3 +725,216 @@ def test_cuda_kernel_matches_plain_on_the_1080p_frames(frame):
     shadows = [_kernel_matches_plain(*call)[0] for call in calls]
     assert 0.0 < float(torch.cat([s.reshape(-1) for s in shadows]).mean()) \
         < 1.0
+
+
+def _window_case(xs, ys, size, seed, device="cuda", cascades=0, offset=0):
+    """(csm?, the entry's arguments, the blend size) at positions (xs, ys)
+    under the identity matrix (u = x * 0.5 + 0.5, v = y * 0.5 + 0.5), one
+    element each at a seeded depth: a seeded (rows, cols) map, or
+    `cascades` of them with identity matrices, the view the identity (the
+    distance is -z, which passes some of the splits) and the blend 0.1;
+    the maps' first texel `offset` floats past a 16-byte boundary."""
+    rows, cols = size
+    rng = np.random.default_rng(seed)
+    n, c = len(xs), max(cascades, 1)
+    if cascades:
+        z = rng.uniform(-1.0, 0.0, n)
+        depth = rng.uniform(0.0, 0.6, (c, rows, cols))
+    else:
+        z = rng.uniform(-0.2, 1.1, n)  # proj z beyond 1 too
+        depth = rng.uniform(0.2, 1.0, (c, rows, cols))
+    store = torch.zeros(offset + c * rows * cols, device=device)
+    maps = store[offset:].view(c, rows, cols)
+    maps.copy_(torch.from_numpy(depth.astype(np.float32)))
+    world = torch.from_numpy(np.stack([xs, ys, z], -1).astype(np.float32))
+    normal = torch.from_numpy(_unit(rng.normal(size=(n, 3))))
+    ld = torch.tensor(_unit(np.array([0.3, 0.9, 0.2])), device=device)
+    elements = (world.to(device), normal.to(device), ld.expand(n, 3))
+    eye = torch.eye(4, device=device)
+    if not cascades:
+        return False, (maps[0], eye, *elements), 0.0
+    splits = torch.linspace(1.0 / c, 1.0, c, device=device)
+    return True, (maps, eye.expand(c, 4, 4).contiguous(), splits, eye,
+                  *elements), 0.1
+
+
+def _lookup_floors(args, rows, cols):
+    """_floors of each element of a _window_case, from its positions."""
+    world = args[-3]
+    return _floors(world[:, 0] * 0.5 + 0.5, world[:, 1] * 0.5 + 0.5, rows,
+                   cols)
+
+
+def _apart_case(size, cascades, device="cuda"):
+    """A _window_case on a (size, size) map with both coordinates of most
+    elements near texel edges (_near_texel_edges)."""
+    rng = np.random.default_rng(size + cascades)
+    xs = _near_texel_edges(size, rng)
+    ys = _near_texel_edges(size, rng)[rng.permutation(len(xs))]
+    return _window_case(xs, ys, (size, size), size, device, cascades)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cascades", [0, 3])
+@pytest.mark.parametrize("size", [257, 1000])
+def test_cuda_kernel_where_quads_floor_apart(size, cascades):
+    """Lookups on the map whose x or y floors rounding brings 1 or 3 apart
+    (found by search near the texel edges), which the kernel takes quad by
+    quad, beside their neighbours that are one window."""
+    _need_card()
+    is_csm, args, blend = _apart_case(size, cascades)
+    xa, xb, ya, yb = _lookup_floors(args, size, size)
+    inside = (xa >= 0) & (xb + 1 < size) & (ya >= 0) & (yb + 1 < size)
+    apart = (xb - xa != 2) | (yb - ya != 2)
+    assert bool((inside & apart).any())
+    assert bool(_one_window(xa, xb, ya, yb, size, size).any())
+    if is_csm:
+        _kernel_matches_plain(is_csm, args, blend)
+    else:
+        _window_counts_are_one_windows(args, size, size)
+
+
+def _starts(n):
+    """Window starts along an axis of n texels: straddling the first and
+    the last texel, touching them from inside, and one in the middle."""
+    return np.array([-4, -3, -2, -1, 0, 1, n // 2, n - 5, n - 4, n - 3,
+                     n - 2, n - 1, n])
+
+
+def _windows_at(kx, ky, rows, cols, repeat=4):
+    """Positions x, y whose lookups' windows start at (ky, kx): the quad at
+    -1 texel floors half a texel from a texel edge, u - 1 / rows = (kx +
+    1) / cols (the texel size is 1 / rows on both axes); each `repeat`
+    times (at seeded depths)."""
+    def coord(k, n):
+        return (((k + 1.0) / n + 1.0 / rows - 0.5) * 2).astype(np.float32)
+
+    return (np.repeat(coord(kx.ravel(), cols), repeat),
+            np.repeat(coord(ky.ravel(), rows), repeat))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [(32, 32), (61, 67), (257, 257)])
+def test_cuda_kernel_windows_on_the_borders_and_corners(size):
+    """Windows that straddle each border and each corner of the map, touch
+    them from inside, and lie inside, at every pairing of the two axes."""
+    _need_card()
+    rows, cols = size
+    kx, ky = np.meshgrid(_starts(cols), _starts(rows))
+    xs, ys = _windows_at(kx, ky, rows, cols)
+    args = _window_case(xs, ys, size, rows + cols)[1]
+    xa, xb, ya, yb = _lookup_floors(args, rows, cols)
+    assert torch.equal(xa.cpu(), torch.from_numpy(np.repeat(kx.ravel(), 4)))
+    assert torch.equal(ya.cpu(), torch.from_numpy(np.repeat(ky.ravel(), 4)))
+    fast = _one_window(xa, xb, ya, yb, rows, cols)
+    assert bool(fast.any()) and not bool(fast.all())
+    _window_counts_are_one_windows(args, rows, cols)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cascades, offset", [(0, 0), (0, 1), (0, 2), (0, 3),
+                                              (3, 0), (3, 1)])
+def test_cuda_kernel_at_every_row_alignment(cascades, offset):
+    """Every window of a 61x61 map (rows 61 texels long, so a row's first
+    texel takes every 16-byte alignment), the windows at the map's last
+    texels included; the maps 0-3 floats past an aligned address."""
+    _need_card()
+    s = 61
+    kx, ky = np.meshgrid(np.arange(s - 3), np.arange(s - 3))
+    xs, ys = _windows_at(kx, ky, s, s, repeat=2)
+    is_csm, args, blend = _window_case(xs, ys, (s, s), offset, "cuda",
+                                       cascades, offset)
+    assert args[0].data_ptr() % 16 == 4 * offset
+    xa, xb, ya, yb = _lookup_floors(args, s, s)
+    assert bool(_one_window(xa, xb, ya, yb, s, s).all())
+    if is_csm:
+        # Every lookup, the blend's too, is one window.
+        reads, windows = _kernel_matches_plain(is_csm, args, blend)[2]
+        assert reads >= len(xs) and windows == reads
+    else:
+        _window_counts_are_one_windows(args, s, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["single 257 worklist",
+                                  "csm 4 blend bf16 worklist",
+                                  "single 48x64 per-element light",
+                                  "csm 3 blend 257 per-element light"])
+def test_cuda_kernel_on_unaligned_elements(name):
+    """A worklist whose positions, normals (and directions, one an
+    element) start one element past an aligned address, of a length that
+    is not a multiple of the block."""
+    _need_card()
+    is_csm, args, blend = _case(name, "cuda")
+    *head, world, normal, ld = args
+
+    def shifted(t):
+        flat = t.reshape(-1, 3)
+        store = torch.empty((flat.shape[0] + 1, 3), dtype=t.dtype,
+                            device=t.device)
+        store[1:] = flat
+        return store[1:]
+
+    world, normal = shifted(world), shifted(normal)
+    n = world.shape[0]
+    ld = shifted(ld) if ld.stride(0) else ld.reshape(-1, 3)[0].expand(n, 3)
+    assert n % 128 != 0 and world.data_ptr() % 16 != 0
+    assert normal.data_ptr() % 16 != 0
+    _kernel_matches_plain(is_csm, (*head, world, normal, ld), blend)
+
+
+def _tie_case(cascades, device="cuda"):
+    """A _window_case whose lookups' compare values are texel values: each
+    element at proj z 0.25 or 0.5 with its normal along the light (the
+    bias at its floor of 0.005), the maps drawn from those two compare
+    values and their f32 neighbours."""
+    s = 64
+    kx, ky = np.meshgrid(np.arange(0, s - 3, 3), np.arange(0, s - 3, 3))
+    xs, ys = _windows_at(kx, ky, s, s, repeat=2)
+    is_csm, args, blend = _window_case(xs, ys, (s, s), 3, device, cascades)
+    n = len(xs)
+    rng = np.random.default_rng(31)
+    world, normal, ld = args[-3], args[-2], args[-1]
+    world[:, 2] = torch.from_numpy(rng.choice(
+        np.array([-0.5, 0.0], np.float32), n)).to(device)
+    normal.copy_(ld)
+    ties = np.float32([0.25, 0.5]) - np.float32(0.005)
+    values = np.concatenate([ties, np.nextafter(ties, np.float32(0)),
+                             np.nextafter(ties, np.float32(1))])
+    maps = args[0]
+    maps.copy_(torch.from_numpy(rng.choice(values, maps.shape)).to(device))
+    return is_csm, args, blend
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cascades", [0, 3])
+def test_cuda_kernel_where_taps_equal_the_compare(cascades):
+    """A tap is in shadow only where compare > texel: the texels equal to
+    a lookup's compare value count as lit, on both paths."""
+    _need_card()
+    is_csm, args, blend = _tie_case(cascades)
+    if is_csm:
+        got = _kernel_matches_plain(is_csm, args, blend)[0]
+    else:
+        got = _window_counts_are_one_windows(args, 64, 64)[0]
+    assert 0.0 < float(got.mean()) < 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cascades", [0, 3])
+def test_cuda_window_path_where_texels_do_not_outnumber_elements(cascades):
+    """The entries' path (the probe at -1): the window path where a
+    layer's texels are at most the launch's elements, quad by quad where
+    they are more; a launch either side of that line on a 61x61 map."""
+    _need_card()
+    s = 61
+    rng = np.random.default_rng(cascades)
+    for n, path in ((s * s - 1, 0), (s * s, 1)):
+        xs, ys = rng.uniform(-1.1, 1.1, (2, n)).astype(np.float32)
+        is_csm, args, blend = _window_case(xs, ys, (s, s), n, "cuda",
+                                           cascades)
+        out, taken, reads, windows = _probe(-1, is_csm, args, blend)
+        torch.cuda.synchronize()
+        assert taken == path
+        assert (reads > 0) == (path == 1) and windows <= reads
+        _assert_same(out, _plain(is_csm, args, blend))
