@@ -53,7 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from ..ops import binning, bloom_cuda, geometry, msaa_edge
+from ..ops import binning, bloom_cuda, gbuffer_cuda, geometry, msaa_edge
 from ..ops.fxaa import fxaa
 from ..ops.hiz import build_hiz
 from ..ops.occlusion import cull_objects
@@ -63,7 +63,6 @@ from ..ops.raster_cuda import rasterize
 from ..ops.shade import (
     ShadeUniforms,
     composite_over,
-    interpolate_gbuffer,
     pixel_alpha,
     resolve_alpha_test,
     shade_flat,
@@ -666,9 +665,11 @@ def render_band(
             prev_clip = geometry.transform_points(
                 uni.prev_view_proj, shadow_world(scene, uni.prev_models))
 
+    # One G-buffer kernel launch a shaded layer on the card
+    # (ops/gbuffer_cuda.py); the plain fetch on the CPU.
     def gbuffer(tri_id, motion=True, **kw):
         with record_function("pass_gbuffer"):
-            return interpolate_gbuffer(
+            return gbuffer_cuda.interpolate_gbuffer(
                 tri_id, setup, scene.tri_v, scene.tri_draw, tv, scene.uv,
                 scene.color, y0=y0r, vert_uid=scene.vert_uid,
                 prev_clip=prev_clip if motion else None,

@@ -18,9 +18,9 @@ from typing import Callable, Dict
 
 import torch
 
-from ..ops import geometry
+from ..ops import gbuffer_cuda, geometry
 from ..ops.raster_cuda import rasterize
-from ..ops.shade import ShadeUniforms, interpolate_gbuffer, shade_pbr
+from ..ops.shade import ShadeUniforms, shade_pbr
 from . import frame
 
 
@@ -70,7 +70,7 @@ def profile_passes(renderer, view, proj, camera_pos,
         cfg.max_tris_per_tile), n, dev)
     timings["Raster"], vis = _time(lambda: rasterize(
         setup, bins, rh, rw, cfg.tile_h, cfg.tile_w), n, dev)
-    timings["GBuffer"], gbuf = _time(lambda: interpolate_gbuffer(
+    timings["GBuffer"], gbuf = _time(lambda: gbuffer_cuda.interpolate_gbuffer(
         vis.tri_id, setup, sb.tri_v, sb.tri_draw, tv, sb.uv, sb.color,
         vert_uid=sb.vert_uid), n, dev)
     su = ShadeUniforms(

@@ -5,9 +5,9 @@ frame, the standard frame with Hi-Z occlusion culling, with MSAA and with
 the diagnostics overlay, the file sink and the profilers, the sharded
 frames (example 07's LOD scene among them), the frame farms (example 09),
 example 10's chunked frame and the frame loop's host profile on one
-NVIDIA GPU; and the five hand-written kernels against their plain
+NVIDIA GPU; and the six hand-written kernels against their plain
 versions: the raster kernels, the texture sampler, the Forward+ light
-loop, the bloom pyramid and the shadow PCF.
+loop, the bloom pyramid, the shadow PCF and the G-buffer fetch.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It needs one CUDA device and `nvcc`; it exits non-zero without a result when
@@ -21,9 +21,10 @@ fails. Phases, one stdout line each:
    (the texture sampler: the five maps and the trilinear tap) and
    csrc/lights.cu (the Forward+ light loop: a tile and an element kernel,
    f32 and bf16), csrc/bloom.cu (the bloom pyramid: the downsample and
-   the tent upsample, by path, eight instantiations) and csrc/shadow.cu
+   the tent upsample, by path, eight instantiations), csrc/shadow.cu
    (the shadow PCF: the single map and 2-4 cascades, with and without the
-   blend, f32 and bf16 normals, fourteen instantiations), one nvcc each,
+   blend, f32 and bf16 normals, fourteen instantiations) and
+   csrc/gbuffer.cu (the G-buffer fetch, one kernel), one nvcc each,
    started together, and prints each instantiation's registers and spills
    (none may spill);
 3. kernels against plain: each CUDA kernel and the plain PyTorch raster on
@@ -256,7 +257,27 @@ fails. Phases, one stdout line each:
    idle, and for rich pass_shade's device span and the kernel's time a
    frame by name.
    Phases 4 and 6 count the shadow launches of the standard, glass, lit,
-   rich and sharded frames from 0 as well.
+   rich and sharded frames from 0 as well;
+13. the G-buffer kernel (csrc/gbuffer.cu): its registers and spills; the
+   1080p standard, animated (its first moved pose), rich (with the
+   velocity), textured, glass (two passes: 8 shaded layers), mega (at the
+   drop-free caps) and edge MSAA x4 (the centres and the worklist)
+   frames' own G-buffer calls (frame 1), recorded from the entry point,
+   through the kernel and the plain fetch (ops/shade.py's
+   interpolate_gbuffer): every field equal, the floats bit for bit with
+   NaN in the same places; each call's device time (50 bare launches
+   between CUDA events, and in a CUDA graph), the entry's and the plain
+   fetch's, in turns, beside its bound (bytes: a triangle id read and the
+   fields written an element, pixel_xy's distinct elements, and each table
+   row the elements reach once; operations: OPS_GBUFFER an element);
+   frames 2 and 3 of standard, rich and glass with the kernel (one launch
+   a shaded layer, counted from 0, the plain fetch never called) against
+   the same frames with the plain fetch patched in (u8, colour and
+   scalars); then kernel and plain frames in turns: frame ms, kernels and
+   copies a frame, device busy and idle, pass_gbuffer's device span and
+   the kernel's time a frame by name. Phase 4 counts the G-buffer
+   launches of the standard, glass, lit, rich and rich render_scale 0.5
+   frames from 0 as well (one a shaded layer).
 
 Then one JSON line on the kernels and, last, the device JSON line.
 
@@ -513,7 +534,8 @@ def ptxas_usage(log):
     build of another tree that ab_phase times, by the same names, its bool
     as path 0 or 1; csrc/shadow.cu's shadow_pcf_kernel<C, blend, bf16>
     "shadow C=<C>", with " blend" and " bf16", and shadow_window_kernel
-    by the same names with " windows"."""
+    by the same names with " windows"; csrc/gbuffer.cu's gbuffer_kernel
+    "gbuffer"."""
     usage, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"raster_warp_kernelILi(\d+)ELb([01])E", ln)
@@ -523,6 +545,7 @@ def ptxas_usage(log):
             r"bloom_(down|up)_kernelIL[ib]([012])ELb([01])E", ln)
         shadow_kernel = re.search(
             r"shadow_(pcf|window)_kernelILi(\d)ELb([01])ELb([01])E", ln)
+        gbuffer_kernel = "gbuffer_kernel" in ln
         if "Compiling entry function" in ln and m:
             name = f"L={m.group(1)}{' floor' if m.group(2) == '1' else ''}"
             spill = None
@@ -545,6 +568,8 @@ def ptxas_usage(log):
                     f"{' bf16' if bf16 == '1' else ''}"
                     f"{' windows' if path == 'window' else ''}")
             spill = None
+        elif "Compiling entry function" in ln and gbuffer_kernel:
+            name, spill = "gbuffer", None
         elif name and "spill stores" in ln:
             spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill", ln))
         elif name and "Used" in ln and "registers" in ln:
@@ -781,6 +806,19 @@ def zero_shadow():
         shadow_cuda.launches[k] = 0
 
 
+def gbuffer_launched():
+    """The G-buffer kernel's launches since its count was zeroed."""
+    from ash_tpu_torch.ops import gbuffer_cuda
+
+    return gbuffer_cuda.launches["gbuffer"]
+
+
+def zero_gbuffer():
+    from ash_tpu_torch.ops import gbuffer_cuda
+
+    gbuffer_cuda.launches["gbuffer"] = 0
+
+
 def bloom_per_frame(cfg):
     """The bloom kernels' launches a frame of `cfg`: one a level each way
     (ops/bloom_cuda.levels), none without the post chain's bloom."""
@@ -803,6 +841,7 @@ def counted(fn):
     lights_cuda.launches["loop"] = 0
     zero_bloom()
     zero_shadow()
+    zero_gbuffer()
     out = fn()
     return (out, raster_cuda.rasterize.launches,
             raster_cuda.rasterize.layer_launches)
@@ -816,9 +855,12 @@ def u8_diff(a, b):
     return int(d.max()), int((d.max(-1) > 0).sum())
 
 
-def same_scalars(got, want, fields=("covered_pixels", "binning_overflow",
-                                    "shadow_overflow", "visible_draws",
-                                    "msaa_edge_overflow")):
+# The scalars of a FrameOutputs that the frame checks compare.
+SCALAR_FIELDS = ("covered_pixels", "binning_overflow", "shadow_overflow",
+                 "visible_draws", "msaa_edge_overflow")
+
+
+def same_scalars(got, want, fields=SCALAR_FIELDS):
     """The fields of two FrameOutputs that differ, as {field: (got, want)}."""
     bad = {}
     for f in fields:
@@ -1620,6 +1662,23 @@ SHADOW_FRAMES = ("standard", "rich", "glass")
 # Seeded square maps of sizes that are not powers of two, at the standard
 # and rich calls' elements.
 SHADOW_ODD_SIZES = (257, 1000)
+# The 1080p frames whose G-buffer calls phase 13 replays: (name, bench
+# scene keywords, None for the mega frame, MSAA preset); of them, the frames
+# it renders with the kernel and with the plain fetch.
+GBUFFER_CALL_FRAMES = [
+    ("standard", {}, None), ("animated", dict(animate=True), None),
+    ("rich", dict(rich=True), None), ("textured", dict(textured=True), None),
+    ("glass", dict(glass=True, transparency_passes=2), None),
+    ("mega", None, None), ("edge x4", dict(msaa_resolve="edge"), "x4")]
+GBUFFER_FRAMES = ("standard", "rich", "glass")
+# f32 operations an element of the G-buffer fetch, as the plain version
+# counts them (csrc/gbuffer.cu): the weights at three positions (3 x 20, and
+# the two steps), 13 channels interpolated at the element and uv's 2 at the
+# two steps (19 x 5), the normal's normalisation (10), the uv derivatives
+# (4), the mask, the clamp and the facing (3); with the velocity also the
+# last clip position's 4 channels (20) and its projection against the
+# element's uv (17).
+OPS_GBUFFER = {False: 174, True: 211}
 # The textured frame's kernels and copies a frame in PR 12's benchmark
 # trace (PERF.md section 5), before the maps were fused.
 PR12_TEXTURED_LAUNCHES = 1032
@@ -2761,6 +2820,296 @@ def shadow_phase(card, view, proj, pos, shadow_launches, usage):
     return rows, max_err
 
 
+def gbuffer_calls(render):
+    """Run render() (one frame) with the G-buffer entry point wrapped -> its
+    calls [(args, kwargs)] in call order."""
+    from ash_tpu_torch.ops import gbuffer_cuda
+
+    calls = []
+    real = gbuffer_cuda.interpolate_gbuffer
+
+    def entry(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    with mock.patch.object(gbuffer_cuda, "interpolate_gbuffer", entry):
+        render()
+    return calls
+
+
+def gbuffer_same(got, want):
+    """(every field of two GBuffers the same, the largest |got - want| over
+    the floats' finite elements): ints and bools equal, floats bit for bit
+    where want has a number and NaN where it has NaN."""
+    import torch
+
+    err = 0.0
+    for f in want._fields:
+        g, w = getattr(got, f), getattr(want, f)
+        if g is None or w is None:
+            if (g is None) != (w is None):
+                return False, math.inf
+            continue
+        if g.shape != w.shape or g.dtype != w.dtype:
+            return False, math.inf
+        if not w.is_floating_point():
+            if not torch.equal(g, w):
+                return False, math.inf
+            continue
+        if not shadow_same(g, w):
+            return False, math.inf
+        fin = torch.isfinite(w)
+        if bool(fin.any()):
+            err = max(err, float((g - w)[fin].abs().max()))
+    return True, err
+
+
+def gbuffer_work(args, kw):
+    """(bound ms, "bytes" or "operations", bytes, triangles, expanded and
+    unique vertices touched) of one launch of the G-buffer kernel. Bytes:
+    each element's triangle id read and its 82 bytes of fields written (90
+    with the velocity), the distinct elements of pixel_xy read, and each
+    table row that the elements reach read once: a triangle's 56 bytes
+    (edge rows, det, draw id, vertex ids), an expanded vertex's 40 (world,
+    normal, tangent; 4 more for its unique id, 16 for its last clip
+    position) and a unique vertex's 20 (uv, colour). Operations:
+    OPS_GBUFFER an element at the f32 rate."""
+    import torch
+
+    tri_id, setup, tri_v, tri_draw, verts, vert_uv, vert_color = args
+    vert_uid, prev_clip = kw.get("vert_uid"), kw.get("prev_clip")
+    pixel_xy = kw.get("pixel_xy")
+    velocity = prev_clip is not None
+    n = tri_id.numel()
+    tris = torch.unique(tri_id.clamp_min(0)).long()
+    vids = torch.unique(tri_v[tris].long())
+    uids = (vids if vert_uid is None
+            else torch.unique(vert_uid[vids].long()))
+    xy = 0
+    if pixel_xy is not None:
+        xy = sum(4 * math.prod(k for k, st in zip(t.shape, t.stride()) if st)
+                 for t in pixel_xy)
+    per_vertex = 40 + (4 if vert_uid is not None else 0) + (
+        16 if velocity else 0)
+    nbytes = (n * (4 + 82 + (8 if velocity else 0)) + xy
+              + 56 * tris.numel() + per_vertex * vids.numel()
+              + 20 * uids.numel())
+    t_bytes = nbytes / MEM_RATE * 1e3
+    t_ops = n * OPS_GBUFFER[velocity] / F32_RATE * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes, tris.numel(), vids.numel(), uids.numel())
+
+
+def frame_scalars(o):
+    """The SCALAR_FIELDS of a FrameOutputs, as ints."""
+    return {f: None if getattr(o, f) is None else int(getattr(o, f))
+            for f in SCALAR_FIELDS}
+
+
+def gbuffer_cases(view, proj, pos, mega_caps):
+    """-> ({label: (args, kwargs)}, {name: (renderer, its keywords, calls a
+    frame)}): the G-buffer calls of GBUFFER_CALL_FRAMES' frame 1 at
+    1920x1080 (the animated frame's first moved pose, the mega frame at
+    the drop-free caps `mega_caps`), recorded from the entry point, "<name>
+    call <i>" where a frame makes more than one; the renderers of those
+    frames that are in GBUFFER_FRAMES."""
+    import torch
+
+    from ash_tpu_torch.render import bench_scene
+
+    cases, rends = {}, {}
+    for name, kw, preset in GBUFFER_CALL_FRAMES:
+        if kw is None:
+            rend, _, mcam, _ = bench_scene.build_mega_renderer(
+                1920, 1080, "cuda", **mega_caps)
+            render = functools.partial(
+                rend.render_frame, mcam.view_matrix(),
+                mcam.projection_matrix(), mcam.position)
+        elif kw.get("animate"):
+            rend, _, acam, anim = bench_scene.build_bench_renderer(
+                1920, 1080, 1000, "cuda", **kw)
+
+            def render(r=rend, cam=acam, anim=anim, ft=1.0 / 60.0):
+                r.update_transforms_trs(
+                    *bench_scene.animated_models_trs(anim, ft))
+                r.render_frame(bench_scene.orbit_camera(
+                    cam, anim["extent"], ft), proj, cam.position)
+        else:
+            rend = bench_scene.build_bench_renderer(1920, 1080, 1000, "cuda",
+                                                    **kw)[0]
+            if preset is not None:
+                rend.set_msaa_preset(preset)
+            render = functools.partial(rend.render_frame, view, proj, pos)
+        calls = gbuffer_calls(render)
+        check(len(calls) >= 1, f"{name}: no G-buffer call")
+        for i, call in enumerate(calls):
+            cases[name if len(calls) == 1 else f"{name} call {i + 1}"] = call
+        if name in GBUFFER_FRAMES:
+            rends[name] = (rend, kw, len(calls))
+        del rend, render
+    check("glass call 8" in cases and "glass call 9" not in cases,
+          "glass: not 8 shaded layers")
+    check("edge x4 call 2" in cases and "edge x4 call 3" not in cases,
+          "edge x4: not two G-buffer calls (the centres and the worklist)")
+    check(cases["rich"][1]["prev_clip"] is not None
+          and cases["standard"][1]["prev_clip"] is None,
+          "the rich call has no velocity, or the standard call has one")
+    px = cases["edge x4 call 1"][1]["pixel_xy"][0]
+    check(0 in px.stride() and tuple(px.shape) == (1080, 1920),
+          f"edge x4's centres: px {tuple(px.shape)} strides {px.stride()}")
+    check(all(isinstance(t, torch.Tensor) for t in
+              cases["edge x4 call 2"][1]["pixel_xy"]), "edge x4's worklist")
+    return cases, rends
+
+
+def gbuffer_phase(card, view, proj, pos, gbuffer_launches, usage,
+                  mega_caps):
+    """Phase 13: the G-buffer kernel (csrc/gbuffer.cu) against the plain
+    fetch (ops/shade.py:interpolate_gbuffer) at the 1080p frames' own calls
+    (frame 1, gbuffer_cases): standard, animated, rich (with the velocity),
+    textured, glass's 8 shaded layers, mega and edge MSAA x4's centres and
+    worklist: every field equal, the floats bit for bit with NaN in the
+    same places. Each call timed (plain, kernel, kernel, plain: CUDA
+    events around 50 bare launches, a CUDA graph of them, and 3 plain
+    calls) beside its bound (gbuffer_work), and the entry's time. Frames 2
+    and 3 of the standard, rich and glass frames with the kernel (launches
+    counted from 0, the plain fetch never called) against the same frames
+    with the plain fetch patched in (u8, colour and scalars); then kernel
+    and plain frames in turns: frame ms, kernels and copies a frame, device
+    busy and idle, pass_gbuffer's device span, and the kernel's time a
+    frame by name.
+    -> ({name: its numbers}, the largest |kernel - plain|)."""
+    import torch
+
+    from ash_tpu_torch.ops import gbuffer_cuda, shade
+    from ash_tpu_torch.render.bench_scene import build_bench_renderer
+
+    def no_plain_fetch(*args, **kwargs):
+        raise AssertionError("a card frame ran the plain G-buffer fetch")
+
+    rows, max_err = {}, 0.0
+    rows["usage"] = {k: v for k, v in usage.items() if k == "gbuffer"}
+    regs, spill = rows["usage"]["gbuffer"]
+    print(f"phase13 G-buffer kernel: {regs} registers, {spill} spill bytes "
+          f"({card})", flush=True)
+    cases, rends = gbuffer_cases(view, proj, pos, mega_caps)
+
+    for label, (args, kw) in cases.items():
+        want = shade.interpolate_gbuffer(*args, **kw)
+        got = gbuffer_cuda.interpolate_gbuffer(*args, **kw)
+        torch.cuda.synchronize()
+        same, err = gbuffer_same(got, want)
+        check(same, f"G-buffer kernel != plain fetch at {label}")
+        max_err = max(max_err, err)
+        nan = sum(int(torch.isnan(t).sum()) for t in want
+                  if t is not None and t.is_floating_point())
+        covered = int(want.mask.sum())
+        del got, want
+        launch, _ = gbuffer_cuda.launcher(*args, **kw)
+        kern, graphed, plain = [], [], []
+        for order in ("plain", "kernel", "kernel", "plain"):
+            if order == "kernel":
+                kern.append(cuda_ms(launch, 50))
+                graphed.append(graph_ms(launch))
+            else:
+                plain.append(cuda_ms(
+                    lambda: shade.interpolate_gbuffer(*args, **kw), 3))
+        bound, bound_by, nbytes, tris, vids, uids = gbuffer_work(args, kw)
+        row = dict(elements=args[0].numel(), shape=list(args[0].shape),
+                   velocity=kw.get("prev_clip") is not None,
+                   pixel_xy=kw.get("pixel_xy") is not None,
+                   covered=covered, nan=nan,
+                   device_ms=statistics.mean(kern),
+                   graph_ms=statistics.mean(graphed),
+                   plain_ms=statistics.mean(plain),
+                   wrapper_ms=cuda_ms(lambda: gbuffer_cuda.interpolate_gbuffer(
+                       *args, **kw), 20),
+                   bound_ms=bound, bound_by=bound_by, bytes=nbytes,
+                   triangles=tris, vertices=vids, unique_vertices=uids,
+                   max_abs_err=err)
+        row["share_of_bound"] = bound / row["graph_ms"]
+        rows[label] = row
+        print(f"phase13 G-buffer kernel, {label} ({row['elements']} elements "
+              f"{row['shape']}, {covered} covered, velocity "
+              f"{row['velocity']}, pixel_xy {row['pixel_xy']}): equal to the "
+              f"plain fetch (every field; floats bit for bit, {nan} NaN in "
+              f"the same places); device {row['device_ms']} ms (mean of 50 "
+              f"bare launches; {row['graph_ms']} ms in a CUDA graph), entry "
+              f"{row['wrapper_ms']} ms, plain {row['plain_ms']} ms; bound "
+              f"{bound} ms by {bound_by} ({nbytes} bytes; {tris} triangles, "
+              f"{vids} vertices, {uids} unique vertices), "
+              f"{100 * row['share_of_bound']:.1f}% of it ({card})",
+              flush=True)
+        del launch
+    del cases
+
+    # Frames 2 and 3 with the kernel, counted from 0, and the same frames
+    # with the plain fetch patched in, which launches nothing.
+    plain_fetch = mock.patch.object(gbuffer_cuda, "interpolate_gbuffer",
+                                    shade.interpolate_gbuffer)
+    for name, (rend, kw, per_frame) in rends.items():
+        zero_gbuffer()
+        frames = []
+        with mock.patch.object(shade, "interpolate_gbuffer", no_plain_fetch):
+            for _ in range(2):
+                out = rend.render_frame(view, proj, pos)
+                frames.append((rend.read_back().copy(), out.color.clone(),
+                               frame_scalars(out)))
+        launched = gbuffer_launched()
+        gbuffer_launches[f"{name} frames 2-3"] = launched
+        check(launched == 2 * per_frame, f"{name}: G-buffer kernel launches "
+              f"{launched} in frames 2 and 3, want {2 * per_frame}")
+        plain_r = build_bench_renderer(1920, 1080, 1000, "cuda", **kw)[0]
+        with plain_fetch:
+            plain_r.render_frame(view, proj, pos)
+            for image, color, scalars in frames:
+                out = plain_r.render_frame(view, proj, pos)
+                check(np.array_equal(plain_r.read_back(), image)
+                      and torch.equal(out.color, color)
+                      and frame_scalars(out) == scalars,
+                      f"{name}: a frame with the G-buffer kernel != the "
+                      "frame with the plain fetch")
+        check(gbuffer_launched() == launched,
+              f"{name}: the plain-fetch frames launched the G-buffer kernel")
+
+        def step(i, r=rend):
+            r.render_frame(view, proj, pos)
+
+        def plain_step(i, r=plain_r):
+            with plain_fetch:
+                r.render_frame(view, proj, pos)
+
+        timed = {"kernel": [], "plain": []}
+        for order in ("plain", "kernel", "kernel", "plain"):
+            timed[order].append(frame_ms_spread(
+                step if order == "kernel" else plain_step, 5)[0][0])
+        frame_row = {}
+        for k, st in (("kernel", step), ("plain", plain_step)):
+            wall, busy, idle, n_ops = busy_profile(st)
+            frame_row[k] = dict(ms=timed[k], busy_ms=busy, idle=idle,
+                                ops=n_ops, pass_gbuffer_ms=scope_device_ms(
+                                    st, "pass_gbuffer", n=2)[0])
+        frame_row["kernel"]["gbuffer_kernel"] = kernel_device_ms(
+            step, ("gbuffer_kernel",))
+        rows[f"{name} frame"] = frame_row
+        kf, pf = frame_row["kernel"], frame_row["plain"]
+        print(f"phase13 {name} frames 2 and 3: equal to the plain fetch's "
+              f"(u8, colour and scalars); G-buffer kernel launches "
+              f"{launched}; frame ms (median of 5, in turns) kernel "
+              f"{kf['ms']}, plain fetch {pf['ms']}; kernels and copies a "
+              f"frame {kf['ops']:g} / {pf['ops']:g}; device busy "
+              f"{kf['busy_ms']:.2f} / {pf['busy_ms']:.2f} ms, idle "
+              f"{100 * kf['idle']:.1f} / {100 * pf['idle']:.1f}%; "
+              f"pass_gbuffer device span {kf['pass_gbuffer_ms']:.3f} / "
+              f"{pf['pass_gbuffer_ms']:.3f} ms (kernel / plain); the "
+              f"G-buffer kernel in the frame's trace: "
+              f"{kf['gbuffer_kernel'][0]:g} launches, "
+              f"{kf['gbuffer_kernel'][1]} ms a frame ({card})", flush=True)
+        del plain_r, frames
+    del rends
+    return rows, max_err
+
+
 def out_of_reach(lo, mask, world, normal, view_dir, base_color, metallic,
                  roughness, f0, ndotv, lights, tile_indices, tile_counts,
                  light_tile_size, pixel_xy=None):
@@ -3168,9 +3517,10 @@ def main() -> int:
 
     # 2. Build: one nvcc per source, started together.
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(5) as pool:
-        lib, tex_lib, light_lib, bloom_lib, shadow_lib = pool.map(
-            _build.build, ["raster", "texture", "lights", "bloom", "shadow"])
+    with concurrent.futures.ThreadPoolExecutor(6) as pool:
+        lib, tex_lib, light_lib, bloom_lib, shadow_lib, gbuffer_lib = \
+            pool.map(_build.build, ["raster", "texture", "lights", "bloom",
+                                    "shadow", "gbuffer"])
     build_s = time.perf_counter() - t0
     usage = ptxas_usage(lib.with_suffix(".log").read_text())
     check(len(usage) == 16, f"{len(usage)} kernels, want 15 raster "
@@ -3192,10 +3542,15 @@ def main() -> int:
     check(sorted(shadow_usage) == SHADOW_INSTANTIATIONS,
           f"shadow library kernels {list(shadow_usage)}")
     usage.update(shadow_usage)
+    gbuffer_usage = ptxas_usage(gbuffer_lib.with_suffix(".log").read_text())
+    check(sorted(gbuffer_usage) == ["gbuffer"],
+          f"gbuffer library kernels {list(gbuffer_usage)}")
+    usage.update(gbuffer_usage)
     print(f"phase2 build: {lib.name} (both raster kernels), "
           f"{tex_lib.name} (the texture sampler), {light_lib.name} (the "
-          f"light loop), {bloom_lib.name} (the bloom pyramid) and "
-          f"{shadow_lib.name} (the shadow PCF) in "
+          f"light loop), {bloom_lib.name} (the bloom pyramid), "
+          f"{shadow_lib.name} (the shadow PCF) and {gbuffer_lib.name} (the "
+          f"G-buffer fetch) in "
           f"{build_s:.3f} s; "
           + "; ".join(f"{k}: {r} registers, {sp} spill bytes"
                       for k, (r, sp) in sorted(usage.items())), flush=True)
@@ -3443,6 +3798,7 @@ def main() -> int:
     raster_cuda.rasterize.launches = 0
     raster_cuda.rasterize.layer_launches = 0
     zero_shadow()
+    zero_gbuffer()
     deltas, outs = [], []
     for _ in range(6):
         before = raster_cuda.rasterize.launches
@@ -3450,6 +3806,7 @@ def main() -> int:
         deltas.append(raster_cuda.rasterize.launches - before)
     launches = {"standard": raster_cuda.rasterize.launches}
     shadow_launches = {"standard": shadow_launched()}
+    gbuffer_launches = {"standard": gbuffer_launched()}
     check(shadow_launches["standard"] == 6, "standard: shadow kernel "
           f"launches {shadow_launches['standard']} in 6 frames")
     layer_launches = {"standard": raster_cuda.rasterize.layer_launches}
@@ -3484,6 +3841,7 @@ def main() -> int:
         raster_cuda.rasterize.launches = 0
         raster_cuda.rasterize.layer_launches = 0
         zero_shadow()
+        zero_gbuffer()
         one, peel, gouts = [], [], []
         for _ in range(4):
             b1 = raster_cuda.rasterize.launches
@@ -3494,6 +3852,7 @@ def main() -> int:
         launches[path] = raster_cuda.rasterize.launches
         layer_launches[path] = raster_cuda.rasterize.layer_launches
         shadow_launches[path] = shadow_launched()
+        gbuffer_launches[path] = gbuffer_launched()
         check(shadow_launches[path] >= 4 and shadow_launches[path] % 4 == 0,
               f"{path}: shadow kernel launches {shadow_launches[path]} in 4 "
               "frames, want the same number a frame, at least one")
@@ -3580,8 +3939,10 @@ def main() -> int:
     raster_cuda.rasterize.layer_launches = 0
     lights_cuda.launches["loop"] = 0
     zero_shadow()
+    zero_gbuffer()
     l_one, l_peel, l_outs = launches_per_frame(rl, view, proj, pos, 6)
     shadow_launches["lit"] = shadow_launched()
+    gbuffer_launches["lit"] = gbuffer_launched()
     check(shadow_launches["lit"] == 6,
           f"lit: shadow kernel launches {shadow_launches['lit']} in 6 frames")
     launches["lit"] = raster_cuda.rasterize.launches
@@ -3623,8 +3984,10 @@ def main() -> int:
     lights_cuda.launches["loop"] = 0
     zero_bloom()
     zero_shadow()
+    zero_gbuffer()
     r_one, r_peel, r_outs = launches_per_frame(rr, view, proj, pos, 8)
     shadow_launches["rich"] = shadow_launched()
+    gbuffer_launches["rich"] = gbuffer_launched()
     check(shadow_launches["rich"] == 8,
           f"rich: shadow kernel launches {shadow_launches['rich']} in 8 "
           "frames")
@@ -3689,9 +4052,11 @@ def main() -> int:
         max_tris_per_tile=HALF_SCALE_TILE_CAP)
     zero_bloom()
     zero_shadow()
+    zero_gbuffer()
     h_one, h_peel, h_outs = launches_per_frame(r_half, view, proj, pos, 8)
     bloom_launches["rich 0.5"] = bloom_launched()
     shadow_launches["rich 0.5"] = shadow_launched()
+    gbuffer_launches["rich 0.5"] = gbuffer_launched()
     check(shadow_launches["rich 0.5"] == 8, "rich at render_scale 0.5: "
           f"shadow kernel launches {shadow_launches['rich 0.5']} in 8 frames")
     check(bloom_launches["rich 0.5"] == 8 * RICH_BLOOM_LAUNCHES,
@@ -4258,6 +4623,12 @@ def main() -> int:
           flush=True)
     print(f"phase4 shadow kernel launches, counted from 0 on each path "
           f"(one a shade call): {shadow_launches}", flush=True)
+    check(gbuffer_launches
+          == {k: shadow_launches[k] for k in gbuffer_launches},
+          f"G-buffer kernel launches {gbuffer_launches}, want one a shade "
+          f"call, as the shadow kernel's {shadow_launches}")
+    print(f"phase4 G-buffer kernel launches, counted from 0 on each path "
+          f"(one a shaded layer): {gbuffer_launches}", flush=True)
 
     print(f"phase4 animated frame: 1920x1080, 1000 cubes, {ANIM_POSES} "
           f"poses of update_transforms_trs + orbit_camera after frame 1: "
@@ -4576,6 +4947,11 @@ def main() -> int:
     # the plain PCF's.
     shadow_rows, shadow_err = shadow_phase(card, view, proj, pos,
                                            shadow_launches, usage)
+    # 13. The G-buffer kernel at the frames' calls, their frames against
+    # the plain fetch's.
+    gbuffer_rows, gbuffer_err = gbuffer_phase(card, view, proj, pos,
+                                              gbuffer_launches, usage,
+                                              mega_final_caps)
 
     foreign = sorted(m for m in sys.modules if m in ("jax", "ash_tpu")
                      or m.startswith(("jax.", "ash_tpu.")))
@@ -4692,6 +5068,28 @@ def main() -> int:
         "wrapper_ms": shadow_main["wrapper_ms"],
         "by_shape": shadow_rows,
     }
+    # The G-buffer kernel's main shape: the standard frame's call.
+    gbuffer_main = gbuffer_rows["standard"]
+    gbuffer_line = {
+        "name": "gbuffer",
+        "route": "cuda",
+        "source": "ash_tpu_torch/csrc/gbuffer.cu",
+        # jax.numpy, not a TPU kernel: XLA fuses the reference's fetch.
+        "replaces": "ash_tpu/ops/shade.py:127",
+        "launches": sum(gbuffer_launches.values()),
+        "launches_by_path": gbuffer_launches,
+        "max_abs_err": gbuffer_err,
+        "ms": gbuffer_main["device_ms"],
+        "plain_ms": gbuffer_main["plain_ms"],
+        "bound_ms": gbuffer_main["bound_ms"],
+        "bound_by": gbuffer_main["bound_by"],
+        # No PyTorch call interpolates a visibility buffer's attributes.
+        "library_ms": None,
+        "device_ms": gbuffer_main["device_ms"],
+        "graph_ms": gbuffer_main["graph_ms"],
+        "wrapper_ms": gbuffer_main["wrapper_ms"],
+        "by_shape": gbuffer_rows,
+    }
     print(json.dumps({"kernels": [
         kernel_line("raster", "ash_tpu/ops/raster_pallas.py:106", launches,
                     max_err, ("main", 1, False),
@@ -4708,6 +5106,7 @@ def main() -> int:
         light_line,
         bloom_line,
         shadow_line,
+        gbuffer_line,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -1,9 +1,10 @@
-"""What the frames hand the bloom, light and shadow kernels, checked on the
-CPU.
+"""What the frames hand the bloom, light, shadow and G-buffer kernels,
+checked on the CPU.
 
 The entries (ops/bloom_cuda.py:bloom_pyramid, ops/lights_cuda.py:add_lights,
-ops/shadow_cuda.py:shadow_pcf16 and shadow_pcf16_csm) run their argument
-checks only on the card: on CPU tensors they run the plain versions, which
+ops/shadow_cuda.py:shadow_pcf16 and shadow_pcf16_csm,
+ops/gbuffer_cuda.py:interpolate_gbuffer) run their argument checks only on
+the card: on CPU tensors they run the plain versions, which
 take any float dtype. Here each check is patched in front of every CPU
 call of its entry, over the small bench frames (96x64,
 16 cubes) in the configurations that reach the kernels on the card: the
@@ -17,7 +18,8 @@ changed.
 import pytest
 import torch
 
-from ash_tpu_torch.ops import bloom_cuda, lights_cuda, shadow_cuda
+from ash_tpu_torch.ops import (bloom_cuda, gbuffer_cuda, lights_cuda,
+                               shadow_cuda)
 from ash_tpu_torch.render import bench_scene
 
 torch.set_num_threads(1)
@@ -42,11 +44,12 @@ FRAMES = {
 @pytest.mark.parametrize("name", sorted(FRAMES))
 def test_frames_hand_the_kernels_what_they_take(name, monkeypatch):
     kw, preset = FRAMES[name]
-    checked = {"bloom": 0, "lights": 0, "shadow": 0}
+    checked = {"bloom": 0, "lights": 0, "shadow": 0, "gbuffer": 0}
     real_bloom = bloom_cuda.bloom_pyramid
     real_lights = lights_cuda.add_lights
     real_pcf = shadow_cuda.shadow_pcf16
     real_csm = shadow_cuda.shadow_pcf16_csm
+    real_gbuffer = gbuffer_cuda.interpolate_gbuffer
 
     def bloom_pyramid(hdr, *args, **kwargs):
         bloom_cuda.check_inputs(hdr, *args, **kwargs)
@@ -68,10 +71,17 @@ def test_frames_hand_the_kernels_what_they_take(name, monkeypatch):
         checked["shadow"] += 1
         return real_csm(*args, **kwargs)
 
+    def interpolate_gbuffer(*args, **kwargs):
+        gbuffer_cuda.check_inputs(*args, **kwargs)
+        checked["gbuffer"] += 1
+        return real_gbuffer(*args, **kwargs)
+
     monkeypatch.setattr(bloom_cuda, "bloom_pyramid", bloom_pyramid)
     monkeypatch.setattr(lights_cuda, "add_lights", add_lights)
     monkeypatch.setattr(shadow_cuda, "shadow_pcf16", shadow_pcf16)
     monkeypatch.setattr(shadow_cuda, "shadow_pcf16_csm", shadow_pcf16_csm)
+    monkeypatch.setattr(gbuffer_cuda, "interpolate_gbuffer",
+                        interpolate_gbuffer)
     r, _, cam, _ = bench_scene.build_bench_renderer(96, 64, 16, "cpu", **kw)
     if preset is not None:
         r.set_msaa_preset(preset)
@@ -81,7 +91,8 @@ def test_frames_hand_the_kernels_what_they_take(name, monkeypatch):
     assert bool(torch.isfinite(out.color).all())
     # Two frames: a rich frame blooms once each, and every frame here shades
     # its lights and its shadow at least once each (edge MSAA twice:
-    # centres, worklist).
+    # centres, worklist), each shaded layer after one G-buffer fetch.
     assert checked["bloom"] == (2 if kw.get("rich") else 0)
     assert checked["lights"] >= 2
     assert checked["shadow"] == checked["lights"]
+    assert checked["gbuffer"] == checked["lights"]
