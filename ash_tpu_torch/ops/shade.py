@@ -24,6 +24,9 @@ peel. With an environment, split-sum image-based lighting replaces the flat
 ambient term (ops/ibl.py); `dtype=torch.bfloat16` runs the BRDF in bf16.
 Edge-adaptive MSAA (ops/msaa_edge.py) interpolates and shades at explicit
 coordinates (`pixel_xy`, `deriv_step`) in place of the pixel grid.
+The frames shade through ops/shade_cuda.py, whose CUDA kernels compute
+shade_pbr's f32 flat-ambient path on the card bit for bit; shade_pbr here
+is their plain version, and what CPU tensors, bf16 shading and IBL run.
 """
 
 from __future__ import annotations

@@ -11,10 +11,11 @@ analysis over the programs a frame dispatches).
   products, convolutions), and one per output element for a pointwise op;
 - programs: the `pass_*` scopes that ran, in order of first entry.
 
-The raster, texture, light, shadow, bloom and G-buffer kernels launch
-through ctypes, which the dispatcher does not see:
+The raster, texture, light, shadow, bloom, G-buffer and shading kernels
+launch through ctypes, which the dispatcher does not see:
 `ops/raster_cuda.rasterize`, `ops/texture_cuda`, `ops/lights_cuda`,
-`ops/shadow_cuda`, `ops/bloom_cuda` and `ops/gbuffer_cuda` report each
+`ops/shadow_cuda`, `ops/bloom_cuda`, `ops/gbuffer_cuda` and
+`ops/shade_cuda` report each
 launch's inputs and outputs, counted as bytes
 (their work is not an aten op, so it adds no flops). On the CPU the plain
 versions' aten ops are counted instead.
@@ -30,7 +31,7 @@ from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
 from ..ops import (bloom_cuda, gbuffer_cuda, lights_cuda, raster_cuda,
-                   shadow_cuda, texture_cuda)
+                   shade_cuda, shadow_cuda, texture_cuda)
 
 _ENTER = torch.ops.profiler._record_function_enter_new.default
 
@@ -74,6 +75,7 @@ class FrameCost(TorchDispatchMode):
         shadow_cuda.observers.append(self._kernel_launch)
         bloom_cuda.observers.append(self._kernel_launch)
         gbuffer_cuda.observers.append(self._kernel_launch)
+        shade_cuda.observers.append(self._kernel_launch)
         return super().__enter__()
 
     def __exit__(self, *exc):
@@ -83,6 +85,7 @@ class FrameCost(TorchDispatchMode):
         shadow_cuda.observers.remove(self._kernel_launch)
         bloom_cuda.observers.remove(self._kernel_launch)
         gbuffer_cuda.observers.remove(self._kernel_launch)
+        shade_cuda.observers.remove(self._kernel_launch)
         return super().__exit__(*exc)
 
     def result(self) -> Dict:

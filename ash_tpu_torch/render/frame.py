@@ -53,7 +53,8 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from ..ops import binning, bloom_cuda, gbuffer_cuda, geometry, msaa_edge
+from ..ops import (binning, bloom_cuda, gbuffer_cuda, geometry, msaa_edge,
+                   shade_cuda)
 from ..ops.fxaa import fxaa
 from ..ops.hiz import build_hiz
 from ..ops.occlusion import cull_objects
@@ -66,7 +67,6 @@ from ..ops.shade import (
     pixel_alpha,
     resolve_alpha_test,
     shade_flat,
-    shade_pbr,
 )
 from ..ops.taa import TaaParams, taa_resolve
 from ..ops.texture_sample import TexturePool
@@ -699,11 +699,20 @@ def render_band(
     csm = ((uni.cascade_matrices, uni.cascade_splits, uni.view)
            if cfg.shadow_cascades > 1 else None)
 
-    def shade(gbuf, pixel_xy=None):
+    def shade(gbuf, pixel_xy=None, with_alpha=False):
+        """The shaded layer's colour, and with `with_alpha` (colour, the
+        blend's coverage alpha). PBR goes through ops/shade_cuda.py: on the
+        card one surface-shading kernel launch a layer (three with the
+        Forward+ lights: surface, the light kernel, compose), the coverage
+        alpha without a pool in the same launch; on the CPU the plain
+        shade_pbr and pixel_alpha."""
         with record_function("pass_shade"):
             if cfg.shading == "flat":
-                return shade_flat(gbuf, clear_color=clear)
-            return shade_pbr(
+                color = shade_flat(gbuf, clear_color=clear)
+                if not with_alpha:
+                    return color
+                return color, pixel_alpha(gbuf, scene.materials, tex_pool)
+            return shade_cuda.shade_pbr(
                 gbuf, scene.materials,
                 ShadeUniforms(
                     camera_pos=uni.camera_pos,
@@ -723,7 +732,7 @@ def render_band(
                 ibl=ibl if cfg.ibl_enabled else None,
                 dtype=(torch.bfloat16 if cfg.shade_dtype == "bf16"
                        else torch.float32),
-                pixel_xy=pixel_xy,
+                pixel_xy=pixel_xy, with_alpha=with_alpha,
             )
 
     msaa_edge_overflow = None
@@ -760,8 +769,7 @@ def render_band(
         layers = []
         for i in range(vis.num_layers):
             gbuf = gbuffer(vis.layer(i)[1])
-            layers.append((shade(gbuf),
-                           pixel_alpha(gbuf, scene.materials, tex_pool)))
+            layers.append(shade(gbuf, with_alpha=True))
             if i == 0:
                 velocity = gbuf.velocity  # the nearest surface's motion
         with record_function("pass_shade"):

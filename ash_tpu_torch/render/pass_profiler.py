@@ -18,9 +18,9 @@ from typing import Callable, Dict
 
 import torch
 
-from ..ops import gbuffer_cuda, geometry
+from ..ops import gbuffer_cuda, geometry, shade_cuda
 from ..ops.raster_cuda import rasterize
-from ..ops.shade import ShadeUniforms, shade_pbr
+from ..ops.shade import ShadeUniforms
 from . import frame
 
 
@@ -79,7 +79,7 @@ def profile_passes(renderer, view, proj, camera_pos,
         light_space_matrix=uni.light_space_matrix)
     csm = ((uni.cascade_matrices, uni.cascade_splits, uni.view)
            if cfg.shadow_cascades > 1 else None)
-    timings["SceneEnd"], _ = _time(lambda: shade_pbr(
+    timings["SceneEnd"], _ = _time(lambda: shade_cuda.shade_pbr(
         gbuf, sb.materials, su, shadow_map, None, csm=csm), n, dev)
 
     renderer.device_profiler._samples = dict(timings)

@@ -5,9 +5,10 @@ frame, the standard frame with Hi-Z occlusion culling, with MSAA and with
 the diagnostics overlay, the file sink and the profilers, the sharded
 frames (example 07's LOD scene among them), the frame farms (example 09),
 example 10's chunked frame and the frame loop's host profile on one
-NVIDIA GPU; and the six hand-written kernels against their plain
+NVIDIA GPU; and the seven hand-written kernels against their plain
 versions: the raster kernels, the texture sampler, the Forward+ light
-loop, the bloom pyramid, the shadow PCF and the G-buffer fetch.
+loop, the bloom pyramid, the shadow PCF, the G-buffer fetch and the
+surface shading.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It needs one CUDA device and `nvcc`; it exits non-zero without a result when
@@ -23,10 +24,12 @@ fails. Phases, one stdout line each:
    f32 and bf16), csrc/bloom.cu (the bloom pyramid: the downsample and
    the tent upsample, by path, eight instantiations), csrc/shadow.cu
    (the shadow PCF: the single map and 2-4 cascades, with and without the
-   blend, f32 and bf16 normals, fourteen instantiations) and
-   csrc/gbuffer.cu (the G-buffer fetch, one kernel), one nvcc each,
-   started together, and prints each instantiation's registers and spills
-   (none may spill);
+   blend, f32 and bf16 normals, fourteen instantiations),
+   csrc/gbuffer.cu (the G-buffer fetch, one kernel) and csrc/shade.cu
+   (the surface shading: the whole call and the surface stage, untextured
+   and textured, and compose, five kernels), one nvcc each, started
+   together, and prints each instantiation's registers and spills (none
+   may spill);
 3. kernels against plain: each CUDA kernel and the plain PyTorch raster on
    the same CUDA tensors at the main path's shapes; tri_id and depth of
    every layer must be equal bit for bit. One layer: the 1080p main pass
@@ -277,7 +280,26 @@ fails. Phases, one stdout line each:
    copies a frame, device busy and idle, pass_gbuffer's device span and
    the kernel's time a frame by name. Phase 4 counts the G-buffer
    launches of the standard, glass, lit, rich and rich render_scale 0.5
-   frames from 0 as well (one a shaded layer).
+   frames from 0 as well (one a shaded layer);
+14. the shading kernels (csrc/shade.cu): their registers and spills; the
+   same frames' own shade_pbr calls (frame 1, recorded with phase 13's
+   from ops/shade_cuda's entry: standard, animated, rich with its lights
+   (surface, the light kernel, compose), textured, glass's 8 shaded layers
+   with the coverage alpha, mega, edge MSAA x4's centres and worklist),
+   through the kernels and the plain shade_pbr (ops/shade_cuda.plain):
+   the colour and alpha bit for bit with NaN in the same places; each
+   call's device time (50 bare launches of its stages between CUDA
+   events, and in a CUDA graph), the entry's (with the texture, shadow
+   and light kernels it runs) and the plain version's, in turns, beside
+   its bound by bytes (shade_work); frames 2 and 3 of standard, rich,
+   textured and glass with the kernels (one launch a shaded layer, two
+   with lights, counted from 0, the plain shade_pbr never called) against
+   the same frames with the plain version patched in (u8, colour and
+   scalars); then kernel and plain frames in turns: frame ms, kernels and
+   copies a frame, device busy and idle, pass_shade's device span and the
+   kernels' time a frame by name. Phase 4 counts the shading launches of
+   the standard, glass, lit, rich and rich render_scale 0.5 frames from 0
+   as well.
 
 Then one JSON line on the kernels and, last, the device JSON line.
 
@@ -535,7 +557,9 @@ def ptxas_usage(log):
     as path 0 or 1; csrc/shadow.cu's shadow_pcf_kernel<C, blend, bf16>
     "shadow C=<C>", with " blend" and " bf16", and shadow_window_kernel
     by the same names with " windows"; csrc/gbuffer.cu's gbuffer_kernel
-    "gbuffer"."""
+    "gbuffer"; csrc/shade.cu's shade_kernel<textured, split> "shade", with
+    " surface" for the split and " textured", and compose_kernel "shade
+    compose"."""
     usage, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"raster_warp_kernelILi(\d+)ELb([01])E", ln)
@@ -546,6 +570,7 @@ def ptxas_usage(log):
         shadow_kernel = re.search(
             r"shadow_(pcf|window)_kernelILi(\d)ELb([01])ELb([01])E", ln)
         gbuffer_kernel = "gbuffer_kernel" in ln
+        shade_kernel = re.search(r"shade_kernelILb([01])ELb([01])E", ln)
         if "Compiling entry function" in ln and m:
             name = f"L={m.group(1)}{' floor' if m.group(2) == '1' else ''}"
             spill = None
@@ -570,6 +595,13 @@ def ptxas_usage(log):
             spill = None
         elif "Compiling entry function" in ln and gbuffer_kernel:
             name, spill = "gbuffer", None
+        elif "Compiling entry function" in ln and shade_kernel:
+            textured, split = shade_kernel.groups()
+            name = (f"shade{' surface' if split == '1' else ''}"
+                    f"{' textured' if textured == '1' else ''}")
+            spill = None
+        elif "Compiling entry function" in ln and "compose_kernel" in ln:
+            name, spill = "shade compose", None
         elif name and "spill stores" in ln:
             spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill", ln))
         elif name and "Used" in ln and "registers" in ln:
@@ -819,6 +851,22 @@ def zero_gbuffer():
     gbuffer_cuda.launches["gbuffer"] = 0
 
 
+def shade_launched():
+    """The shading kernels' launches since their counts were zeroed: every
+    stage's (shade, surface, compose)."""
+    from ash_tpu_torch.ops import shade_cuda
+
+    return sum(shade_cuda.launches[k] for k in ("shade", "surface",
+                                                "compose"))
+
+
+def zero_shade():
+    from ash_tpu_torch.ops import shade_cuda
+
+    for k in shade_cuda.launches:
+        shade_cuda.launches[k] = 0
+
+
 def bloom_per_frame(cfg):
     """The bloom kernels' launches a frame of `cfg`: one a level each way
     (ops/bloom_cuda.levels), none without the post chain's bloom."""
@@ -842,6 +890,7 @@ def counted(fn):
     zero_bloom()
     zero_shadow()
     zero_gbuffer()
+    zero_shade()
     out = fn()
     return (out, raster_cuda.rasterize.launches,
             raster_cuda.rasterize.layer_launches)
@@ -1671,6 +1720,24 @@ GBUFFER_CALL_FRAMES = [
     ("glass", dict(glass=True, transparency_passes=2), None),
     ("mega", None, None), ("edge x4", dict(msaa_resolve="edge"), "x4")]
 GBUFFER_FRAMES = ("standard", "rich", "glass")
+# csrc/shade.cu's kernels, as ptxas_usage names them: the whole call and the
+# surface stage, untextured and textured, and compose.
+SHADE_INSTANTIATIONS = sorted(
+    [f"shade{s}{t}" for s in ("", " surface") for t in ("", " textured")]
+    + ["shade compose"])
+# The frames phase 14 renders with the shading kernels and with the plain
+# shade_pbr (their keywords are GBUFFER_CALL_FRAMES').
+SHADE_FRAMES = ("standard", "rich", "textured", "glass")
+# f32 operations an element of csrc/shade.cu, as the plain shade_pbr counts
+# them (a compare, clamp or select is one): the view direction (13), the
+# flip (4), the roughness clamp (1), n.l (6), f0 (8), the half vector (13),
+# n.v, n.h and v.h (18), GGX (9), Smith (11), Fresnel (14), the specular
+# term (10) and its cap (12), kD (7), the diffuse term (6), the light's
+# weight and lo (11), the ambient term (3), the sum (6), Reinhard (6) and
+# the clear colour (3); textured, also the base colour (3), the TBN frame
+# (41), the normal map (38), its tests and normalisation (25) and the
+# metallic-roughness, occlusion and emissive terms (12).
+OPS_SHADE = {False: 161, True: 280}
 # f32 operations an element of the G-buffer fetch, as the plain version
 # counts them (csrc/gbuffer.cu): the weights at three positions (3 x 20, and
 # the two steps), 13 channels interpolated at the element and uv's 2 at the
@@ -2821,20 +2888,27 @@ def shadow_phase(card, view, proj, pos, shadow_launches, usage):
 
 
 def gbuffer_calls(render):
-    """Run render() (one frame) with the G-buffer entry point wrapped -> its
-    calls [(args, kwargs)] in call order."""
-    from ash_tpu_torch.ops import gbuffer_cuda
+    """Run render() (one frame) with the G-buffer and shading entry points
+    wrapped -> (the G-buffer calls, the shading calls), each [(args,
+    kwargs)] in call order."""
+    from ash_tpu_torch.ops import gbuffer_cuda, shade_cuda
 
-    calls = []
+    calls, shade_calls = [], []
     real = gbuffer_cuda.interpolate_gbuffer
+    real_shade = shade_cuda.shade_pbr
 
     def entry(*args, **kwargs):
         calls.append((args, kwargs))
         return real(*args, **kwargs)
 
-    with mock.patch.object(gbuffer_cuda, "interpolate_gbuffer", entry):
+    def shade_entry(*args, **kwargs):
+        shade_calls.append((args, kwargs))
+        return real_shade(*args, **kwargs)
+
+    with mock.patch.object(gbuffer_cuda, "interpolate_gbuffer", entry), \
+            mock.patch.object(shade_cuda, "shade_pbr", shade_entry):
         render()
-    return calls
+    return calls, shade_calls
 
 
 def gbuffer_same(got, want):
@@ -2908,16 +2982,18 @@ def frame_scalars(o):
 
 def gbuffer_cases(view, proj, pos, mega_caps):
     """-> ({label: (args, kwargs)}, {name: (renderer, its keywords, calls a
-    frame)}): the G-buffer calls of GBUFFER_CALL_FRAMES' frame 1 at
-    1920x1080 (the animated frame's first moved pose, the mega frame at
-    the drop-free caps `mega_caps`), recorded from the entry point, "<name>
-    call <i>" where a frame makes more than one; the renderers of those
-    frames that are in GBUFFER_FRAMES."""
+    frame)}, {label: (args, kwargs)}): the G-buffer calls of
+    GBUFFER_CALL_FRAMES' frame 1 at 1920x1080 (the animated frame's first
+    moved pose, the mega frame at the drop-free caps `mega_caps`), recorded
+    from the entry point, "<name> call <i>" where a frame makes more than
+    one; the renderers of those frames that are in GBUFFER_FRAMES; the
+    same frames' shading calls, recorded from ops/shade_cuda's entry and
+    labelled the same way (phase 14's cases)."""
     import torch
 
     from ash_tpu_torch.render import bench_scene
 
-    cases, rends = {}, {}
+    cases, rends, shade_cases = {}, {}, {}
     for name, kw, preset in GBUFFER_CALL_FRAMES:
         if kw is None:
             rend, _, mcam, _ = bench_scene.build_mega_renderer(
@@ -2940,10 +3016,14 @@ def gbuffer_cases(view, proj, pos, mega_caps):
             if preset is not None:
                 rend.set_msaa_preset(preset)
             render = functools.partial(rend.render_frame, view, proj, pos)
-        calls = gbuffer_calls(render)
+        calls, shade_calls = gbuffer_calls(render)
         check(len(calls) >= 1, f"{name}: no G-buffer call")
-        for i, call in enumerate(calls):
-            cases[name if len(calls) == 1 else f"{name} call {i + 1}"] = call
+        check(len(shade_calls) == len(calls), f"{name}: {len(shade_calls)} "
+              f"shading calls for {len(calls)} G-buffer calls")
+        for i, (call, shade_call) in enumerate(zip(calls, shade_calls)):
+            label = name if len(calls) == 1 else f"{name} call {i + 1}"
+            cases[label] = call
+            shade_cases[label] = shade_call
         if name in GBUFFER_FRAMES:
             rends[name] = (rend, kw, len(calls))
         del rend, render
@@ -2959,11 +3039,11 @@ def gbuffer_cases(view, proj, pos, mega_caps):
           f"edge x4's centres: px {tuple(px.shape)} strides {px.stride()}")
     check(all(isinstance(t, torch.Tensor) for t in
               cases["edge x4 call 2"][1]["pixel_xy"]), "edge x4's worklist")
-    return cases, rends
+    return cases, rends, shade_cases
 
 
-def gbuffer_phase(card, view, proj, pos, gbuffer_launches, usage,
-                  mega_caps):
+def gbuffer_phase(card, view, proj, pos, gbuffer_launches, usage, cases,
+                  rends):
     """Phase 13: the G-buffer kernel (csrc/gbuffer.cu) against the plain
     fetch (ops/shade.py:interpolate_gbuffer) at the 1080p frames' own calls
     (frame 1, gbuffer_cases): standard, animated, rich (with the velocity),
@@ -2992,7 +3072,6 @@ def gbuffer_phase(card, view, proj, pos, gbuffer_launches, usage,
     regs, spill = rows["usage"]["gbuffer"]
     print(f"phase13 G-buffer kernel: {regs} registers, {spill} spill bytes "
           f"({card})", flush=True)
-    cases, rends = gbuffer_cases(view, proj, pos, mega_caps)
 
     for label, (args, kw) in cases.items():
         want = shade.interpolate_gbuffer(*args, **kw)
@@ -3107,6 +3186,233 @@ def gbuffer_phase(card, view, proj, pos, gbuffer_launches, usage,
               f"{kf['gbuffer_kernel'][1]} ms a frame ({card})", flush=True)
         del plain_r, frames
     del rends
+    return rows, max_err
+
+
+def shade_same(got, want):
+    """(colour and alpha of two entry results the same, the largest |got -
+    want| over want's finite elements): bit for bit where want has a
+    number, NaN where it has NaN."""
+    import torch
+
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    if len(got) != len(want):
+        return False, math.inf
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype or not shadow_same(g, w):
+            return False, math.inf
+        fin = torch.isfinite(w)
+        if bool(fin.any()):
+            err = max(err, float((g - w)[fin].abs().max()))
+    return True, err
+
+
+def shade_work(args, kw):
+    """(bound ms, "bytes" or "operations", bytes, draws reached) of one
+    shading call's launches (csrc/shade.cu; the texture, shadow and light
+    kernels' own work left out). Bytes: an element's mask, world position,
+    normal, facing and draw id (30 bytes), its shadow term (4) with a
+    shadow map, its tangent and the five samples' used channels (64) with
+    a pool; written, its colour (12) and coverage alpha (4) where asked
+    for, or with lights the light kernel's inputs (72) and then `lo` read
+    back (12) before the colour; each material row reached (72) once.
+    Operations: OPS_SHADE an element at the f32 rate."""
+    import torch
+
+    gbuf, materials, _ = args
+    n = gbuf.mask.numel()
+    textured = kw.get("pool") is not None
+    lit = kw.get("lights") is not None and \
+        kw.get("tile_light_indices") is not None
+    alpha = kw.get("with_alpha") and not textured
+    per = 30 + (4 if kw.get("shadow_map") is not None else 0) \
+        + (64 if textured else 0) + (4 if alpha else 0) \
+        + (72 + 12 + 12 if lit else 12)
+    draws = torch.unique(gbuf.draw_id).numel()
+    nbytes = n * per + 72 * draws
+    t_bytes = nbytes / MEM_RATE * 1e3
+    t_ops = n * OPS_SHADE[textured] / F32_RATE * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes, draws)
+
+
+def shade_phase(card, view, proj, pos, shade_launches, usage, cases):
+    """Phase 14: the shading kernels (csrc/shade.cu) against the plain
+    shade_pbr (ops/shade_cuda.plain: ops/shade.py's shade_pbr and
+    pixel_alpha) at the 1080p frames' own calls (frame 1, recorded with
+    phase 13's: `cases`): standard, animated, rich (lit: surface, the light
+    kernel, compose), textured, glass's 8 shaded layers (with the coverage
+    alpha), mega and edge MSAA x4's centres and worklist: the colour (and
+    alpha) bit for bit with NaN in the same places. Each call timed (plain,
+    kernel, kernel, plain: CUDA events around 50 bare launches of the
+    call's stages, a CUDA graph of them, 3 plain calls) beside its bound
+    (shade_work), and the entry's time (with the texture, shadow and light
+    kernels it runs). Frames 2 and 3 of SHADE_FRAMES with the kernels
+    (launches counted from 0, the plain shade_pbr never called) against
+    the same frames with the plain version patched in (u8, colour and
+    scalars); then kernel and plain frames in turns: frame ms, kernels and
+    copies a frame, device busy and idle, pass_shade's device span and the
+    kernels' time a frame by name.
+    -> ({name: its numbers}, the largest |kernel - plain|)."""
+    import torch
+
+    from ash_tpu_torch.ops import shade, shade_cuda
+    from ash_tpu_torch.render.bench_scene import build_bench_renderer
+
+    def no_plain_shade(*args, **kwargs):
+        raise AssertionError("a card frame ran the plain shade_pbr")
+
+    rows, max_err = {}, 0.0
+    rows["usage"] = {k: v for k, v in usage.items() if k.startswith("shade")}
+    print("phase14 shading kernels, registers and spill bytes: "
+          + "; ".join(f"{k} {r}, {sp}" for k, (r, sp) in
+                      sorted(rows["usage"].items())) + f" ({card})",
+          flush=True)
+    check(cases["rich"][1]["lights"] is not None
+          and cases["textured"][1]["pool"] is not None
+          and cases["glass call 1"][1]["with_alpha"]
+          and cases["edge x4 call 1"][1]["pixel_xy"] is not None,
+          "phase 14's cases do not take the lit, textured, alpha and "
+          "pixel_xy paths")
+
+    for label, (args, kw) in cases.items():
+        want = shade_cuda.plain(*args, **kw)
+        got = shade_cuda.shade_pbr(*args, **kw)
+        torch.cuda.synchronize()
+        same, err = shade_same(got, want)
+        check(same, f"shading kernels != plain shade_pbr at {label}")
+        max_err = max(max_err, err)
+        color = want[0] if isinstance(want, tuple) else want
+        nan = int(torch.isnan(color).sum())
+        del got, want, color
+        gbuf, materials, uniforms = args
+        lit = kw["lights"] is not None and kw["tile_light_indices"] is not None
+        prepared = shade_cuda.prepare(
+            gbuf, materials, uniforms, kw["shadow_map"], kw["pool"],
+            kw["clear_color"], kw["max_anisotropy"], kw["csm"],
+            kw["csm_blend_size"])
+        stages = shade_cuda.launcher(
+            gbuf, materials, uniforms, prepared, kw["reinhard"], lit,
+            kw["with_alpha"] and kw["pool"] is None)[0]
+
+        def launch(stages=stages):
+            for fn in stages.values():
+                fn()
+
+        kern, graphed, plain = [], [], []
+        for order in ("plain", "kernel", "kernel", "plain"):
+            if order == "kernel":
+                kern.append(cuda_ms(launch, 50))
+                graphed.append(graph_ms(launch))
+            else:
+                plain.append(cuda_ms(
+                    lambda: shade_cuda.plain(*args, **kw), 3))
+        bound, bound_by, nbytes, draws = shade_work(args, kw)
+        row = dict(elements=gbuf.mask.numel(), shape=list(gbuf.mask.shape),
+                   covered=int(gbuf.mask.sum()), nan=nan,
+                   stages=list(stages), textured=kw["pool"] is not None,
+                   shadow=("none" if kw["shadow_map"] is None else
+                           "cascades" if kw["csm"] is not None else "map"),
+                   alpha=bool(kw["with_alpha"]),
+                   pixel_xy=kw["pixel_xy"] is not None,
+                   device_ms=statistics.mean(kern),
+                   graph_ms=statistics.mean(graphed),
+                   plain_ms=statistics.mean(plain),
+                   wrapper_ms=cuda_ms(lambda: shade_cuda.shade_pbr(
+                       *args, **kw), 20),
+                   bound_ms=bound, bound_by=bound_by, bytes=nbytes,
+                   draws=draws, max_abs_err=err)
+        row["share_of_bound"] = bound / row["graph_ms"]
+        rows[label] = row
+        print(f"phase14 shading kernels, {label} ({row['elements']} elements "
+              f"{row['shape']}, {row['covered']} covered; stages "
+              f"{'+'.join(row['stages'])}, textured {row['textured']}, "
+              f"shadow {row['shadow']}, alpha {row['alpha']}, pixel_xy "
+              f"{row['pixel_xy']}): equal to the plain shade_pbr (bit for "
+              f"bit, {nan} NaN in the same places); device "
+              f"{row['device_ms']} ms (mean of 50 bare launches of the "
+              f"stages; {row['graph_ms']} ms in a CUDA graph), entry "
+              f"{row['wrapper_ms']} ms (with the texture, shadow and light "
+              f"kernels), plain {row['plain_ms']} ms; bound {bound} ms by "
+              f"{bound_by} ({nbytes} bytes, {draws} draws), "
+              f"{100 * row['share_of_bound']:.1f}% of it ({card})",
+              flush=True)
+        del prepared, stages, launch
+    del cases
+
+    # Frames 2 and 3 with the kernels, counted from 0, and the same frames
+    # with the plain version patched in, which launches none of them.
+    plain_shade = mock.patch.object(shade_cuda, "shade_pbr", shade_cuda.plain)
+    frame_kws = {name: (kw, preset) for name, kw, preset in
+                 GBUFFER_CALL_FRAMES if name in SHADE_FRAMES}
+    for name in SHADE_FRAMES:
+        kw, _ = frame_kws[name]
+        rend = build_bench_renderer(1920, 1080, 1000, "cuda", **kw)[0]
+        rend.render_frame(view, proj, pos)
+        zero_shade()
+        zero_gbuffer()
+        frames = []
+        with mock.patch.object(shade, "shade_pbr", no_plain_shade):
+            for _ in range(2):
+                out = rend.render_frame(view, proj, pos)
+                frames.append((rend.read_back().copy(), out.color.clone(),
+                               frame_scalars(out)))
+        launched = shade_launched()
+        layers = gbuffer_launched()
+        lit = kw.get("rich") or kw.get("lights")
+        shade_launches[f"{name} frames 2-3"] = launched
+        check(launched == layers * (2 if lit else 1) and layers >= 2,
+              f"{name}: shading kernel launches {launched} in frames 2 and "
+              f"3 for {layers} shaded layers")
+        plain_r = build_bench_renderer(1920, 1080, 1000, "cuda", **kw)[0]
+        with plain_shade:
+            plain_r.render_frame(view, proj, pos)
+            for image, color, scalars in frames:
+                out = plain_r.render_frame(view, proj, pos)
+                check(np.array_equal(plain_r.read_back(), image)
+                      and torch.equal(out.color, color)
+                      and frame_scalars(out) == scalars,
+                      f"{name}: a frame with the shading kernels != the "
+                      "frame with the plain shade_pbr")
+        check(shade_launched() == launched,
+              f"{name}: the plain frames launched the shading kernels")
+
+        def step(i, r=rend):
+            r.render_frame(view, proj, pos)
+
+        def plain_step(i, r=plain_r):
+            with plain_shade:
+                r.render_frame(view, proj, pos)
+
+        timed = {"kernel": [], "plain": []}
+        for order in ("plain", "kernel", "kernel", "plain"):
+            timed[order].append(frame_ms_spread(
+                step if order == "kernel" else plain_step, 5)[0][0])
+        frame_row = {}
+        for k, st in (("kernel", step), ("plain", plain_step)):
+            wall, busy, idle, n_ops = busy_profile(st)
+            frame_row[k] = dict(ms=timed[k], busy_ms=busy, idle=idle,
+                                ops=n_ops, pass_shade_ms=scope_device_ms(
+                                    st, "pass_shade", n=2)[0])
+        frame_row["kernel"]["shade_kernels"] = kernel_device_ms(
+            step, ("shade_kernel", "compose_kernel"))
+        rows[f"{name} frame"] = frame_row
+        kf, pf = frame_row["kernel"], frame_row["plain"]
+        print(f"phase14 {name} frames 2 and 3: equal to the plain "
+              f"shade_pbr's (u8, colour and scalars); shading kernel "
+              f"launches {launched} for {layers} shaded layers; frame ms "
+              f"(median of 5, in turns) kernel {kf['ms']}, plain {pf['ms']}; "
+              f"kernels and copies a frame {kf['ops']:g} / {pf['ops']:g}; "
+              f"device busy {kf['busy_ms']:.2f} / {pf['busy_ms']:.2f} ms, "
+              f"idle {100 * kf['idle']:.1f} / {100 * pf['idle']:.1f}%; "
+              f"pass_shade device span {kf['pass_shade_ms']:.3f} / "
+              f"{pf['pass_shade_ms']:.3f} ms (kernel / plain); the shading "
+              f"kernels in the frame's trace: "
+              f"{kf['shade_kernels'][0]:g} launches, "
+              f"{kf['shade_kernels'][1]} ms a frame ({card})", flush=True)
+        del rend, plain_r, frames
     return rows, max_err
 
 
@@ -3517,10 +3823,11 @@ def main() -> int:
 
     # 2. Build: one nvcc per source, started together.
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(6) as pool:
-        lib, tex_lib, light_lib, bloom_lib, shadow_lib, gbuffer_lib = \
-            pool.map(_build.build, ["raster", "texture", "lights", "bloom",
-                                    "shadow", "gbuffer"])
+    with concurrent.futures.ThreadPoolExecutor(7) as pool:
+        (lib, tex_lib, light_lib, bloom_lib, shadow_lib, gbuffer_lib,
+         shade_lib) = pool.map(_build.build, [
+             "raster", "texture", "lights", "bloom", "shadow", "gbuffer",
+             "shade"])
     build_s = time.perf_counter() - t0
     usage = ptxas_usage(lib.with_suffix(".log").read_text())
     check(len(usage) == 16, f"{len(usage)} kernels, want 15 raster "
@@ -3546,11 +3853,16 @@ def main() -> int:
     check(sorted(gbuffer_usage) == ["gbuffer"],
           f"gbuffer library kernels {list(gbuffer_usage)}")
     usage.update(gbuffer_usage)
+    shade_usage = ptxas_usage(shade_lib.with_suffix(".log").read_text())
+    check(sorted(shade_usage) == SHADE_INSTANTIATIONS,
+          f"shade library kernels {list(shade_usage)}")
+    usage.update(shade_usage)
     print(f"phase2 build: {lib.name} (both raster kernels), "
           f"{tex_lib.name} (the texture sampler), {light_lib.name} (the "
           f"light loop), {bloom_lib.name} (the bloom pyramid), "
-          f"{shadow_lib.name} (the shadow PCF) and {gbuffer_lib.name} (the "
-          f"G-buffer fetch) in "
+          f"{shadow_lib.name} (the shadow PCF), {gbuffer_lib.name} (the "
+          f"G-buffer fetch) and {shade_lib.name} (the surface shading: "
+          f"shade, surface and compose) in "
           f"{build_s:.3f} s; "
           + "; ".join(f"{k}: {r} registers, {sp} spill bytes"
                       for k, (r, sp) in sorted(usage.items())), flush=True)
@@ -3799,6 +4111,7 @@ def main() -> int:
     raster_cuda.rasterize.layer_launches = 0
     zero_shadow()
     zero_gbuffer()
+    zero_shade()
     deltas, outs = [], []
     for _ in range(6):
         before = raster_cuda.rasterize.launches
@@ -3807,6 +4120,7 @@ def main() -> int:
     launches = {"standard": raster_cuda.rasterize.launches}
     shadow_launches = {"standard": shadow_launched()}
     gbuffer_launches = {"standard": gbuffer_launched()}
+    shade_launches = {"standard": shade_launched()}
     check(shadow_launches["standard"] == 6, "standard: shadow kernel "
           f"launches {shadow_launches['standard']} in 6 frames")
     layer_launches = {"standard": raster_cuda.rasterize.layer_launches}
@@ -3842,6 +4156,7 @@ def main() -> int:
         raster_cuda.rasterize.layer_launches = 0
         zero_shadow()
         zero_gbuffer()
+        zero_shade()
         one, peel, gouts = [], [], []
         for _ in range(4):
             b1 = raster_cuda.rasterize.launches
@@ -3853,6 +4168,7 @@ def main() -> int:
         layer_launches[path] = raster_cuda.rasterize.layer_launches
         shadow_launches[path] = shadow_launched()
         gbuffer_launches[path] = gbuffer_launched()
+        shade_launches[path] = shade_launched()
         check(shadow_launches[path] >= 4 and shadow_launches[path] % 4 == 0,
               f"{path}: shadow kernel launches {shadow_launches[path]} in 4 "
               "frames, want the same number a frame, at least one")
@@ -3940,9 +4256,11 @@ def main() -> int:
     lights_cuda.launches["loop"] = 0
     zero_shadow()
     zero_gbuffer()
+    zero_shade()
     l_one, l_peel, l_outs = launches_per_frame(rl, view, proj, pos, 6)
     shadow_launches["lit"] = shadow_launched()
     gbuffer_launches["lit"] = gbuffer_launched()
+    shade_launches["lit"] = shade_launched()
     check(shadow_launches["lit"] == 6,
           f"lit: shadow kernel launches {shadow_launches['lit']} in 6 frames")
     launches["lit"] = raster_cuda.rasterize.launches
@@ -3985,9 +4303,11 @@ def main() -> int:
     zero_bloom()
     zero_shadow()
     zero_gbuffer()
+    zero_shade()
     r_one, r_peel, r_outs = launches_per_frame(rr, view, proj, pos, 8)
     shadow_launches["rich"] = shadow_launched()
     gbuffer_launches["rich"] = gbuffer_launched()
+    shade_launches["rich"] = shade_launched()
     check(shadow_launches["rich"] == 8,
           f"rich: shadow kernel launches {shadow_launches['rich']} in 8 "
           "frames")
@@ -4053,10 +4373,12 @@ def main() -> int:
     zero_bloom()
     zero_shadow()
     zero_gbuffer()
+    zero_shade()
     h_one, h_peel, h_outs = launches_per_frame(r_half, view, proj, pos, 8)
     bloom_launches["rich 0.5"] = bloom_launched()
     shadow_launches["rich 0.5"] = shadow_launched()
     gbuffer_launches["rich 0.5"] = gbuffer_launched()
+    shade_launches["rich 0.5"] = shade_launched()
     check(shadow_launches["rich 0.5"] == 8, "rich at render_scale 0.5: "
           f"shadow kernel launches {shadow_launches['rich 0.5']} in 8 frames")
     check(bloom_launches["rich 0.5"] == 8 * RICH_BLOOM_LAUNCHES,
@@ -4629,6 +4951,18 @@ def main() -> int:
           f"call, as the shadow kernel's {shadow_launches}")
     print(f"phase4 G-buffer kernel launches, counted from 0 on each path "
           f"(one a shaded layer): {gbuffer_launches}", flush=True)
+    # One shading launch a shaded layer; two on the lit paths (surface and
+    # compose, around the light kernel).
+    lit_paths = ("lit", "rich", "rich 0.5")
+    check(shade_launches == {k: gbuffer_launches[k] * (2 if k in lit_paths
+                                                       else 1)
+                             for k in shade_launches},
+          f"shading kernel launches {shade_launches}, want one a shaded "
+          f"layer (two with lights) against the G-buffer kernel's "
+          f"{gbuffer_launches}")
+    print(f"phase4 shading kernel launches, counted from 0 on each path "
+          f"(one a shaded layer, surface and compose with lights): "
+          f"{shade_launches}", flush=True)
 
     print(f"phase4 animated frame: 1920x1080, 1000 cubes, {ANIM_POSES} "
           f"poses of update_transforms_trs + orbit_camera after frame 1: "
@@ -4949,9 +5283,17 @@ def main() -> int:
                                            shadow_launches, usage)
     # 13. The G-buffer kernel at the frames' calls, their frames against
     # the plain fetch's.
+    gb_cases, gb_rends, shade_cases = gbuffer_cases(view, proj, pos,
+                                                    mega_final_caps)
     gbuffer_rows, gbuffer_err = gbuffer_phase(card, view, proj, pos,
                                               gbuffer_launches, usage,
-                                              mega_final_caps)
+                                              gb_cases, gb_rends)
+    del gb_cases, gb_rends
+    # 14. The shading kernels at the same frames' calls, their frames
+    # against the plain shade_pbr's.
+    shade_rows, shade_err = shade_phase(card, view, proj, pos,
+                                        shade_launches, usage, shade_cases)
+    del shade_cases
 
     foreign = sorted(m for m in sys.modules if m in ("jax", "ash_tpu")
                      or m.startswith(("jax.", "ash_tpu.")))
@@ -5090,6 +5432,29 @@ def main() -> int:
         "wrapper_ms": gbuffer_main["wrapper_ms"],
         "by_shape": gbuffer_rows,
     }
+    # The shading kernels' main shape: the standard frame's call (one shade
+    # launch).
+    shade_main = shade_rows["standard"]
+    shade_line = {
+        "name": "shade",
+        "route": "cuda",
+        "source": "ash_tpu_torch/csrc/shade.cu",
+        # jax.numpy, not a TPU kernel: XLA fuses the reference's shade_pbr.
+        "replaces": "ash_tpu/ops/shade.py:415",
+        "launches": sum(shade_launches.values()),
+        "launches_by_path": shade_launches,
+        "max_abs_err": shade_err,
+        "ms": shade_main["device_ms"],
+        "plain_ms": shade_main["plain_ms"],
+        "bound_ms": shade_main["bound_ms"],
+        "bound_by": shade_main["bound_by"],
+        # No PyTorch call computes a Cook-Torrance surface shade.
+        "library_ms": None,
+        "device_ms": shade_main["device_ms"],
+        "graph_ms": shade_main["graph_ms"],
+        "wrapper_ms": shade_main["wrapper_ms"],
+        "by_shape": shade_rows,
+    }
     print(json.dumps({"kernels": [
         kernel_line("raster", "ash_tpu/ops/raster_pallas.py:106", launches,
                     max_err, ("main", 1, False),
@@ -5107,6 +5472,7 @@ def main() -> int:
         bloom_line,
         shadow_line,
         gbuffer_line,
+        shade_line,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

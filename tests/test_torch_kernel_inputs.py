@@ -1,11 +1,13 @@
-"""What the frames hand the bloom, light, shadow and G-buffer kernels,
-checked on the CPU.
+"""What the frames hand the bloom, light, shadow, G-buffer and shading
+kernels, checked on the CPU.
 
 The entries (ops/bloom_cuda.py:bloom_pyramid, ops/lights_cuda.py:add_lights,
 ops/shadow_cuda.py:shadow_pcf16 and shadow_pcf16_csm,
-ops/gbuffer_cuda.py:interpolate_gbuffer) run their argument checks only on
-the card: on CPU tensors they run the plain versions, which
-take any float dtype. Here each check is patched in front of every CPU
+ops/gbuffer_cuda.py:interpolate_gbuffer, ops/shade_cuda.py:shade_pbr) run
+their argument checks only on the card: on CPU tensors they run the plain
+versions, which take any float dtype. The shading entry's check runs in
+front of the calls whose arguments take its kernels (f32 without IBL); the
+bf16 frames take its eager path. Here each check is patched in front of every CPU
 call of its entry, over the small bench frames (96x64,
 16 cubes) in the configurations that reach the kernels on the card: the
 rich frame, alone and with bf16 shading, glass, textures, render_scale 0.7,
@@ -19,7 +21,7 @@ import pytest
 import torch
 
 from ash_tpu_torch.ops import (bloom_cuda, gbuffer_cuda, lights_cuda,
-                               shadow_cuda)
+                               shade_cuda, shadow_cuda)
 from ash_tpu_torch.render import bench_scene
 
 torch.set_num_threads(1)
@@ -44,12 +46,14 @@ FRAMES = {
 @pytest.mark.parametrize("name", sorted(FRAMES))
 def test_frames_hand_the_kernels_what_they_take(name, monkeypatch):
     kw, preset = FRAMES[name]
-    checked = {"bloom": 0, "lights": 0, "shadow": 0, "gbuffer": 0}
+    checked = {"bloom": 0, "lights": 0, "shadow": 0, "gbuffer": 0,
+               "shade": 0}
     real_bloom = bloom_cuda.bloom_pyramid
     real_lights = lights_cuda.add_lights
     real_pcf = shadow_cuda.shadow_pcf16
     real_csm = shadow_cuda.shadow_pcf16_csm
     real_gbuffer = gbuffer_cuda.interpolate_gbuffer
+    real_shade = shade_cuda.shade_pbr
 
     def bloom_pyramid(hdr, *args, **kwargs):
         bloom_cuda.check_inputs(hdr, *args, **kwargs)
@@ -76,12 +80,20 @@ def test_frames_hand_the_kernels_what_they_take(name, monkeypatch):
         checked["gbuffer"] += 1
         return real_gbuffer(*args, **kwargs)
 
+    def shade_pbr(*args, **kwargs):
+        if not shade_cuda.eager(kwargs.get("dtype", torch.float32),
+                                kwargs.get("ibl")):
+            shade_cuda.check_inputs(*args, **kwargs)
+            checked["shade"] += 1
+        return real_shade(*args, **kwargs)
+
     monkeypatch.setattr(bloom_cuda, "bloom_pyramid", bloom_pyramid)
     monkeypatch.setattr(lights_cuda, "add_lights", add_lights)
     monkeypatch.setattr(shadow_cuda, "shadow_pcf16", shadow_pcf16)
     monkeypatch.setattr(shadow_cuda, "shadow_pcf16_csm", shadow_pcf16_csm)
     monkeypatch.setattr(gbuffer_cuda, "interpolate_gbuffer",
                         interpolate_gbuffer)
+    monkeypatch.setattr(shade_cuda, "shade_pbr", shade_pbr)
     r, _, cam, _ = bench_scene.build_bench_renderer(96, 64, 16, "cpu", **kw)
     if preset is not None:
         r.set_msaa_preset(preset)
@@ -91,8 +103,11 @@ def test_frames_hand_the_kernels_what_they_take(name, monkeypatch):
     assert bool(torch.isfinite(out.color).all())
     # Two frames: a rich frame blooms once each, and every frame here shades
     # its lights and its shadow at least once each (edge MSAA twice:
-    # centres, worklist), each shaded layer after one G-buffer fetch.
+    # centres, worklist), each shaded layer after one G-buffer fetch and,
+    # in f32, through the shading kernels.
     assert checked["bloom"] == (2 if kw.get("rich") else 0)
     assert checked["lights"] >= 2
     assert checked["shadow"] == checked["lights"]
     assert checked["gbuffer"] == checked["lights"]
+    bf16 = kw.get("shade_dtype") == "bf16"
+    assert checked["shade"] == (0 if bf16 else checked["lights"])
