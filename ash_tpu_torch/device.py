@@ -4,11 +4,31 @@
 quietly running on the CPU: a frame that silently moved to the host would
 report host timings under a GPU's name. The CPU is a first-class device for
 the parity tests, but only when asked for by name.
+
+`constant` keeps the small tables a frame reads (a clear colour, a corner
+sign table) on their device, made once, so a frame makes no host-to-device
+copy and can be captured in a CUDA graph (render/compiled.py).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+_CONSTANTS: dict = {}
+
+
+def constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """torch.tensor(values, dtype=dtype, device=device), made on the first
+    call for these values and shared by every later one. The result is
+    read-only by contract: no caller may write to it."""
+    device = torch.device(device)
+    arr = np.asarray(values)
+    key = (arr.shape, arr.dtype.str, arr.tobytes(), dtype, device)
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.tensor(values, dtype=dtype, device=device)
+    return t
 
 
 def resolve_device(device) -> torch.device:

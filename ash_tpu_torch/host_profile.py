@@ -54,6 +54,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from .device import resolve_device
 from .ops import raster_cuda
+from .render import compiled
 from .render.bench_scene import (
     animated_models,
     animated_models_trs,
@@ -348,7 +349,14 @@ def _cprofile(loop: FrameLoop, n: int) -> None:
 def measure(loop: FrameLoop, n: int, cprofile: bool = False) -> dict:
     """Warm up, run the timed and the traced loop over poses 1..n (and the
     cProfile loop), print the reference's lines and the split, check them
-    -> the JSON line's object."""
+    -> the JSON line's object. The frames run eagerly (counted under
+    "host_profile" in render/compiled.py's stats): the split reads each
+    pass_* scope's host time, which a graph replay does not re-enter."""
+    with compiled.eager("host_profile"):
+        return _measure(loop, n, cprofile)
+
+
+def _measure(loop: FrameLoop, n: int, cprofile: bool) -> dict:
     first = loop.warm_up()
     print(f"first frame (kernels, scene, shadow map): {first:.1f}s",
           file=sys.stderr)

@@ -18,6 +18,8 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
+from ..device import constant
+
 HIZ_LEVELS = 10
 
 
@@ -73,7 +75,7 @@ def sample_level(pyr: HizPyramid, level: torch.Tensor, u: torch.Tensor,
                  v: torch.Tensor) -> torch.Tensor:
     """Nearest sample of each (u, v) at a per-element level (textureLod).
     The texel index truncates u * width toward zero, then clamps."""
-    table = torch.from_numpy(pyr.table.astype(np.int32)).to(u.device)
+    table = constant(pyr.table.astype(np.int32), torch.int32, u.device)
     entry = table[level.clamp(0, pyr.levels - 1).long()]
     off, w, h = entry[..., 0], entry[..., 1], entry[..., 2]
     x = torch.minimum((u * w.to(torch.float32)).to(torch.int32).clamp_min(0),

@@ -24,7 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import constant, resolve_device
 from ..errors import InvalidOperation
 from .brdf_lut import _hammersley, brdf_lut
 from .geometry import _cross
@@ -204,7 +204,7 @@ def _bilinear_flat(flat, off, w, h, u, v):
 def sample_radiance(ibl: EnvironmentIBL, direction, lod):
     """Trilinear sample of the prefiltered pyramid along a direction."""
     u, v = _equirect_uv(direction)
-    table = torch.from_numpy(ibl.table.astype(np.int32)).to(u.device)
+    table = constant(ibl.table.astype(np.int32), torch.int32, u.device)
     lod = lod.clamp(0.0, ibl.levels - 1)
     l0 = torch.floor(lod).to(torch.int32)
     l1 = torch.clamp_max(l0 + 1, ibl.levels - 1)

@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..device import constant
 from .compute_utils import aabb_in_frustum, extract_frustum_planes, prefix_sum_compact
 from .geometry import matvec3, transform_points
 from .hiz import HizPyramid, sample_level
@@ -45,9 +46,9 @@ def occlusion_test(
     height: int,
 ) -> torch.Tensor:
     """(N,) bool, True = occluded."""
-    signs = torch.tensor(
+    signs = constant(
         [[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)],
-        dtype=torch.float32, device=centers_w.device,
+        torch.float32, centers_w.device,
     )  # (8, 3)
     corners = centers_w[:, None, :] + extents_w[:, None, :] * signs[None]
     clip = transform_points(view_proj, corners)  # (N, 8, 4)
@@ -60,8 +61,8 @@ def occlusion_test(
     max_s = screen.amax(1).clamp(0.0, 1.0)
     min_z = ndc[..., 2].amin(1)
 
-    size_px = (max_s - min_s) * torch.tensor(
-        [width, height], dtype=torch.float32, device=centers_w.device)
+    size_px = (max_s - min_s) * constant(
+        [width, height], torch.float32, centers_w.device)
     mip = torch.ceil(torch.log2(size_px.amax(-1).clamp_min(1e-8)))
     mip = mip.clamp(0.0, pyr.levels - 1).to(torch.int32)
 

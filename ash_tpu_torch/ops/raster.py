@@ -29,6 +29,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..device import constant
 from .binning import TileBins, grid_shape
 from .geometry import TriangleSetup
 
@@ -273,8 +274,8 @@ def rect_bounds(setup: TriangleSetup, height: int, width: int,
     bounded = (torch.isfinite(setup.edge).all(-1).all(-1)
                & (det.abs() > 1e-9 * mag) & (w_lo > 0.0) & (den > 0.5)
                & torch.isfinite(box).all(-1))
-    inf = torch.tensor([-math.inf, -math.inf, math.inf, math.inf],
-                       dtype=torch.float64, device=box.device)
+    inf = constant([-math.inf, -math.inf, math.inf, math.inf],
+                   torch.float64, box.device)
     return torch.where(bounded[:, None], box, inf)
 
 
@@ -289,9 +290,8 @@ def candidate_rects(
     """
     box = rect_bounds(setup, height, width, y0)
     dev = box.device
-    shift = torch.tensor([0.0, float(y0)], dtype=torch.float64, device=dev)
-    lim = torch.tensor([width - 1.0, height - 1.0], dtype=torch.float64,
-                       device=dev)
+    shift = constant([0.0, float(y0)], torch.float64, dev)
+    lim = constant([width - 1.0, height - 1.0], torch.float64, dev)
     # Pixel c's centre c + 0.5 lies in [lo, hi] iff ceil(lo - 0.5) <= c
     # <= floor(hi - 0.5).
     first = torch.ceil(box[:, :2] - 0.5) - shift
@@ -300,8 +300,7 @@ def candidate_rects(
     last = torch.minimum(last, lim)
     empty = ~(first <= last).all(-1, keepdim=True)
     rect = torch.cat([first, last], dim=-1)
-    none = torch.tensor([width, height, -1.0, -1.0], dtype=torch.float64,
-                        device=dev)
+    none = constant([width, height, -1.0, -1.0], torch.float64, dev)
     return torch.where(empty, none, rect).to(torch.int32)
 
 

@@ -35,6 +35,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..device import constant
 from . import lights_cuda, shadow_cuda
 from . import texture_cuda, texture_sample
 from .geometry import TransformedVerts, TriangleSetup, _cross
@@ -351,7 +352,7 @@ def shade_pbr(
         t_len = torch.linalg.vector_norm(t_raw, dim=-1, keepdim=True)
         t = torch.where(
             t_len > 1e-3, t_raw / t_len.clamp_min(1e-8),
-            torch.tensor([1.0, 0.0, 0.0], dtype=dtype, device=t_raw.device),
+            constant([1.0, 0.0, 0.0], dtype, t_raw.device),
         )
         g = cast(gbuf.normal)
         t = _normalize(t - _dot(t, g)[..., None] * g) * flip
@@ -436,13 +437,20 @@ def shade_pbr(
     color = ambient + lo + emissive
     if reinhard:
         color = color / (color + 1.0)
-    clear = torch.as_tensor(clear_color, dtype=torch.float32, device=color.device)
-    return torch.where(gbuf.mask[..., None], color, clear)
+    return torch.where(gbuf.mask[..., None], color,
+                       clear_tensor(clear_color, color.device))
 
 
 def shade_flat(gbuf: GBuffer, clear_color=(0.0, 0.0, 0.0)) -> torch.Tensor:
     """Flat vertex-colour shading."""
-    clear = torch.as_tensor(
-        clear_color, dtype=torch.float32, device=gbuf.color.device
-    )
-    return torch.where(gbuf.mask[..., None], gbuf.color, clear)
+    return torch.where(gbuf.mask[..., None], gbuf.color,
+                       clear_tensor(clear_color, gbuf.color.device))
+
+
+def clear_tensor(clear_color, device) -> torch.Tensor:
+    """The clear colour as an f32 tensor on `device`: a tensor as given
+    (converted as torch.as_tensor converts it), a sequence from the shared
+    constants, so no frame copies it from the host."""
+    if isinstance(clear_color, torch.Tensor):
+        return torch.as_tensor(clear_color, dtype=torch.float32, device=device)
+    return constant(clear_color, torch.float32, device)

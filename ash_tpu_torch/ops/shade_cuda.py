@@ -232,7 +232,7 @@ def prepare(gbuf, materials, uniforms, shadow_map=None, pool=None,
         else:
             shadow = shadow_cuda.shadow_pcf16(
                 shadow_map, uniforms.light_space_matrix, gbuf.world, n, ld)
-    clear = torch.as_tensor(clear_color, dtype=torch.float32, device=device)
+    clear = shade.clear_tensor(clear_color, device)
     return Prepared(light_dir, shadow, samples, clear)
 
 

@@ -10,9 +10,11 @@ Blends the current frame with the reprojected history:
   history lies off screen.
 
 The resolve is a pure function: (current, history) -> resolved, and the
-caller keeps `resolved` as the next history. The three switches of
-TaaParams and the jitters are host values, so the clamp and the rejection
-are Python branches. Inside, the image is planar (3, H, W); the
+caller keeps `resolved` as the next history. The two switches of TaaParams
+are host values, so the clamp and the rejection are Python branches; the
+blend factor and the jitters are host values or tensors on the frame's
+device (the renderer's, so a captured frame reads each frame's own), with
+the same f32 arithmetic either way. Inside, the image is planar (3, H, W); the
 neighbourhood taps are integer shifts of an edge-padded image and only the
 history fetch gathers.
 """
@@ -24,6 +26,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..device import constant
 from .bloom import (
     bilinear_planar,
     shift_planar,
@@ -34,13 +37,30 @@ from .bloom import (
 
 
 class TaaParams(NamedTuple):
-    """Resolve parameters, all on the host."""
+    """Resolve parameters. The switches are host floats; the blend factor
+    and the jitters host values or f32 device tensors (0-d and (2,))."""
 
     blend_factor: float  # weight of the history, default 0.9
     color_clamp: float  # > 0.5: clamp the history to the neighbourhood
     velocity_rejection: float  # > 0.5: the blend falls with the velocity
     jitter: np.ndarray  # (2,) this frame's subpixel jitter, in pixels
     prev_jitter: np.ndarray  # (2,)
+
+
+def _jitter_velocity(params: TaaParams, h: int, w: int, device) -> tuple:
+    """((2,) jitter difference over the screen size, () blend factor) as
+    f32 tensors: computed on the device from device values, else with
+    numpy on the host (CPU tensors, which CUDA ops take as scalars). The
+    same f32 subtraction and division either way."""
+    if isinstance(params.jitter, torch.Tensor):
+        screen = constant([w, h], torch.float32, device)
+        jv = (params.jitter - params.prev_jitter) / screen
+        return jv, params.blend_factor
+    screen = np.array([w, h], np.float32)
+    jv = (np.asarray(params.jitter, np.float32)
+          - np.asarray(params.prev_jitter, np.float32)) / screen
+    return (torch.from_numpy(jv),
+            torch.tensor(np.float32(params.blend_factor)))
 
 
 def rgb_to_ycocg(rgb: torch.Tensor) -> torch.Tensor:
@@ -116,11 +136,8 @@ def taa_resolve(
     cur = to_planar(current)
     u, v = target_uv(h, w, current.device)
 
-    screen = np.array([w, h], np.float32)
-    jitter_vel = (np.asarray(params.jitter, np.float32)
-                  - np.asarray(params.prev_jitter, np.float32)) / screen
-    vel_u = torch.full_like(u, float(jitter_vel[0]))
-    vel_v = torch.full_like(v, float(jitter_vel[1]))
+    jitter_vel, blend_factor = _jitter_velocity(params, h, w, current.device)
+    vel_u, vel_v = jitter_vel[0], jitter_vel[1]
     if velocity is not None:
         vx, vy = velocity[..., 0], velocity[..., 1]
         small = torch.sqrt(vx * vx + vy * vy) < 1e-4
@@ -134,7 +151,7 @@ def taa_resolve(
     if params.color_clamp > 0.5:
         hist = _clamped_history(cur, hist)
 
-    blend = torch.full_like(u, float(np.float32(params.blend_factor)))
+    blend = blend_factor
     if params.velocity_rejection > 0.5:
         pu, pv = vel_u * w, vel_v * h
         vel_len = torch.sqrt(pu * pu + pv * pv)

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..ops.taa import TaaParams, taa_resolve
+from ..render import compiled
 from ..render.frame import (
     FrameConfig,
     FrameOutputs,
@@ -112,6 +113,8 @@ def make_frame_parallel(config: FrameConfig, mesh: Mesh, axis: str = "fp"):
             raise ValueError(
                 "config.taa_enabled needs taa_batch (TaaParams with a "
                 "leading frame axis) and history0")
+        for _ in range(n):  # a frame a device, each eager
+            compiled.count_eager("farm")
         reps = {d: to_device((scene, pool, ibl), d)
                 for d in dict.fromkeys(devices)}
         args = []
@@ -188,6 +191,7 @@ def make_frame_parallel_banded(config: FrameConfig, mesh: Mesh,
                 f"uniform batch has {lead} frames, mesh frame axis has {nf}")
         outs = []
         for i, devs in enumerate(rows):
+            compiled.count_eager("farm bands")
             home = devs[0]
             bo = render_bands(
                 cfg, devs, scene, _frame_of(uni_batch, i, home), pool,

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..render import compiled
 from ..render.frame import (
     BandOutputs,
     BandSpec,
@@ -192,6 +193,7 @@ def make_sharded_frame(config: FrameConfig, mesh: Mesh, axis: str = "sp"):
     def frame(scene: SceneBuffers, uni: FrameUniforms, pool=None, post=None,
               taa_params=None, history=None, lights=None, prev_depth=None,
               ibl=None) -> FrameOutputs:
+        compiled.count_eager("bands")  # a frame across devices: eager
         bo = render_bands(cfg, devices, scene, uni, pool, lights, prev_depth,
                           ibl)
         return finalize_frame(cfg, bo, post, taa_params,

@@ -47,7 +47,8 @@ first to its last kernel on the device, and its host time), and the device
 work that takes the most time. The raster kernel is launched through
 ctypes, so it shows as a kernel and in its scope's device span but not in
 the scope's kernel sum. With --out, the full tables and a Chrome trace are
-written there.
+written there. Every frame here runs eagerly (render/compiled.py's
+`eager`): a graph replay would enter no `pass_*` scope.
 """
 
 from __future__ import annotations
@@ -62,6 +63,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from .parallel import make_sharded_frame, render_mesh
+from .render import compiled
 from .render.diagnostics import DiagnosticsMode
 from .render.bench_scene import (
     animated_models_trs,
@@ -116,6 +118,13 @@ def _report(name, prof, wall_ms, frames):
 
 
 def main(argv=None) -> int:
+    # The per-pass attribution reads the eager frame's pass_* scopes, which
+    # a graph replay does not re-enter: every frame here runs eagerly.
+    with compiled.eager("profile_frame"):
+        return _profile(argv)
+
+
+def _profile(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--out", default=None)

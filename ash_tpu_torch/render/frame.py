@@ -35,10 +35,13 @@ chunks by depth (the renderer's chunked frame). Every raster goes through
 ops/raster_cuda.py:rasterize, and the bloom through
 ops/bloom_cuda.py:bloom_pyramid: CUDA kernels on the card.
 
-PyTorch runs eagerly, so there is no program cache: the FrameConfig only
-carries the static shape of the frame. Each stage runs inside a
+The functions here run eagerly; the renderer captures `render_frame_program`
+and `shadow_program` as CUDA graphs on the card (render/compiled.py, the
+counterpart of the reference's compiled programs), and the FrameConfig is
+part of their key. Each stage runs inside a
 `torch.profiler.record_function` scope named like the reference's
-`pass_*` named scopes, so a profiler trace buckets time by pass.
+`pass_*` named scopes, so a profiler trace of an eager frame buckets time
+by pass (a graph replay enters no scope).
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
+from ..device import constant
 from ..ops import (binning, bloom_cuda, gbuffer_cuda, geometry, msaa_edge,
                    shade_cuda)
 from ..ops.fxaa import fxaa
@@ -423,8 +427,8 @@ def models_from_trs(t: torch.Tensor, q: torch.Tensor,
     ], -2)  # (N, 3, 3), rows i, columns j
     r = r * s[:, None, :]  # column j scaled by s_j: the * S
     top = torch.cat([r, t[:, :, None]], dim=2)  # (N, 3, 4)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=r.dtype,
-                          device=r.device).expand(t.shape[0], 1, 4)
+    bottom = constant([0.0, 0.0, 0.0, 1.0], r.dtype, r.device).expand(
+        t.shape[0], 1, 4)
     return torch.cat([top, bottom], dim=1)
 
 
@@ -676,9 +680,8 @@ def render_band(
                 fb_height=rh, fb_width=rw, **kw,
             )
 
-    # One host-to-device copy per frame, shared by every shaded layer.
-    clear = torch.tensor(cfg.clear_color, dtype=torch.float32,
-                         device=setup.edge.device)
+    # Shared by every shaded layer; made once per device and colour.
+    clear = constant(cfg.clear_color, torch.float32, setup.edge.device)
 
     tile_lights = tile_counts = None
     if cfg.lights_enabled and lights is not None:
@@ -925,8 +928,8 @@ def overflow_taint(image: torch.Tensor, overflow: torch.Tensor,
     sits at the top left."""
     h, w = image.shape[:2]
     blk = max(min(8, h, w // 2), 1)
-    paint = torch.tensor([[255, 0, 255], [0, 255, 255]], dtype=torch.uint8)
-    paint = paint.to(image.device)
+    paint = constant([[255, 0, 255], [0, 255, 255]], torch.uint8,
+                     image.device)
     for i, of in enumerate((overflow, shadow_overflow)):
         if of is None:
             continue

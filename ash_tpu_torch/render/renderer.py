@@ -26,6 +26,13 @@ jitter sequence, last frame's unjittered matrices and models, and the
 history image, which stays on the device between frames; the previous
 frame's depth for Hi-Z occlusion culling; and the IBL bundle.
 
+On the card the frame, the shadow pass and the TRS composition run as CUDA
+graphs (render/compiled.py), keyed on what shapes their work
+(`_frame_key`, `_external_shadow`): the frame's constants ride in one
+static buffer (`_upload_frame`), the models in its last region, and last
+frame's models, history and depth go back in as inputs. The chunked frame
+runs eagerly. On the CPU the same steps run directly.
+
 Every reference option, method and feature runs (UNPORTED_METHODS here
 and render/__init__.py's UNPORTED_NAMES are empty). The reference's
 XLA-only knobs are accepted and have no effect.
@@ -52,6 +59,7 @@ from ..errors import InvalidOperation
 from ..ops.ibl import build_environment
 from ..ops.taa import TaaParams
 from ..ops.texture_sample import TexturePool
+from . import compiled
 from .bindless import BindlessTextureManager
 from .cost_analysis import FrameCost
 from .csm import CascadedShadowMap, CsmConfig
@@ -190,6 +198,14 @@ class RendererConfig:
             raise ValueError(f"unknown shade_dtype {self.shade_dtype!r}")
 
 
+def _keep(buf: Optional[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """x's values in `buf` (copied in place where the shapes and dtypes
+    match, else a fresh clone) -> the buffer that holds them."""
+    if buf is None or buf.shape != x.shape or buf.dtype != x.dtype:
+        return x.clone()
+    return buf.copy_(x)
+
+
 class MsaaPreset:
     """MSAA presets: ordered-grid supersampling with a box resolve, or the
     edge-adaptive resolve (RendererConfig.msaa_resolve)."""
@@ -289,8 +305,24 @@ class Renderer:
         # Hi-Z occlusion culling: last frame's depth, on the device.
         self.occlusion_culling = False
         self._prev_depth: Optional[torch.Tensor] = None
-        # The image-based lighting bundle (ops/ibl.EnvironmentIBL) or None.
+        # The image-based lighting bundle (ops/ibl.EnvironmentIBL) or None,
+        # and a version bumped by every set and clear.
         self._ibl = None
+        self._ibl_epoch = 0
+        # The frame's constants on the device (_upload_frame): one static
+        # buffer, [uniforms | TRS | models], whose layout is
+        # _consts_layout; _models views its models region.
+        self._consts: Optional[torch.Tensor] = None
+        self._consts_layout: Optional[tuple] = None
+        # {frame input: (the renderer's own buffer, the tensor last copied
+        # into it)} for the shadow map, history and previous depth
+        # (_owned).
+        self._inputs: Dict[str, tuple] = {}
+        # The frame, the shadow pass and the TRS composition as CUDA graphs
+        # on the card (render/compiled.py); run directly on the CPU.
+        self._graphs = {"frame": compiled.Graphed("frame"),
+                        "shadow": compiled.Graphed("shadow"),
+                        "models": compiled.Graphed("models", copy_out=False)}
 
         self._scene: Optional[BuiltScene] = None
         # Chunked geometry (config.max_draws_per_chunk): the draw groups,
@@ -304,6 +336,7 @@ class Renderer:
         self._scene_dirty = True
         self._scene_epoch = 0  # one per scene build
         self._models: Optional[torch.Tensor] = None  # (D_pad, 4, 4), device
+        self._models_uploaded = False  # by this frame's prepare_frame
         # The multi-draw path's model matrices on the host, (D_pad, 4, 4):
         # authoritative from the scene build on; uploaded with the next
         # frame's constants while _models_dirty. A dense update_transforms
@@ -813,9 +846,11 @@ class Renderer:
             env = env.to_linear_f32()[..., :3]
         self._ibl = build_environment(np.asarray(env, np.float32), mips=mips,
                                       device=self.device)
+        self._ibl_epoch += 1
 
     def clear_environment_map(self) -> None:
         self._ibl = None
+        self._ibl_epoch += 1
 
     def lod_stats(self, view, proj) -> LodStats:
         """LodStats of the current scene seen through (view, proj): a host
@@ -882,7 +917,7 @@ class Renderer:
         the pass_* scopes that ran (render/cost_analysis.py). Call after a
         warm-up frame, so the frame counted is a steady one (the shadow
         map cached)."""
-        with FrameCost() as cost:
+        with compiled.eager("cost_analysis"), FrameCost() as cost:
             self.render_frame(view, proj, camera_pos)
         return cost.result()
 
@@ -892,6 +927,7 @@ class Renderer:
         reference's scope names. It synchronises the device: use on
         demand."""
         self._sync_item_models()
+        compiled.count_eager("profile_passes")
         return profile_passes(self, view, proj, camera_pos, n=n)
 
     def _update_diagnostics(self, draw_calls: int, frame_ms: float) -> None:
@@ -1174,8 +1210,10 @@ class Renderer:
         proj_unjittered = proj
         self._unjittered_view_proj = (proj @ view).astype(np.float32)
 
-        # TAA: advance the jitter and perturb the projection.
-        taa_params = None
+        # TAA: advance the jitter and perturb the projection. The jitters
+        # and the blend factor ride in the frame's constants, so a captured
+        # frame reads each frame's own.
+        taa = None
         if self._taa_active():
             self.temporal_aa.begin_frame()
             # The jitter is in internal pixels, so TAAU covers the
@@ -1189,12 +1227,12 @@ class Renderer:
                                np.float32)
             # Without a history the frame passes through unblended.
             first = self._taa_history is None
-            taa_params = TaaParams(
-                blend_factor=0.0 if first else float(p["blend_factor"]),
+            taa = dict(
                 color_clamp=float(p["color_clamp"]),
                 velocity_rejection=float(p["velocity_rejection"]),
-                jitter=p["jitter"] * j_scale,
-                prev_jitter=p["prev_jitter"] * j_scale,
+                taa_jitter=p["jitter"] * j_scale,
+                taa_prev_jitter=p["prev_jitter"] * j_scale,
+                taa_blend=np.float32(0.0 if first else p["blend_factor"]),
             )
 
         light_dir = FRAME_LIGHT_DIR / np.linalg.norm(FRAME_LIGHT_DIR)
@@ -1220,32 +1258,44 @@ class Renderer:
             count = self.csm_manager.config.cascade_count
             parts["cascade_matrices"] = gpu.light_matrices[:count]
             parts["cascade_splits"] = gpu.split_distances
-        if taa_params is not None:
+        if taa is not None:
             # On the first TAA frame the current matrices stand in for the
             # previous ones: zero velocity, right for a fresh history.
             parts["prev_view_proj"] = (
                 self._prev_view_proj if self._prev_view_proj is not None
                 else self._unjittered_view_proj)
+            parts.update((k, taa.pop(k)) for k in
+                         ("taa_jitter", "taa_prev_jitter", "taa_blend"))
         # The models ride in the same copy: every frame on the single-mesh
         # path (its transform may change each frame), after a build or an
-        # update on the multi-draw path, as matrices or as TRS.
+        # update on the multi-draw path, as matrices or as TRS, which the
+        # device composes into the models region.
+        d_pad = self._scene.buffers.num_draws
+        models = trs = None
         if not self.draw_items:
-            parts["models"] = build_models(items, self._scene.buffers.num_draws)
+            models = build_models(items, d_pad)
         elif self._models_dirty and self._trs_pending:
-            parts.update(zip(("trs_t", "trs_q", "trs_s"), self._trs_host))
+            trs = self._trs_host
         elif self._models_dirty:
-            parts["models"] = self._models_host
+            models = self._models_host
         # One host->device copy for all per-frame constants.
-        dev = self._upload(parts)
-        if "models" in dev:
-            self._models = dev.pop("models")
-        elif "trs_t" in dev:
-            self._models = models_from_trs(dev.pop("trs_t"), dev.pop("trs_q"),
-                                           dev.pop("trs_s"))
+        dev = self._upload_frame(parts, d_pad, trs, models)
+        if trs is not None:
+            self._models.copy_(self._graphs["models"](
+                d_pad, models_from_trs, *dev.pop("trs")))
+        self._models_uploaded = trs is not None or models is not None
         self._models_dirty = False
+        taa_params = None
+        if taa is not None:
+            taa_params = TaaParams(
+                blend_factor=dev.pop("taa_blend"), jitter=dev.pop("taa_jitter"),
+                prev_jitter=dev.pop("taa_prev_jitter"), **taa)
         prev_models = None
         if taa_params is not None:
             # So do the current models after a change of the draw count.
+            # That is only ever a key's first frame (a new draw count is a
+            # new scene build), which runs eagerly: no graph reads the
+            # models region as last frame's models.
             prev_models = (
                 self._prev_models if self._prev_models is not None
                 and self._prev_models.shape == self._models.shape
@@ -1274,18 +1324,57 @@ class Renderer:
         return FrameInputs(cfg, self._scene, uni, pool, lights, post,
                            taa_params)
 
-    def _upload(self, parts: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """`parts` in one host-to-device copy -> views of it with each
-        part's shape."""
+    def _upload_frame(self, parts: Dict[str, np.ndarray], d_pad: int,
+                      trs: Optional[tuple] = None,
+                      models: Optional[np.ndarray] = None
+                      ) -> Dict[str, torch.Tensor]:
+        """The frame's uniforms `parts`, and the TRS ((D_pad, 3), (D_pad,
+        4), (D_pad, 3)) or the (D_pad, 4, 4) models when they moved, in one
+        host-to-device copy into the renderer's static constants buffer ->
+        views of it with each part's shape, and the TRS as "trs". The
+        buffer is [uniforms | TRS, 10 floats a draw | models, 16] and stays
+        while its layout does, so a captured frame reads the same memory
+        every frame; _models views its models region, which keeps the last
+        models uploaded or composed. A prepare_frame's views are overwritten
+        by the next one's copy."""
         arrays = {k: np.asarray(v, np.float32) for k, v in parts.items()}
-        consts = torch.from_numpy(
-            np.concatenate([a.ravel() for a in arrays.values()])
-        ).to(self.device)
+        n_uni = sum(a.size for a in arrays.values())
+        layout = (tuple((k, a.shape) for k, a in arrays.items()), d_pad)
+        if layout != self._consts_layout:
+            buf = torch.empty(n_uni + 26 * d_pad, dtype=torch.float32,
+                              device=self.device)
+            region = buf[n_uni + 10 * d_pad:].view(d_pad, 4, 4)
+            old = self._models
+            if (models is None and trs is None and old is not None
+                    and old.shape == region.shape):
+                region.copy_(old)  # unmoved models carry over
+            self._consts, self._consts_layout = buf, layout
+            self._models = region
+        host = [a.ravel() for a in arrays.values()]
+        if trs is not None:
+            host += [np.asarray(x, np.float32).ravel() for x in trs]
+        elif models is not None:
+            host += [np.zeros(10 * d_pad, np.float32),
+                     np.asarray(models, np.float32).ravel()]
+        flat = np.concatenate(host)
+        self._consts[:flat.size].copy_(torch.from_numpy(flat))
         out, start = {}, 0
         for name, a in arrays.items():
-            out[name] = consts[start:start + a.size].view(a.shape)
+            out[name] = self._consts[start:start + a.size].view(a.shape)
             start += a.size
+        if trs is not None:
+            t, q, s = (self._consts[start + d_pad * a:start + d_pad * b]
+                       .view(d_pad, b - a) for a, b in ((0, 3), (3, 7), (7, 10)))
+            out["trs"] = (t, q, s)
         return out
+
+    @staticmethod
+    def _shadow_shape(cfg: FrameConfig) -> tuple:
+        """The fields of the config that shape the shadow pass."""
+        return (cfg.shadow_resolution, cfg.shadow_cascades, cfg.shadow_tile,
+                cfg.shadow_rows, cfg.shadow_max_tris_per_tile,
+                cfg.two_level_binning, cfg.binning_coarse_cap,
+                cfg.binning_policy, cfg.textured, cfg.alpha_test)
 
     def _shadow_key(self, cfg: FrameConfig) -> tuple:
         """What the shadow pass reads: the shadow-shaping config, the
@@ -1305,14 +1394,10 @@ class Renderer:
             lkey = np.ascontiguousarray(
                 self.shadow_feature.light_space_matrix(), dtype=np.float32
             ).tobytes()
-        # The fields of the config that shape the shadow pass. It reads the
-        # materials and the pool only through the alpha test, so only then
-        # do their versions key the map: an untextured material edit keeps
-        # it.
-        shape = (cfg.shadow_resolution, cfg.shadow_cascades, cfg.shadow_tile,
-                 cfg.shadow_rows, cfg.shadow_max_tris_per_tile,
-                 cfg.two_level_binning, cfg.binning_coarse_cap,
-                 cfg.binning_policy, cfg.textured, cfg.alpha_test)
+        # The shadow pass reads the materials and the pool only through the
+        # alpha test, so only then do their versions key the map: an
+        # untextured material edit keeps it.
+        shape = self._shadow_shape(cfg)
         sampled = ((self._materials_epoch, self.bindless.version)
                    if cfg.alpha_test else None)
         return (shape, self._scene_epoch, mkey, lkey, sampled)
@@ -1330,11 +1415,38 @@ class Renderer:
         return sm, sof
 
     def _external_shadow(self, inputs: FrameInputs) -> tuple:
-        """Render (or reuse) the shadow map of the frame's scene."""
-        uni = inputs.uniforms
-        return self._cached_shadow(inputs.config, lambda: shadow_program(
-            inputs.config, inputs.scene.buffers, uni.models,
+        """Render (or reuse) the shadow map of the frame's scene: the
+        shadow graph, keyed on what shapes the pass (the shadow fields of
+        the config, the scene build, the material and pool versions), runs
+        when _shadow_key's cache misses; a moved scene replays it."""
+        cfg, uni = inputs.config, inputs.uniforms
+        key = (self._shadow_shape(cfg), self._scene_epoch,
+               self._materials_epoch,
+               None if inputs.pool is None else self.bindless.version)
+        return self._cached_shadow(cfg, lambda: self._graphs["shadow"](
+            key, shadow_program, cfg, inputs.scene.buffers, uni.models,
             uni.light_space_matrix, inputs.pool, uni.cascade_matrices))
+
+    def _frame_key(self, inputs: FrameInputs, shadow, history,
+                   prev_depth) -> tuple:
+        """What shapes the frame graph's work (the reference's compiled
+        frame is one program per FrameConfig): the config (its extent and
+        binning caps among it), the scene build, the material, pool, light
+        and environment versions, the post chain's values (the bloom and
+        tonemap take them as scalars), TAA's two switches, and which of the
+        shadow map, history and previous depth exist. A camera move or a
+        models update keeps it: those are inputs."""
+        taa = inputs.taa_params
+        return (
+            inputs.config, self._scene_epoch, self._materials_epoch,
+            None if inputs.pool is None else self.bindless.version,
+            None if inputs.lights is None else self.lighting_feature.version,
+            self._ibl_epoch,
+            None if inputs.post is None else tuple(map(float, inputs.post)),
+            None if taa is None else (taa.color_clamp > 0.5,
+                                      taa.velocity_rejection > 0.5),
+            shadow is not None, history is not None, prev_depth is not None,
+        )
 
     def render_frame(self, view, proj, camera_pos) -> FrameOutputs:
         """Render and present one frame. A LOD scene renders its shadow map
@@ -1343,9 +1455,11 @@ class Renderer:
         against a far-plane depth (nothing is known occluded yet) and every
         frame keeps its depth for the next. In an overlay diagnostics mode
         the stats text is blended onto the image on the device before its
-        copy to the host."""
+        copy to the host. On the card the frame replays its CUDA graph
+        (render/compiled.py) from the second frame of a key on."""
         start = time.perf_counter()
         if self._chunked():
+            compiled.count_eager("chunked")
             return self._render_frame_chunked(view, proj, camera_pos, start)
         inputs = self.prepare_frame(view, proj, camera_pos)
         cfg = inputs.config
@@ -1367,18 +1481,52 @@ class Renderer:
                 history = torch.zeros(
                     (self._height, self._width, 3), dtype=torch.float32,
                     device=self.device)
-        outputs = render_frame_program(
-            inputs.config, inputs.scene.buffers, inputs.uniforms, shadow,
-            inputs.pool, inputs.lights, inputs.post, inputs.taa_params,
-            history, prev_depth, self._ibl,
+        # The shadow map, the history and the previous depth go in through
+        # the renderer's own buffers (_owned): a graph captured with them
+        # reads them in place, and no tensor a frame returned is written.
+        shadow_in = None
+        if shadow is not None:
+            shadow_in = (self._owned("shadow_map", shadow[0]),
+                         self._owned("shadow_overflow", shadow[1]))
+        outputs = self._graphs["frame"](
+            self._frame_key(inputs, shadow, history, prev_depth),
+            render_frame_program, inputs.config, inputs.scene.buffers,
+            inputs.uniforms, shadow_in, inputs.pool, inputs.lights,
+            inputs.post, inputs.taa_params, self._owned("history", history),
+            self._owned("prev_depth", prev_depth), self._ibl,
         )
+        if shadow is not None:  # the map the shadow pass made, as eager
+            outputs = outputs._replace(shadow_map=shadow[0],
+                                       shadow_overflow=shadow[1])
         if outputs.history is not None:
             self._taa_history = outputs.history
         if self.occlusion_culling:
             self._prev_depth = outputs.depth
         self._prev_view_proj = self._unjittered_view_proj
-        self._prev_models = inputs.uniforms.models
+        self._keep_prev_models()
         return self._present(outputs, start)
+
+    def _owned(self, slot: str, x: Optional[torch.Tensor]):
+        """x's values in the renderer's own buffer for the frame input
+        `slot`, copied again only when x is not the tensor last copied (a
+        static scene's shadow map once, the history every frame)."""
+        if x is None:
+            return None
+        buf, src = self._inputs.get(slot, (None, None))
+        if src is not x:
+            buf = _keep(buf, x)
+            self._inputs[slot] = (buf, x)
+        return buf
+
+    def _keep_prev_models(self) -> None:
+        """Last frame's models for TAA's motion vectors: a copy of the
+        models region, made when the models moved (the next frame's upload
+        or composition overwrites the region in place)."""
+        prev = self._prev_models
+        if prev is None or prev.shape != self._models.shape:
+            self._prev_models = self._models.clone()
+        elif self._models_uploaded:
+            prev.copy_(self._models)
 
     def _present(self, outputs: FrameOutputs, start: float) -> FrameOutputs:
         """Composite the overlay, copy the image to the host (a blocking
@@ -1550,7 +1698,7 @@ class Renderer:
             parts["prev_view_proj"] = (
                 self._prev_view_proj if self._prev_view_proj is not None
                 else self._unjittered_view_proj)
-        base = FrameUniforms(models=None, **self._upload(parts))
+        base = FrameUniforms(models=None, **self._upload_frame(parts, 0))
         post = PostParams(
             exposure=np.float32(self.tonemapping_exposure),
             gamma=np.float32(self.tonemapping_gamma),

@@ -300,8 +300,35 @@ fails. Phases, one stdout line each:
    kernels' time a frame by name. Phase 4 counts the shading launches of
    the standard, glass, lit, rich and rich render_scale 0.5 frames from 0
    as well.
+15. the graphed frame (render/compiled.py): the benchmark's six cells
+   (benchmark/scenes.py at 1920x1080, their own poses), each through two
+   fresh renderers, one eager throughout (compiled.eager), one graphed:
+   frames 0-3 equal bit for bit in every FrameOutputs field (u8 image,
+   colour, depth, the scalars, the shadow map, the history) and unchanged
+   after the later frames, the eager
+   renderer's steps from frame 1 on free of host syncs (sync debug mode
+   "error"), the graphed renderer warmed up once, captured once and
+   replaying every later frame, and every kernel counter advanced as the
+   eager renderer's did; then 30 frames a timed window in turns (eager,
+   graphed, graphed, eager): p50 and p90 frame ms, render_frame's host ms
+   up to the image copy, peak memory allocated and reserved; the device's
+   kernels and copies, the host's launch calls and the device busy time a
+   frame (torch.profiler, 3 frames each); the graphs' own device time (20
+   replays between CUDA events), the image copy's time alone (freed at
+   once, the previous copy held as render_frame holds it, into a pinned
+   buffer) and the graphs' private pools. Each line carries the card's
+   name and power limit.
 
-Then one JSON line on the kernels and, last, the device JSON line.
+Phases 3-14 run their frames eagerly (`compiled.eager`): they patch plain
+versions into the entries, record the entries' calls through observers and
+read the eager frame's `pass_*` scopes, none of which a replay re-enters.
+
+Then one JSON line of phase 15's rows, one on the kernels and, last, the
+device JSON line.
+
+`python3 chip_smoke.py --graphs FRAMES` runs phases 1, 2 and 15 only, with
+FRAMES frames a timed window, then phase 15's JSON line and the device
+line.
 
 `python3 chip_smoke.py --parent DIR [--variant LABEL=DIR ...]` runs phase 1
 and then, instead of the phases above, ab_phase: another checkout's light,
@@ -313,6 +340,7 @@ measured.
 """
 
 import argparse
+import collections
 import concurrent.futures
 import contextlib
 import functools
@@ -3754,6 +3782,255 @@ def ab_phase(card, view, proj, pos, trees):
     return results
 
 
+# Phase 15: the benchmark's six cells, eager and graphed. The frames held
+# equal (frames 0-3 of each renderer; frame 0 is the graphed renderer's
+# eager warm-up, frame 1 its capture), the FrameOutputs fields compared.
+GRAPH_CHECK_FRAMES = 4
+GRAPH_FIELDS = ("image", "color", "depth", "covered_pixels",
+                "binning_overflow", "shadow_overflow", "visible_draws",
+                "msaa_edge_overflow", "shadow_map", "history")
+# The timed windows' order: eager, graphed, graphed, eager.
+GRAPH_TURNS = ("eager", "graphed", "graphed", "eager")
+# CUDA runtime calls that launch work from the host, as torch.profiler
+# names them.
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernel", "cuLaunchKernelEx", "cudaMemcpyAsync",
+                     "cudaMemsetAsync", "cudaGraphLaunch")
+
+
+def launch_profile(step, n=3):
+    """Per frame over n frames of step under torch.profiler: (kernels and
+    copies on the device, launch calls on the host (HOST_LAUNCH_CALLS),
+    device busy ms)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            step(i)
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    work = [e for e in avgs
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    host = [e for e in avgs if e.device_type == DeviceType.CPU
+            and e.key in HOST_LAUNCH_CALLS]
+    return (sum(e.count for e in work) / n, sum(e.count for e in host) / n,
+            sum(e.self_device_time_total for e in work) / 1e3 / n)
+
+
+def graph_phase(card, frames):
+    """Phase 15: each of the benchmark's cells (benchmark/scenes.py, at
+    1920x1080, its own poses) through two fresh renderers, one eager
+    throughout (render/compiled.py's eager()), one graphed. Frames 0-3 of
+    both must be equal bit for bit in every FrameOutputs field, the eager
+    renderer's frames 1-3 must make no host sync in their steps
+    (compiled.no_host_sync), the graphed one must warm up once, capture
+    once and replay every later frame, and every kernel counter must
+    advance as the eager renderer's did. Then `frames` frames a window in
+    turns (eager, graphed, graphed, eager): p50 and p90 of apply_pose's
+    wall ms (the benchmark's timed frame: the TRS update and render_frame,
+    which ends in the image's blocking copy), the host ms of render_frame
+    up to that copy, peak memory allocated and reserved over the window,
+    and, from 3 profiled frames of each after the windows, the device's
+    kernels and copies, the host's launch calls and the device busy ms a
+    frame. -> {cell: row}."""
+    import contextlib
+    import gc
+
+    import torch
+    from benchmark import scenes
+    from benchmark.run import percentile
+    from ash_tpu_torch.render import compiled
+
+    api = scenes.port_api("cuda")
+    rows = {}
+
+    def pool_segments():
+        """{private pool id: bytes} of the allocator's segments."""
+        out = collections.Counter()
+        for seg in torch.cuda.memory_snapshot():
+            pid = tuple(seg.get("segment_pool_id", (0, 0)))
+            if pid != (0, 0):
+                out[pid] += seg["total_size"]
+        return out
+
+    for name in scenes.CELL_NAMES:
+        t_cell = time.perf_counter()
+        pools_before = set(pool_segments())
+        cell = scenes.load_cell(name)
+        rends = {}
+        for mode in ("eager", "graphed"):
+            data = scenes.scene_data(cell, api, 0)
+            rends[mode] = [scenes.build_renderer(cell, data, api), data, 0]
+
+        def mode_ctx(mode, checked=False):
+            stack = contextlib.ExitStack()
+            if mode == "eager":
+                stack.enter_context(compiled.eager("chip_smoke eager"))
+                if checked:
+                    stack.enter_context(compiled.no_host_sync())
+            return stack
+
+        outs, counts, stats = {}, {}, {}
+        for mode, rd in rends.items():
+            r, data, _ = rd
+            compiled.reset_stats()
+            before = compiled.counters()
+            got, kept = [], []
+            for i in range(GRAPH_CHECK_FRAMES):
+                with mode_ctx(mode, checked=i > 0):
+                    o = scenes.render(cell, data, r, i)
+                got.append({f: (None if getattr(o, f) is None
+                                else getattr(o, f).clone())
+                            for f in GRAPH_FIELDS})
+                kept.append(o)
+            # A frame's returned outputs stay as they were after the next.
+            moved = [(i, f) for i, (o, g) in enumerate(zip(kept, got))
+                     for f in GRAPH_FIELDS if g[f] is not None
+                     and not torch.equal(getattr(o, f), g[f])]
+            check(not moved, f"phase15 {name} {mode}: returned outputs "
+                  f"changed by later frames, (frame, field) {moved[:8]}")
+            del kept, o
+            rd[2] = GRAPH_CHECK_FRAMES
+            counts[mode] = compiled.counter_delta(compiled.counters(), before)
+            stats[mode] = {k: {**v, "eager": dict(v["eager"])}
+                           for k, v in compiled.stats.items()}
+            outs[mode] = got
+        differ = [(i, f) for i, (g, e) in enumerate(zip(outs["graphed"],
+                                                        outs["eager"]))
+                  for f in GRAPH_FIELDS
+                  if (g[f] is None) != (e[f] is None)
+                  or (g[f] is not None and not torch.equal(g[f], e[f]))]
+        check(not differ, f"phase15 {name}: graphed frames differ from "
+              f"eager ones in (frame, field) {differ[:8]}")
+        check(counts["graphed"] == counts["eager"] and counts["eager"],
+              f"phase15 {name}: kernel counters graphed {counts['graphed']} "
+              f"against eager {counts['eager']}")
+        st = stats["graphed"]["frame"]
+        check(st["captures"] == 1 and st["eager"] == {"first": 1}
+              and st["replays"] == GRAPH_CHECK_FRAMES - 1,
+              f"phase15 {name}: the graphed renderer's frame steps {st}")
+        check(stats["eager"]["frame"]["replays"] == 0
+              and stats["eager"]["frame"]["eager"]
+              == {"chip_smoke eager": GRAPH_CHECK_FRAMES},
+              f"phase15 {name}: the eager renderer's frame steps "
+              f"{stats['eager']['frame']}")
+        print(f"phase15 graphs {name}: frames 0-{GRAPH_CHECK_FRAMES - 1} "
+              f"graphed == eager bit for bit ({', '.join(GRAPH_FIELDS)}), "
+              f"each unchanged after the later frames; "
+              f"eager frames 1-{GRAPH_CHECK_FRAMES - 1} made no host sync in "
+              f"their steps; steps graphed {stats['graphed']}; kernel "
+              f"counters advanced equally: "
+              f"{ {f'{m}.{k}': v for (m, k), v in counts['eager'].items()} }"
+              f" | {card}", flush=True)
+        del outs
+
+        marks = []
+        for r, _, _ in rends.values():
+            def present(outputs, start, _r=r, _orig=type(r)._present):
+                marks.append(time.perf_counter())
+                return _orig(_r, outputs, start)
+            r._present = present
+        windows = []
+        for w, mode in enumerate(GRAPH_TURNS):
+            rd = rends[mode]
+            r, data = rd[0], rd[1]
+            compiled.reset_stats()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            walls, hosts = [], []
+            with mode_ctx(mode):
+                for _ in range(frames):
+                    pose = scenes.frame_pose(cell, data, rd[2])
+                    rd[2] += 1
+                    del marks[:]
+                    t0 = time.perf_counter()
+                    scenes.apply_pose(r, pose)
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                    hosts.append((marks[0] - t0) * 1e3)
+            torch.cuda.synchronize()
+            st = compiled.stats.get("frame", {})
+            check(st.get("replays", 0) == (frames if mode == "graphed" else 0),
+                  f"phase15 {name} window {w} ({mode}): frame steps {st}")
+            row = {"mode": mode, "p50_ms": percentile(walls, 50),
+                   "p90_ms": percentile(walls, 90),
+                   "host_ms_p50": percentile(hosts, 50),
+                   "peak_allocated_mib":
+                       torch.cuda.max_memory_allocated() / 2**20,
+                   "peak_reserved_mib":
+                       torch.cuda.max_memory_reserved() / 2**20}
+            windows.append(row)
+            print(f"phase15 graphs {name} window {w} {mode} ({frames} "
+                  f"frames): p50 {row['p50_ms']:.3f} ms, p90 "
+                  f"{row['p90_ms']:.3f} ms, render_frame host ms to the "
+                  f"image copy p50 {row['host_ms_p50']:.3f}, peak allocated "
+                  f"{row['peak_allocated_mib']:.1f} MiB, reserved "
+                  f"{row['peak_reserved_mib']:.1f} MiB | {card}", flush=True)
+        prof = {}
+        for mode, rd in rends.items():
+            r, data = rd[0], rd[1]
+
+            def step(i, r=r, data=data, rd=rd):
+                scenes.render(cell, data, r, rd[2])
+                rd[2] += 1
+
+            with mode_ctx(mode):
+                prof[mode] = launch_profile(step)
+            print(f"phase15 graphs {name} {mode}, 3 profiled frames: "
+                  f"{prof[mode][0]:.1f} kernels and copies on the device, "
+                  f"{prof[mode][1]:.1f} launch calls on the host, device "
+                  f"busy {prof[mode][2]:.3f} ms a frame | {card}", flush=True)
+        # The graphs' own device time (replays between CUDA events, no
+        # host work), and the image's blocking copy to the host alone.
+        r = rends["graphed"][0]
+        replay_ms = {k: cuda_ms(g._graph.replay, 20)
+                     for k, g in r._graphs.items() if g.captured}
+        image = r.last_outputs().image
+
+        def copy_ms_of(fn):
+            walls = []
+            for _ in range(20):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(walls)
+
+        # Freed at once; the previous copy held until replaced, as
+        # render_frame holds the last image; into one pinned buffer.
+        held = [image.cpu()]
+        pinned = torch.empty(image.shape, dtype=image.dtype, pin_memory=True)
+        copy_ms = {"freed": copy_ms_of(image.cpu),
+                   "held": copy_ms_of(lambda: held.__setitem__(0,
+                                                                image.cpu())),
+                   "pinned": copy_ms_of(lambda: pinned.copy_(image))}
+        del image, held, pinned
+        # The graphs' private pools: what a replay's working set holds,
+        # which max_memory_allocated does not count during a replay.
+        pool_mib = sum(n for pid, n in pool_segments().items()
+                       if pid not in pools_before) / 2**20
+        print(f"phase15 graphs {name}: graph replay device ms "
+              f"{ {k: round(v, 4) for k, v in replay_ms.items()} }, the "
+              f"image's copy to the host alone, ms (median of 20) "
+              f"{ {k: round(v, 3) for k, v in copy_ms.items()} }, the graphs' "
+              f"private pools {pool_mib:.1f} MiB | {card}",
+              flush=True)
+        rows[name] = {"windows": windows, "profiled": prof,
+                      "replay_device_ms": replay_ms, "image_copy_ms": copy_ms,
+                      "graph_pool_mib": pool_mib,
+                      "check_frames": GRAPH_CHECK_FRAMES,
+                      "seconds": time.perf_counter() - t_cell}
+        for rd in rends.values():
+            del rd[0]._present  # the timing hook refers to its renderer
+        del rends, rd, r, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(
         description="Drive the port on one CUDA card (see the module's "
@@ -3766,6 +4043,9 @@ def main() -> int:
                     metavar="LABEL=DIR", help="with --parent: a copy of a "
                     "tree's csrc/ changed to measure a part of the time, "
                     "timed between the turns")
+    ap.add_argument("--graphs", type=int, default=None, metavar="FRAMES",
+                    help="run phases 1, 2 and 15 only, FRAMES frames a "
+                    "timed window (the default run times 30)")
     args = ap.parse_args()
     trees = {}
     if args.parent is not None:
@@ -3788,6 +4068,7 @@ def main() -> int:
 
     import ash_tpu_torch
     from ash_tpu_torch.ops import _build, binning, raster, raster_cuda
+    from ash_tpu_torch.render import compiled
     from ash_tpu_torch.ops import lights_cuda, texture_cuda
     from ash_tpu_torch.render import RenderCommand, frame, golden_scenes
     from ash_tpu_torch.core import maths
@@ -3868,6 +4149,22 @@ def main() -> int:
                       for k, (r, sp) in sorted(usage.items())), flush=True)
     spills = {k: sp for k, (_, sp) in usage.items() if sp}
     check(not spills, f"instantiations spill: {spills}")
+    if args.graphs is not None:
+        rows = graph_phase(card, args.graphs)
+        foreign = sorted(m for m in sys.modules if m in ("jax", "ash_tpu")
+                         or m.startswith(("jax.", "ash_tpu.")))
+        check(not foreign, f"the port loaded jax or ash_tpu: {foreign[:5]}")
+        print(json.dumps({"graphs": rows, "card": card}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
+    # Phases 3-14 hold the kernels to their plain versions through patched
+    # entries, observers and the eager frame's pass_* scopes, none of which
+    # a graph replay re-enters: their frames run eagerly (the same step the
+    # card captures, run directly). Phase 15 drives the graphed frames.
+    eager_phases = contextlib.ExitStack()
+    eager_phases.enter_context(compiled.eager("chip_smoke phases 3-14"))
 
     # 3. Kernel against plain at the main path's shapes.
     r, _, cam, _ = build_bench_renderer(1920, 1080, 1000, "cuda")
@@ -5294,6 +5591,10 @@ def main() -> int:
     shade_rows, shade_err = shade_phase(card, view, proj, pos,
                                         shade_launches, usage, shade_cases)
     del shade_cases
+    eager_phases.close()
+    # 15. The benchmark's six cells graphed against eager.
+    graph_rows = graph_phase(card, 30)
+    print(json.dumps({"graphs": graph_rows, "card": card}))
 
     foreign = sorted(m for m in sys.modules if m in ("jax", "ash_tpu")
                      or m.startswith(("jax.", "ash_tpu.")))
