@@ -3,41 +3,53 @@ the reference's compiled programs (ash_tpu/render/frame.py
 `compiled_frame`, `compiled_shadow`), which the reference's renderer runs
 once per FrameConfig.
 
-A `Graphed` runs one step function under a key, the set of things that
-shape the step's work (render/renderer.py builds them: the FrameConfig,
-the scene, material, pool, light and environment versions, the post
-chain's values, TAA's switches). On a CUDA device:
+A `Graphed` runs one step function under a key: the caller's, the set of
+things that shape the step's work (render/renderer.py builds them: the
+FrameConfig, the scene, material, pool, light and environment versions,
+the post chain's values, TAA's switches), together with the step's
+argument structure and the memory each tensor argument reads (its
+address, shape, strides, dtype and device). A caller whose step should
+replay passes the same buffers every call and writes each call's values
+into them in place (the renderer's constants buffer, its models region,
+its TAA history, previous depth and shadow map); a tensor in other memory
+makes a new key. On a CUDA device, once asked (`enabled`, which
+Renderer.set_cuda_graphs sets):
 
 - the key's first call runs the step eagerly: it loads the kernels'
   libraries, fills the shared device constants (device.constant) and warms
   the allocator (a call inside `eager()` warms the key as well);
 - the second captures the step in a `torch.cuda.CUDAGraph`, in a private
   memory pool, and replays it;
-- every later call copies each input tensor that is not the captured one
-  into it (a renderer's own static buffers are the captured ones, so they
-  are not copied) and replays. The captured inputs are the capturing
-  call's own tensors, written by later calls: a caller passes only tensors
-  it never hands out (the renderer's own buffers, render/renderer.py
-  `_owned`).
+- every later call replays it. The captured arguments are held, so their
+  memory stays theirs while the graph lives.
 
 A new key frees the old key's graph first, so a `Graphed` holds at most
 one. A replay returns what the step returned, with every tensor of graph
-memory cloned out (`copy_out`), so a frame's outputs stay valid after the
-next replay, and an input passed through returned as the caller's own.
-A capture that fails raises; nothing runs eagerly in its place.
+memory cloned out, so a frame's outputs stay valid after the next replay;
+an argument the step returns comes back as itself. A capture that fails
+raises; nothing runs eagerly in its place.
+
+Graphs are off unless asked, because the benchmark (benchmark/run.py)
+cannot read a graphed frame yet: its peak memory is
+`max_memory_allocated`, which leaves out a graph's private pool, and its
+pass breakdown and raster bound come from the eager frame's `pass_*`
+scopes and kernel observers, which a replay does not enter (ROADMAP D19).
 
 The kernels' launch counters (ops/raster_cuda.rasterize.launches and the
-`launches` dicts of the other ops/*_cuda.py modules) count Python calls,
-which a replay does not make: each counter's change during the capture is
-recorded, taken back (the capture launched nothing), and added at every
-replay, so the counters go on counting real launches.
+`launches` dicts of the other ops/*_cuda.py modules) count their wrappers'
+calls: an eager launch, or a launch a capture records, once. A replay
+makes no call and adds nothing; its launches are read from a profiler
+trace by kernel name (chip_smoke.py phase 15).
 
-Eager frames are counted by reason in `stats`: "first" (a key's warm-up),
+Eager calls are counted by reason in `stats`: "first" (a key's warm-up),
 "cpu" (a CPU frame: the step runs directly each frame, on the same static
-buffers the card captures), and whatever a caller names with `eager(...)`
-(the chunked frame, the bands and farms of parallel/, the cost analysis,
-the pass profiler, profile_frame.py and host_profile.py, which read the
-eager frame's `pass_*` scopes or Python calls) or `count_eager(...)`.
+buffers the card captures), "graphs off" (not asked), "observers" (a
+kernel observer is registered: it is handed every launch's tensors, which
+a replay makes no call to hand), and whatever a caller names with
+`eager(...)` (the chunked frame, the bands and farms of parallel/, the
+cost analysis, the pass profiler, profile_frame.py and host_profile.py,
+which read the eager frame's `pass_*` scopes or Python calls) or
+`count_eager(...)`.
 """
 
 from __future__ import annotations
@@ -117,49 +129,34 @@ def counters() -> Dict[tuple, int]:
     return out
 
 
-def _add_counters(delta: Dict[tuple, int], sign: int = 1) -> None:
+def _observed() -> bool:
+    """Whether any kernel observer is registered."""
     from ..ops import raster_cuda
 
-    mods = {m.__name__.rsplit(".", 1)[1]: m for m in _counter_modules()}
-    for (mod, key), n in delta.items():
-        if not n:
-            continue
-        if mod == "raster_cuda":
-            setattr(raster_cuda.rasterize, key,
-                    getattr(raster_cuda.rasterize, key) + sign * n)
-        else:
-            mods[mod].launches[key] += sign * n
+    return bool(raster_cuda.rasterize.observers) or any(
+        mod.observers for mod in _counter_modules())
 
 
-def _same_view(x: torch.Tensor, s: torch.Tensor) -> bool:
-    """Whether x reads exactly the memory of s (s is kept alive, so an
-    equal address is its storage)."""
-    return x is s or (x.data_ptr() == s.data_ptr() and x.dtype == s.dtype
-                      and x.shape == s.shape and x.stride() == s.stride())
+def _memory(t: torch.Tensor) -> tuple:
+    """What a captured launch reads of t: its memory and its layout."""
+    return (t.data_ptr(), t.shape, t.stride(), t.dtype, t.device)
 
 
 class Graphed:
     """One step function as a CUDA graph under a key (see the module's
-    docstring). `name` keys `stats`; with copy_out=False a replay returns
-    graph memory, valid until the next replay."""
+    docstring); `name` keys `stats`."""
 
-    def __init__(self, name: str, copy_out: bool = True):
+    def __init__(self, name: str):
         self.name = name
-        self.copy_out = copy_out
-        self.key = None
-        self._warm = False
-        self._graph: Optional[torch.cuda.CUDAGraph] = None
-        self._static: List[torch.Tensor] = []
-        self._spec = None
-        self._out = None
-        self._delta: Dict[tuple, int] = {}
+        self.enabled = False
+        self.reset()
 
     def reset(self) -> None:
-        """Free the graph, its pool's hold and its static inputs."""
+        """Free the graph, its pool's hold and its captured arguments."""
         self.key = None
-        self._warm = False
-        self._graph = None
-        self._static, self._spec, self._out, self._delta = [], None, None, {}
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._static: List[torch.Tensor] = []
+        self._out = None
 
     @property
     def captured(self) -> bool:
@@ -167,34 +164,37 @@ class Graphed:
 
     def __call__(self, key, fn: Callable, *args):
         """fn(*args), eagerly, captured or replayed as the module's
-        docstring says. `key` must cover every non-tensor argument and
-        every tensor shape that shapes fn's work."""
+        docstring says. `key` must cover every non-tensor argument, and
+        every tensor value, that shapes fn's work."""
         leaves, spec = pytree.tree_flatten(args)
         tensors = [x for x in leaves if isinstance(x, torch.Tensor)]
-        # The structure: which leaves are tensors (None is a leaf too).
-        spec = (spec, tuple(isinstance(x, torch.Tensor) for x in leaves))
-        st = _stats(self.name)
-        if key != self.key:
+        key = (key, spec, tuple(map(_memory, tensors)))
+        first = key != self.key
+        if first:
             self.reset()
             self.key = key
-        warm, self._warm = self._warm, True
-        if _eager_reasons:
-            st["eager"][_eager_reasons[-1]] += 1
-            return self._eager(fn, args, checked=warm)
-        if not any(t.is_cuda for t in tensors):
-            st["eager"]["cpu"] += 1
-            return fn(*args)
-        if not warm:
-            st["eager"]["first"] += 1
-            return fn(*args)
+        st = _stats(self.name)
+        reason = self._eager_reason(tensors, first)
+        if reason is not None:
+            st["eager"][reason] += 1
+            return self._eager(fn, args, checked=not first)
         if self._graph is None:
-            self._capture(fn, args, tensors, spec)
-        else:
-            self._copy_in(tensors, spec)
+            self._capture(fn, args, tensors)
         self._graph.replay()
-        _add_counters(self._delta)
         st["replays"] += 1
-        return self._copy_out(tensors)
+        return self._copy_out()
+
+    def _eager_reason(self, tensors, first: bool) -> Optional[str]:
+        """Why this call runs eagerly, or None to capture or replay."""
+        if _eager_reasons:
+            return _eager_reasons[-1]
+        if not any(t.is_cuda for t in tensors):
+            return "cpu"
+        if not self.enabled:
+            return "graphs off"
+        if _observed():
+            return "observers"
+        return "first" if first else None
 
     def _eager(self, fn, args, checked: bool):
         """fn(*args); under no_host_sync, and `checked` (the key's first
@@ -209,62 +209,25 @@ class Graphed:
         finally:
             torch.cuda.set_sync_debug_mode(mode)
 
-    def _capture(self, fn, args, tensors, spec) -> None:
-        before = counters()
+    def _capture(self, fn, args, tensors) -> None:
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph):
                 out = fn(*args)
         except Exception as e:
-            _add_counters(counter_delta(counters(), before), -1)
             self.reset()
             raise RuntimeError(
                 f"CUDA graph capture of the {self.name} step failed: "
                 f"{type(e).__name__}: {e}") from e
-        self._delta = counter_delta(counters(), before)
-        _add_counters(self._delta, -1)  # the capture launched nothing
-        self._graph, self._static, self._spec, self._out = (
-            graph, tensors, spec, out)
+        self._graph, self._static, self._out = graph, tensors, out
         _stats(self.name)["captures"] += 1
 
-    def _copy_in(self, tensors, spec) -> None:
-        if spec != self._spec:
-            raise RuntimeError(
-                f"the {self.name} step's inputs changed structure under the "
-                "same key")
-        writes = []
-        for x, s in zip(tensors, self._static):
-            if _same_view(x, s):
-                continue
-            if x.shape != s.shape or x.dtype != s.dtype or x.device != s.device:
-                raise RuntimeError(
-                    f"the {self.name} step's input changed from {s.dtype} "
-                    f"{tuple(s.shape)} on {s.device} to {x.dtype} "
-                    f"{tuple(x.shape)} on {x.device} under the same key")
-            if not s.is_cuda:
-                # A host tensor's value is baked into the captured launches.
-                raise RuntimeError(
-                    f"the {self.name} step's host tensor input changed "
-                    "under the same key")
-            writes.append((x, s))
-        # An input that is another input's captured buffer is read before
-        # any buffer is written.
-        targets = {s.data_ptr() for _, s in writes}
-        writes = [(x.clone() if x.data_ptr() in targets else x, s)
-                  for x, s in writes]
-        for x, s in writes:
-            s.copy_(x)
-
-    def _copy_out(self, tensors):
-        passed = {id(s): x for s, x in zip(self._static, tensors)}
+    def _copy_out(self):
+        args = {id(s) for s in self._static}
         clones: dict = {}
 
         def out(t):
-            if not isinstance(t, torch.Tensor):
-                return t
-            if id(t) in passed:
-                return passed[id(t)]
-            if not self.copy_out:
+            if not isinstance(t, torch.Tensor) or id(t) in args:
                 return t
             if id(t) not in clones:
                 clones[id(t)] = t.clone()

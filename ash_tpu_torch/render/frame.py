@@ -35,10 +35,10 @@ chunks by depth (the renderer's chunked frame). Every raster goes through
 ops/raster_cuda.py:rasterize, and the bloom through
 ops/bloom_cuda.py:bloom_pyramid: CUDA kernels on the card.
 
-The functions here run eagerly; the renderer captures `render_frame_program`
-and `shadow_program` as CUDA graphs on the card (render/compiled.py, the
-counterpart of the reference's compiled programs), and the FrameConfig is
-part of their key. Each stage runs inside a
+The functions here run eagerly; asked to, the renderer captures
+`render_frame_program` and `shadow_program` as CUDA graphs on the card
+(render/compiled.py, the counterpart of the reference's compiled programs),
+and the FrameConfig is part of their key. Each stage runs inside a
 `torch.profiler.record_function` scope named like the reference's
 `pass_*` named scopes, so a profiler trace of an eager frame buckets time
 by pass (a graph replay enters no scope).

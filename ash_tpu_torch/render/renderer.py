@@ -26,12 +26,14 @@ jitter sequence, last frame's unjittered matrices and models, and the
 history image, which stays on the device between frames; the previous
 frame's depth for Hi-Z occlusion culling; and the IBL bundle.
 
-On the card the frame, the shadow pass and the TRS composition run as CUDA
-graphs (render/compiled.py), keyed on what shapes their work
-(`_frame_key`, `_external_shadow`): the frame's constants ride in one
-static buffer (`_upload_frame`), the models in its last region, and last
-frame's models, history and depth go back in as inputs. The chunked frame
-runs eagerly. On the CPU the same steps run directly.
+Each frame's device work runs as steps over the renderer's own buffers: the
+frame's constants ride in one static buffer (`_upload_frame`), the models
+in its last region, and last frame's models, the history, the depth and the
+shadow map lie in buffers that the steps write in place and the next frame
+reads. With set_cuda_graphs(True) the frame, the shadow pass and the TRS
+composition run as CUDA graphs on the card (render/compiled.py), keyed on
+what shapes their work (`_frame_key`, `_external_shadow`); otherwise, and
+on the CPU, the same steps run directly. The chunked frame runs eagerly.
 
 Every reference option, method and feature runs (UNPORTED_METHODS here
 and render/__init__.py's UNPORTED_NAMES are empty). The reference's
@@ -198,12 +200,32 @@ class RendererConfig:
             raise ValueError(f"unknown shade_dtype {self.shade_dtype!r}")
 
 
-def _keep(buf: Optional[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """x's values in `buf` (copied in place where the shapes and dtypes
-    match, else a fresh clone) -> the buffer that holds them."""
-    if buf is None or buf.shape != x.shape or buf.dtype != x.dtype:
-        return x.clone()
-    return buf.copy_(x)
+def _frame_step(cfg, scene, uni, shadow, pool, lights, post, taa_params,
+                history, prev_depth, ibl) -> FrameOutputs:
+    """render_frame_program, then what the next frame reads of this one
+    written in place: the TAA history into `history` and the depth into
+    `prev_depth`, the renderer's own buffers (a captured frame reads the
+    same memory every replay)."""
+    out = render_frame_program(cfg, scene, uni, shadow, pool, lights, post,
+                               taa_params, history, prev_depth, ibl)
+    if out.history is not None:
+        history.copy_(out.history)
+    if prev_depth is not None:
+        prev_depth.copy_(out.depth)
+    return out
+
+
+def _shadow_step(out: tuple, *args) -> None:
+    """shadow_program(*args) written into `out`, the renderer's (map,
+    overflow) buffers, which the frame reads in place."""
+    for buf, x in zip(out, shadow_program(*args)):
+        buf.copy_(x)
+
+
+def _compose_models(models: torch.Tensor, t, q, s) -> None:
+    """The TRS composed into `models`, the constants buffer's models
+    region, in place."""
+    models.copy_(models_from_trs(t, q, s))
 
 
 class MsaaPreset:
@@ -294,6 +316,9 @@ class Renderer:
         self.msaa = MsaaPreset.OFF
         self.temporal_aa = TemporalAA(TaaConfig(enabled=False))
         self._taa_history: Optional[torch.Tensor] = None  # (H, W, 3), device
+        # Its values in the buffer the frame reads and its step writes in
+        # place (render_frame); None while it does not hold them.
+        self._history_buf: Optional[torch.Tensor] = None
         self._render_scale = float(self.config.render_scale)
         # Motion-vector state: last frame's unjittered view-projection
         # (host) and model matrices (device).
@@ -314,15 +339,15 @@ class Renderer:
         # _consts_layout; _models views its models region.
         self._consts: Optional[torch.Tensor] = None
         self._consts_layout: Optional[tuple] = None
-        # {frame input: (the renderer's own buffer, the tensor last copied
-        # into it)} for the shadow map, history and previous depth
-        # (_owned).
-        self._inputs: Dict[str, tuple] = {}
-        # The frame, the shadow pass and the TRS composition as CUDA graphs
-        # on the card (render/compiled.py); run directly on the CPU.
+        # The shadow pass's (map, overflow), which the frame reads in place
+        # (_external_shadow).
+        self._shadow_bufs: Optional[tuple] = None
+        # The frame, the shadow pass and the TRS composition, as CUDA
+        # graphs on the card once set_cuda_graphs(True) asks
+        # (render/compiled.py); run directly otherwise.
         self._graphs = {"frame": compiled.Graphed("frame"),
                         "shadow": compiled.Graphed("shadow"),
-                        "models": compiled.Graphed("models", copy_out=False)}
+                        "models": compiled.Graphed("models")}
 
         self._scene: Optional[BuiltScene] = None
         # Chunked geometry (config.max_draws_per_chunk): the draw groups,
@@ -797,11 +822,11 @@ class Renderer:
     def set_taa_enabled(self, enabled: bool) -> None:
         self.temporal_aa.config.enabled = bool(enabled)
         if not enabled:
-            self._taa_history = None
+            self._taa_history = self._history_buf = None
 
     def reset_taa_history(self) -> None:
         self.temporal_aa.reset_history()
-        self._taa_history = None
+        self._taa_history = self._history_buf = None
 
     def set_render_scale(self, scale: float) -> None:
         """TAA upsampling: raster at `scale` x the surface's size and gather
@@ -810,7 +835,8 @@ class Renderer:
         if not 0.25 <= scale <= 1.0:
             raise ValueError(f"render_scale {scale} outside [0.25, 1]")
         self._render_scale = float(scale)
-        self._taa_history = None  # its detail is the old scale's
+        # Its detail is the old scale's.
+        self._taa_history = self._history_buf = None
 
     def _taa_active(self) -> bool:
         return self.hdr_enabled and self.temporal_aa.is_enabled()
@@ -830,6 +856,18 @@ class Renderer:
     # ------------------------------------------------------------------
     # Hi-Z occlusion culling, LOD statistics, image-based lighting
     # ------------------------------------------------------------------
+
+    def set_cuda_graphs(self, enabled: bool) -> None:
+        """On a CUDA device, run the frame, the shadow pass and the TRS
+        composition as CUDA graphs (render/compiled.py): a key's first frame
+        eagerly, its second captured, every later one replayed. Off by
+        default until the benchmark reads a graphed frame's pools and
+        kernels (ROADMAP D19); off frees the graphs. The CPU runs the same
+        steps eagerly either way."""
+        for g in self._graphs.values():
+            g.enabled = bool(enabled)
+            if not enabled:
+                g.reset()
 
     def set_occlusion_culling(self, enabled: bool) -> None:
         """Cull draws hidden behind last frame's depth (a Hi-Z pyramid)."""
@@ -1281,8 +1319,8 @@ class Renderer:
         # One host->device copy for all per-frame constants.
         dev = self._upload_frame(parts, d_pad, trs, models)
         if trs is not None:
-            self._models.copy_(self._graphs["models"](
-                d_pad, models_from_trs, *dev.pop("trs")))
+            self._graphs["models"]((), _compose_models, self._models,
+                                   *dev.pop("trs"))
         self._models_uploaded = trs is not None or models is not None
         self._models_dirty = False
         taa_params = None
@@ -1292,10 +1330,8 @@ class Renderer:
                 prev_jitter=dev.pop("taa_prev_jitter"), **taa)
         prev_models = None
         if taa_params is not None:
-            # So do the current models after a change of the draw count.
-            # That is only ever a key's first frame (a new draw count is a
-            # new scene build), which runs eagerly: no graph reads the
-            # models region as last frame's models.
+            # So do the current models after a change of the draw count (a
+            # new scene build, whose first frames run eagerly).
             prev_models = (
                 self._prev_models if self._prev_models is not None
                 and self._prev_models.shape == self._models.shape
@@ -1403,39 +1439,59 @@ class Renderer:
         return (shape, self._scene_epoch, mkey, lkey, sampled)
 
     def _cached_shadow(self, cfg: FrameConfig, render) -> tuple:
-        """The shadow map under _shadow_key: the cached one, or render()'s
-        (shadow_map, shadow_overflow), which is then kept."""
+        """The shadow map under _shadow_key: the cached (shadow_map,
+        shadow_overflow, ...), or render()'s, which is then kept (the
+        unchunked frame's adds the buffers, _external_shadow)."""
         key = self._shadow_key(cfg)
         cache = self._shadow_cache
         if cache is not None and cache[0] == key:
-            return cache[1], cache[2]
+            return cache[1:]
         self._shadow_cache = None  # free the stale map before the new one
-        sm, sof = render()
-        self._shadow_cache = (key, sm, sof)
-        return sm, sof
+        maps = render()
+        self._shadow_cache = (key, *maps)
+        return maps
 
     def _external_shadow(self, inputs: FrameInputs) -> tuple:
-        """Render (or reuse) the shadow map of the frame's scene: the
-        shadow graph, keyed on what shapes the pass (the shadow fields of
-        the config, the scene build, the material and pool versions), runs
-        when _shadow_key's cache misses; a moved scene replays it."""
+        """Render (or reuse) the shadow map of the frame's scene -> the
+        (map, overflow) buffers the frame reads in place; the cache keeps
+        their copies, which the frame returns, and them. The shadow graph,
+        keyed on what shapes the pass (the shadow fields of the config, the
+        scene build, the material and pool versions), writes the buffers
+        when _shadow_key's cache misses; a moved scene replays it. A scene
+        build holds only chunked or only unchunked frames, so the buffers
+        hold the cached map."""
         cfg, uni = inputs.config, inputs.uniforms
         key = (self._shadow_shape(cfg), self._scene_epoch,
                self._materials_epoch,
                None if inputs.pool is None else self.bindless.version)
-        return self._cached_shadow(cfg, lambda: self._graphs["shadow"](
-            key, shadow_program, cfg, inputs.scene.buffers, uni.models,
-            uni.light_space_matrix, inputs.pool, uni.cascade_matrices))
+        s = cfg.shadow_resolution
+        shape = ((s, s) if cfg.shadow_cascades <= 1
+                 else (cfg.shadow_cascades, s, s))
 
-    def _frame_key(self, inputs: FrameInputs, shadow, history,
-                   prev_depth) -> tuple:
+        def render():
+            bufs = self._shadow_bufs
+            if bufs is None or bufs[0].shape != shape:
+                bufs = self._shadow_bufs = (
+                    torch.empty(shape, dtype=torch.float32,
+                                device=self.device),
+                    torch.empty((), dtype=torch.int32, device=self.device))
+            self._graphs["shadow"](
+                key, _shadow_step, bufs, cfg, inputs.scene.buffers,
+                uni.models, uni.light_space_matrix, inputs.pool,
+                uni.cascade_matrices)
+            return (*(b.clone() for b in bufs), bufs)
+
+        return self._cached_shadow(cfg, render)[2]
+
+    def _frame_key(self, inputs: FrameInputs) -> tuple:
         """What shapes the frame graph's work (the reference's compiled
         frame is one program per FrameConfig): the config (its extent and
         binning caps among it), the scene build, the material, pool, light
         and environment versions, the post chain's values (the bloom and
-        tonemap take them as scalars), TAA's two switches, and which of the
-        shadow map, history and previous depth exist. A camera move or a
-        models update keeps it: those are inputs."""
+        tonemap take them as scalars) and TAA's two switches; the graph
+        adds which of the shadow map, history and previous depth exist, and
+        where each input lies. A camera move or a models update keeps it:
+        those are values in the same buffers."""
         taa = inputs.taa_params
         return (
             inputs.config, self._scene_epoch, self._materials_epoch,
@@ -1445,7 +1501,6 @@ class Renderer:
             None if inputs.post is None else tuple(map(float, inputs.post)),
             None if taa is None else (taa.color_clamp > 0.5,
                                       taa.velocity_rejection > 0.5),
-            shadow is not None, history is not None, prev_depth is not None,
         )
 
     def render_frame(self, view, proj, camera_pos) -> FrameOutputs:
@@ -1455,68 +1510,47 @@ class Renderer:
         against a far-plane depth (nothing is known occluded yet) and every
         frame keeps its depth for the next. In an overlay diagnostics mode
         the stats text is blended onto the image on the device before its
-        copy to the host. On the card the frame replays its CUDA graph
-        (render/compiled.py) from the second frame of a key on."""
+        copy to the host. With set_cuda_graphs(True) the frame replays its
+        CUDA graph (render/compiled.py) from the second frame of a key on.
+        The shadow map, the TAA history and the previous depth go in
+        through the renderer's own buffers, which the frame reads in place
+        and the steps write; every tensor a frame returns is its own."""
         start = time.perf_counter()
         if self._chunked():
             compiled.count_eager("chunked")
             return self._render_frame_chunked(view, proj, camera_pos, start)
         inputs = self.prepare_frame(view, proj, camera_pos)
         cfg = inputs.config
-        shadow = (
-            self._external_shadow(inputs)
-            if cfg.shadow_enabled and not cfg.lod_enabled else None
-        )
-        prev_depth = None
-        if self.occlusion_culling:
-            prev_depth = self._prev_depth
-            if prev_depth is None:
-                prev_depth = torch.ones((self._height, self._width),
-                                        dtype=torch.float32,
-                                        device=self.device)
-        history = None
-        if inputs.taa_params is not None:
-            history = self._taa_history
-            if history is None:  # the first TAA frame blends with weight 0
-                history = torch.zeros(
-                    (self._height, self._width, 3), dtype=torch.float32,
-                    device=self.device)
-        # The shadow map, the history and the previous depth go in through
-        # the renderer's own buffers (_owned): a graph captured with them
-        # reads them in place, and no tensor a frame returned is written.
-        shadow_in = None
-        if shadow is not None:
-            shadow_in = (self._owned("shadow_map", shadow[0]),
-                         self._owned("shadow_overflow", shadow[1]))
+        shadow = None
+        if cfg.shadow_enabled and not cfg.lod_enabled:
+            shadow = self._external_shadow(inputs)
+        if self.occlusion_culling and self._prev_depth is None:
+            # The first frame tests against the far plane.
+            self._prev_depth = torch.ones((self._height, self._width),
+                                          dtype=torch.float32,
+                                          device=self.device)
+        if inputs.taa_params is not None and self._history_buf is None:
+            # Last frame's history, or zeros on the first TAA frame (which
+            # blends with weight 0).
+            self._history_buf = (
+                self._taa_history.clone() if self._taa_history is not None
+                else torch.zeros((self._height, self._width, 3),
+                                 dtype=torch.float32, device=self.device))
         outputs = self._graphs["frame"](
-            self._frame_key(inputs, shadow, history, prev_depth),
-            render_frame_program, inputs.config, inputs.scene.buffers,
-            inputs.uniforms, shadow_in, inputs.pool, inputs.lights,
-            inputs.post, inputs.taa_params, self._owned("history", history),
-            self._owned("prev_depth", prev_depth), self._ibl,
+            self._frame_key(inputs), _frame_step, cfg, inputs.scene.buffers,
+            inputs.uniforms, shadow, inputs.pool, inputs.lights, inputs.post,
+            inputs.taa_params,
+            None if inputs.taa_params is None else self._history_buf,
+            self._prev_depth if self.occlusion_culling else None, self._ibl,
         )
-        if shadow is not None:  # the map the shadow pass made, as eager
-            outputs = outputs._replace(shadow_map=shadow[0],
-                                       shadow_overflow=shadow[1])
+        if shadow is not None:  # the pass's map, the cache's copy
+            outputs = outputs._replace(shadow_map=self._shadow_cache[1],
+                                       shadow_overflow=self._shadow_cache[2])
         if outputs.history is not None:
             self._taa_history = outputs.history
-        if self.occlusion_culling:
-            self._prev_depth = outputs.depth
         self._prev_view_proj = self._unjittered_view_proj
         self._keep_prev_models()
         return self._present(outputs, start)
-
-    def _owned(self, slot: str, x: Optional[torch.Tensor]):
-        """x's values in the renderer's own buffer for the frame input
-        `slot`, copied again only when x is not the tensor last copied (a
-        static scene's shadow map once, the history every frame)."""
-        if x is None:
-            return None
-        buf, src = self._inputs.get(slot, (None, None))
-        if src is not x:
-            buf = _keep(buf, x)
-            self._inputs[slot] = (buf, x)
-        return buf
 
     def _keep_prev_models(self) -> None:
         """Last frame's models for TAA's motion vectors: a copy of the
@@ -1763,6 +1797,7 @@ class Renderer:
         outputs = finalize_frame(cfg, acc, first.post, taa_params, history)
         if outputs.history is not None:
             self._taa_history = outputs.history
+            self._history_buf = None  # no longer holds it
         self._prev_view_proj = self._unjittered_view_proj
         self._prev_chunk_models = list(self._chunk_models)
         return self._present(outputs, start)

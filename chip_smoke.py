@@ -301,27 +301,33 @@ fails. Phases, one stdout line each:
    the standard, glass, lit, rich and rich render_scale 0.5 frames from 0
    as well.
 15. the graphed frame (render/compiled.py): the benchmark's six cells
-   (benchmark/scenes.py at 1920x1080, their own poses), each through two
-   fresh renderers, one eager throughout (compiled.eager), one graphed:
-   frames 0-3 equal bit for bit in every FrameOutputs field (u8 image,
-   colour, depth, the scalars, the shadow map, the history) and unchanged
-   after the later frames, the eager
-   renderer's steps from frame 1 on free of host syncs (sync debug mode
-   "error"), the graphed renderer warmed up once, captured once and
-   replaying every later frame, and every kernel counter advanced as the
-   eager renderer's did; then 30 frames a timed window in turns (eager,
-   graphed, graphed, eager): p50 and p90 frame ms, render_frame's host ms
-   up to the image copy, peak memory allocated and reserved; the device's
-   kernels and copies, the host's launch calls and the device busy time a
-   frame (torch.profiler, 3 frames each); the graphs' own device time (20
-   replays between CUDA events), the image copy's time alone (freed at
-   once, the previous copy held as render_frame holds it, into a pinned
-   buffer) and the graphs' private pools. Each line carries the card's
-   name and power limit.
+   (benchmark/scenes.py at 1920x1080), each through two fresh renderers,
+   one eager (graphs off, as a renderer is by default), one graphed
+   (set_cuda_graphs(True)). Frames 0-3 of both, their camera turned about
+   the origin by 0.05 rad a frame on top of the cell's own pose so that
+   every frame's inputs differ from the last: equal bit for bit in every
+   FrameOutputs field (u8 image, colour, depth, the scalars, the shadow
+   map, the history), each eager image unlike the one before, every frame
+   unchanged after the later frames, the eager renderer's steps from frame
+   1 on free of host syncs (sync debug mode "error"), the graphed renderer
+   capturing at least once and replaying every frame it did not run
+   eagerly. Then 30 frames a timed window in turns (eager, graphed,
+   graphed, eager): p50 and p90 frame ms, render_frame's host ms up to the
+   image copy, peak memory allocated and reserved. Then 3 frames of each
+   under torch.profiler, the graphed ones all replays: each hand kernel of
+   csrc/ launched as often by name as in the eager frames, which shows that
+   the replays ran each kernel the eager frames' wrappers launched (the
+   other device kernels compared and printed, copies aside); the kernels
+   and copies, the host's launch calls and the device busy time a frame. Then the graphs'
+   own device time (20 replays between CUDA events), the image copy's
+   time alone (freed at once, the previous copy held as render_frame holds
+   it, into a pinned buffer) and the graphs' private pools. Each line
+   carries the card's name and power limit.
 
-Phases 3-14 run their frames eagerly (`compiled.eager`): they patch plain
-versions into the entries, record the entries' calls through observers and
-read the eager frame's `pass_*` scopes, none of which a replay re-enters.
+Phases 3-14 run their frames eagerly, as a renderer does unless asked for
+graphs: they patch plain versions into the entries, record the entries'
+calls through observers and read the eager frame's `pass_*` scopes, none
+of which a replay re-enters.
 
 Then one JSON line of phase 15's rows, one on the kernels and, last, the
 device JSON line.
@@ -3784,8 +3790,10 @@ def ab_phase(card, view, proj, pos, trees):
 
 # Phase 15: the benchmark's six cells, eager and graphed. The frames held
 # equal (frames 0-3 of each renderer; frame 0 is the graphed renderer's
-# eager warm-up, frame 1 its capture), the FrameOutputs fields compared.
+# eager warm-up, frame 1 its capture), the FrameOutputs fields compared,
+# and the check frames' camera turn about the origin, rad a frame.
 GRAPH_CHECK_FRAMES = 4
+GRAPH_CHECK_TURN = 0.05
 GRAPH_FIELDS = ("image", "color", "depth", "covered_pixels",
                 "binning_overflow", "shadow_overflow", "visible_draws",
                 "msaa_edge_overflow", "shadow_map", "history")
@@ -3798,10 +3806,43 @@ HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                      "cudaMemsetAsync", "cudaGraphLaunch")
 
 
+def hand_kernel_names():
+    """The __global__ functions of ash_tpu_torch/csrc/*.cu."""
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                     r"(\w+)")
+    import ash_tpu_torch
+
+    csrc = pathlib.Path(ash_tpu_torch.__file__).parent / "csrc"
+    return sorted({m for f in csrc.glob("*.cu")
+                   for m in pat.findall(f.read_text())})
+
+
+def moving_pose(cell, data, i):
+    """Frame i of the cell's sequence (benchmark/scenes.frame_pose) with its
+    camera turned about the vertical axis through its target by
+    GRAPH_CHECK_TURN * (i + 1) rad, so that every frame of a static cell
+    moves too."""
+    import copy
+
+    from benchmark import scenes
+
+    pose = scenes.frame_pose(cell, data, i)
+    cam = copy.copy(data["camera"])
+    a = GRAPH_CHECK_TURN * (i + 1)
+    c, s = np.float32(np.cos(a)), np.float32(np.sin(a))
+    d = np.asarray(cam.position, np.float32) - np.asarray(cam.target,
+                                                          np.float32)
+    cam.position = (np.asarray(cam.target, np.float32) + np.array(
+        [c * d[0] + s * d[2], d[1], c * d[2] - s * d[0]], np.float32))
+    return {**pose, "args": (cam.view_matrix(), cam.projection_matrix(),
+                             cam.position.copy())}
+
+
 def launch_profile(step, n=3):
     """Per frame over n frames of step under torch.profiler: (kernels and
     copies on the device, launch calls on the host (HOST_LAUNCH_CALLS),
-    device busy ms)."""
+    device busy ms, {device kernel name: launches}, copies and memsets
+    aside)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3817,27 +3858,19 @@ def launch_profile(step, n=3):
             if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     host = [e for e in avgs if e.device_type == DeviceType.CPU
             and e.key in HOST_LAUNCH_CALLS]
+    by_name = collections.Counter()
+    for e in work:
+        if not re.search("memcpy|memset|copy", e.key, re.I):
+            by_name[e.key] += e.count
     return (sum(e.count for e in work) / n, sum(e.count for e in host) / n,
-            sum(e.self_device_time_total for e in work) / 1e3 / n)
+            sum(e.self_device_time_total for e in work) / 1e3 / n,
+            {k: v / n for k, v in by_name.items()})
 
 
 def graph_phase(card, frames):
-    """Phase 15: each of the benchmark's cells (benchmark/scenes.py, at
-    1920x1080, its own poses) through two fresh renderers, one eager
-    throughout (render/compiled.py's eager()), one graphed. Frames 0-3 of
-    both must be equal bit for bit in every FrameOutputs field, the eager
-    renderer's frames 1-3 must make no host sync in their steps
-    (compiled.no_host_sync), the graphed one must warm up once, capture
-    once and replay every later frame, and every kernel counter must
-    advance as the eager renderer's did. Then `frames` frames a window in
-    turns (eager, graphed, graphed, eager): p50 and p90 of apply_pose's
-    wall ms (the benchmark's timed frame: the TRS update and render_frame,
-    which ends in the image's blocking copy), the host ms of render_frame
-    up to that copy, peak memory allocated and reserved over the window,
-    and, from 3 profiled frames of each after the windows, the device's
-    kernels and copies, the host's launch calls and the device busy ms a
-    frame. -> {cell: row}."""
-    import contextlib
+    """Phase 15 (the module's docstring): each of the benchmark's cells
+    (benchmark/scenes.py, at 1920x1080) through two fresh renderers, one
+    eager, one graphed; `frames` frames a timed window. -> {cell: row}."""
     import gc
 
     import torch
@@ -3847,6 +3880,7 @@ def graph_phase(card, frames):
 
     api = scenes.port_api("cuda")
     rows = {}
+    hand = hand_kernel_names()
 
     def pool_segments():
         """{private pool id: bytes} of the allocator's segments."""
@@ -3865,14 +3899,7 @@ def graph_phase(card, frames):
         for mode in ("eager", "graphed"):
             data = scenes.scene_data(cell, api, 0)
             rends[mode] = [scenes.build_renderer(cell, data, api), data, 0]
-
-        def mode_ctx(mode, checked=False):
-            stack = contextlib.ExitStack()
-            if mode == "eager":
-                stack.enter_context(compiled.eager("chip_smoke eager"))
-                if checked:
-                    stack.enter_context(compiled.no_host_sync())
-            return stack
+        rends["graphed"][0].set_cuda_graphs(True)
 
         outs, counts, stats = {}, {}, {}
         for mode, rd in rends.items():
@@ -3881,8 +3908,9 @@ def graph_phase(card, frames):
             before = compiled.counters()
             got, kept = [], []
             for i in range(GRAPH_CHECK_FRAMES):
-                with mode_ctx(mode, checked=i > 0):
-                    o = scenes.render(cell, data, r, i)
+                with (compiled.no_host_sync() if mode == "eager" and i > 0
+                      else contextlib.nullcontext()):
+                    o = scenes.apply_pose(r, moving_pose(cell, data, i))
                 got.append({f: (None if getattr(o, f) is None
                                 else getattr(o, f).clone())
                             for f in GRAPH_FIELDS})
@@ -3906,25 +3934,33 @@ def graph_phase(card, frames):
                   or (g[f] is not None and not torch.equal(g[f], e[f]))]
         check(not differ, f"phase15 {name}: graphed frames differ from "
               f"eager ones in (frame, field) {differ[:8]}")
-        check(counts["graphed"] == counts["eager"] and counts["eager"],
-              f"phase15 {name}: kernel counters graphed {counts['graphed']} "
-              f"against eager {counts['eager']}")
+        still = [i for i in range(1, GRAPH_CHECK_FRAMES)
+                 if torch.equal(outs["eager"][i]["image"],
+                                outs["eager"][i - 1]["image"])]
+        check(not still, f"phase15 {name}: eager frames {still} equal the "
+              "frame before: the check frames' inputs did not move")
+        check(counts["eager"], f"phase15 {name}: no kernel counter moved")
         st = stats["graphed"]["frame"]
-        check(st["captures"] == 1 and st["eager"] == {"first": 1}
-              and st["replays"] == GRAPH_CHECK_FRAMES - 1,
+        check(st["captures"] >= 1 and st["replays"] >= 1
+              and st["replays"] + sum(st["eager"].values())
+              == GRAPH_CHECK_FRAMES
+              and set(st["eager"]) <= {"first"},
               f"phase15 {name}: the graphed renderer's frame steps {st}")
         check(stats["eager"]["frame"]["replays"] == 0
               and stats["eager"]["frame"]["eager"]
-              == {"chip_smoke eager": GRAPH_CHECK_FRAMES},
+              == {"graphs off": GRAPH_CHECK_FRAMES},
               f"phase15 {name}: the eager renderer's frame steps "
               f"{stats['eager']['frame']}")
-        print(f"phase15 graphs {name}: frames 0-{GRAPH_CHECK_FRAMES - 1} "
-              f"graphed == eager bit for bit ({', '.join(GRAPH_FIELDS)}), "
-              f"each unchanged after the later frames; "
-              f"eager frames 1-{GRAPH_CHECK_FRAMES - 1} made no host sync in "
-              f"their steps; steps graphed {stats['graphed']}; kernel "
-              f"counters advanced equally: "
+        print(f"phase15 graphs {name}: frames 0-{GRAPH_CHECK_FRAMES - 1}, "
+              f"the camera turning {GRAPH_CHECK_TURN} rad a frame, graphed "
+              f"== eager bit for bit ({', '.join(GRAPH_FIELDS)}), each "
+              f"unchanged after the later frames, each eager image unlike "
+              f"the one before; eager frames 1-{GRAPH_CHECK_FRAMES - 1} made "
+              f"no host sync in their steps; steps graphed "
+              f"{stats['graphed']}; the wrappers' calls, eager "
               f"{ {f'{m}.{k}': v for (m, k), v in counts['eager'].items()} }"
+              f", graphed (eager frames and captures only) "
+              f"{ {f'{m}.{k}': v for (m, k), v in counts['graphed'].items()} }"
               f" | {card}", flush=True)
         del outs
 
@@ -3942,15 +3978,14 @@ def graph_phase(card, frames):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             walls, hosts = [], []
-            with mode_ctx(mode):
-                for _ in range(frames):
-                    pose = scenes.frame_pose(cell, data, rd[2])
-                    rd[2] += 1
-                    del marks[:]
-                    t0 = time.perf_counter()
-                    scenes.apply_pose(r, pose)
-                    walls.append((time.perf_counter() - t0) * 1e3)
-                    hosts.append((marks[0] - t0) * 1e3)
+            for _ in range(frames):
+                pose = scenes.frame_pose(cell, data, rd[2])
+                rd[2] += 1
+                del marks[:]
+                t0 = time.perf_counter()
+                scenes.apply_pose(r, pose)
+                walls.append((time.perf_counter() - t0) * 1e3)
+                hosts.append((marks[0] - t0) * 1e3)
             torch.cuda.synchronize()
             st = compiled.stats.get("frame", {})
             check(st.get("replays", 0) == (frames if mode == "graphed" else 0),
@@ -3977,12 +4012,38 @@ def graph_phase(card, frames):
                 scenes.render(cell, data, r, rd[2])
                 rd[2] += 1
 
-            with mode_ctx(mode):
-                prof[mode] = launch_profile(step)
+            compiled.reset_stats()
+            prof[mode] = launch_profile(step)
+            st = compiled.stats.get("frame", {})
+            check(mode == "eager" or st.get("replays") == 3,
+                  f"phase15 {name}: profiled graphed frame steps {st}")
             print(f"phase15 graphs {name} {mode}, 3 profiled frames: "
                   f"{prof[mode][0]:.1f} kernels and copies on the device, "
                   f"{prof[mode][1]:.1f} launch calls on the host, device "
                   f"busy {prof[mode][2]:.3f} ms a frame | {card}", flush=True)
+        # The replays launched each hand kernel the eager frames did, as
+        # often. The other kernels are compared and printed, not held: the
+        # trace of a replay has lost a record of one (glass, 110-frame
+        # windows, one of 18 index kernels).
+        names = {mode: p[3] for mode, p in prof.items()}
+        ours = {}
+        for mode, counts_by_name in names.items():
+            c = collections.Counter()
+            for k, v in counts_by_name.items():
+                c.update({h: v for h in hand if re.search(rf"\b{h}\b", k)})
+            ours[mode] = dict(c)
+        odd = {k[:60]: (names["graphed"].get(k, 0), names["eager"].get(k, 0))
+               for k in set(names["graphed"]) | set(names["eager"])
+               if names["graphed"].get(k, 0) != names["eager"].get(k, 0)}
+        check(ours["graphed"] == ours["eager"] and ours["eager"],
+              f"phase15 {name}: hand kernels a frame by name, graphed "
+              f"{ours['graphed']} against eager {ours['eager']}")
+        print(f"phase15 graphs {name}: 3 replayed frames launched each hand "
+              f"kernel as often as 3 eager ones, a frame {ours['graphed']}; "
+              f"the other device kernels ({len(names['eager'])} names, "
+              f"copies aside; {sum(names['eager'].values()):.1f} a frame), "
+              f"(graphed, eager) where the traces differ: {odd or 'none'} "
+              f"| {card}", flush=True)
         # The graphs' own device time (replays between CUDA events, no
         # host work), and the image's blocking copy to the host alone.
         r = rends["graphed"][0]
@@ -4018,7 +4079,9 @@ def graph_phase(card, frames):
               f"{ {k: round(v, 3) for k, v in copy_ms.items()} }, the graphs' "
               f"private pools {pool_mib:.1f} MiB | {card}",
               flush=True)
-        rows[name] = {"windows": windows, "profiled": prof,
+        rows[name] = {"windows": windows,
+                      "profiled": {k: v[:3] for k, v in prof.items()},
+                      "hand_kernels_per_frame": ours["graphed"],
                       "replay_device_ms": replay_ms, "image_copy_ms": copy_ms,
                       "graph_pool_mib": pool_mib,
                       "check_frames": GRAPH_CHECK_FRAMES,
@@ -4068,7 +4131,6 @@ def main() -> int:
 
     import ash_tpu_torch
     from ash_tpu_torch.ops import _build, binning, raster, raster_cuda
-    from ash_tpu_torch.render import compiled
     from ash_tpu_torch.ops import lights_cuda, texture_cuda
     from ash_tpu_torch.render import RenderCommand, frame, golden_scenes
     from ash_tpu_torch.core import maths
@@ -4159,13 +4221,6 @@ def main() -> int:
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}))
         return 0
-    # Phases 3-14 hold the kernels to their plain versions through patched
-    # entries, observers and the eager frame's pass_* scopes, none of which
-    # a graph replay re-enters: their frames run eagerly (the same step the
-    # card captures, run directly). Phase 15 drives the graphed frames.
-    eager_phases = contextlib.ExitStack()
-    eager_phases.enter_context(compiled.eager("chip_smoke phases 3-14"))
-
     # 3. Kernel against plain at the main path's shapes.
     r, _, cam, _ = build_bench_renderer(1920, 1080, 1000, "cuda")
     view, proj, pos = cam.view_matrix(), cam.projection_matrix(), cam.position
@@ -5591,7 +5646,6 @@ def main() -> int:
     shade_rows, shade_err = shade_phase(card, view, proj, pos,
                                         shade_launches, usage, shade_cases)
     del shade_cases
-    eager_phases.close()
     # 15. The benchmark's six cells graphed against eager.
     graph_rows = graph_phase(card, 30)
     print(json.dumps({"graphs": graph_rows, "card": card}))

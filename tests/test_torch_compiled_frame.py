@@ -193,14 +193,16 @@ def test_outputs_stay_after_the_next_frame(name):
         assert np.array_equal(image, snap["image"].numpy())
     last = kept[-1][0]
     assert r.last_outputs() is last
-    # What the frame reads goes in through the renderer's own buffers, not
-    # a returned tensor; the returned map is the shadow pass's own.
+    # What the frame reads goes in through the renderer's own buffers, which
+    # the steps write in place, not a returned tensor; the returned map is
+    # the cached copy of the shadow pass's.
     assert r._shadow_cache[1] is last.shadow_map
-    owned = {k: b.data_ptr() for k, (b, _) in r._inputs.items()}
+    owned = {b.data_ptr() for b in (r._history_buf, *r._shadow_bufs)
+             if b is not None}
     returned = {t.data_ptr() for o, _, _ in kept
                 for t in o if isinstance(t, torch.Tensor)}
-    assert not returned & set(owned.values()), owned
-    assert ("history" in owned) == (last.history is not None)
+    assert not returned & owned, owned
+    assert (r._taa_history is not None) == (last.history is not None)
 
 
 def test_motion_vectors_move_after_a_models_update():
