@@ -10,8 +10,9 @@ every scene so that each frame's inputs differ from the last: frames 0-4
 equal bit for bit in every FrameOutputs field, each eager image unlike the
 one before, the graphed renderer capturing and replaying every frame it
 did not warm up on. Three replayed frames launch each hand kernel as often
-by name as three eager ones (torch.profiler). A graphed frame's outputs
-stay as they were after the next frame. A registered kernel observer, or
+by name as three eager ones (torch.profiler, after a warm-up frame; up to
+three tries, as a trace can lose a replay's records). A graphed frame's
+outputs stay as they were after the next frame. A registered kernel observer, or
 graphs off, runs the frame eagerly. CPU tests of the same code:
 tests/test_torch_compiled_frame.py.
 """
@@ -107,20 +108,34 @@ def test_cuda_graphed_frames_equal_eager_frames(name):
 
 
 def _kernels(r, cam, extent, kw, first, n=3):
-    """{device kernel name: launches} over frames first..first+n-1,
-    copies and memsets aside."""
+    """{device kernel name: launches} over frames first+1..first+n, after
+    frame first, which the profiler runs but keeps nothing of; copies and
+    memsets aside."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(first, first + n):
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=n,
+                                   repeat=1)) as prof:
+        for i in range(first, first + n + 1):
             _render(r, cam, extent, kw, i)
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            prof.step()
     return collections.Counter({
         e.key: e.count for e in prof.key_averages()
         if e.device_type == DeviceType.CUDA and not e.is_user_annotation
         and not re.search("memcpy|memset|copy", e.key, re.I)})
+
+
+_HAND = re.compile(
+    r"\b(raster_warp|candidate_rects|shade|compose|gbuffer|shadow_pcf|"
+    r"shadow_window|light_tile|light_element|bloom_down|bloom_up|"
+    r"texture_maps|texture_trilinear)_kernel\b")
+# Profiles taken until the eager and graphed traces agree: a trace can
+# lose the records of a whole replay, while a graph launches the same
+# nodes at every replay.
+_TRIES = 3
 
 
 @pytest.mark.cuda
@@ -128,20 +143,26 @@ def _kernels(r, cam, extent, kw, first, n=3):
 def test_cuda_replays_launch_the_eager_frames_kernels(name):
     _need_card()
     kw = SCENES[name]
-    got = {}
+    rends = {}
     for graphed in (False, True):
         r, cam, extent = _renderer(kw, graphed)
         for i in range(3):
             _render(r, cam, extent, kw, i)
-        compiled.reset_stats()
-        got[graphed] = _kernels(r, cam, extent, kw, 3)
-        if graphed:
-            assert compiled.stats["frame"]["replays"] == 3
-    hand = {g: {k: v for k, v in got[g].items() if re.search(
-        r"\b(raster_warp|candidate_rects|shade|compose|gbuffer|shadow_pcf|"
-        r"shadow_window|light_tile|light_element|bloom_down|bloom_up|"
-        r"texture_maps|texture_trilinear)_kernel\b", k)} for g in got}
-    assert hand[True] == hand[False] and hand[True], sorted(got[True])
+        rends[graphed] = (r, cam, extent)
+    tries = []
+    for t in range(_TRIES):
+        got = {}
+        for graphed, (r, cam, extent) in rends.items():
+            compiled.reset_stats()
+            got[graphed] = _kernels(r, cam, extent, kw, 3 + 4 * t)
+            if graphed:
+                assert compiled.stats["frame"]["replays"] == 4
+        hand = {g: {k: v for k, v in got[g].items() if _HAND.search(k)}
+                for g in got}
+        tries.append(hand)
+        if hand[True] == hand[False] and hand[True]:
+            break
+    assert hand[True] == hand[False] and hand[True], (tries, sorted(got[True]))
 
 
 @pytest.mark.cuda
