@@ -16,16 +16,18 @@ the shadow map run before the clock starts.
 The untimed work is the reference's: the loop's host time per frame in
 buckets (animation math, the update, camera math, `render_frame`, loop
 overhead) and the device drain, a `torch.cuda.synchronize()` after the
-loop where the reference blocks on the last image. The port's
-`render_frame` ends in the image's blocking copy to the host, so most of
-the drain hides inside it. A second loop over the same poses runs under
+loop where the reference blocks on the last image. As the reference's, the
+port's `render_frame` returns without waiting for the device (it presents
+the image as a device tensor), so the device work the host ran ahead of
+shows in the drain. A second loop over the same poses runs under
 `torch.profiler` (CPU and CUDA activities, no stacks) and splits
 `render_frame`'s host time into spans read from the trace: the frame's
 preparation (with the constants' upload, the longest host-to-device
 `aten::to` in it), each `pass_*` scope's own host time with its kernel
 launches and copies (CUDA runtime calls) and ctypes raster calls, the time
-between scopes, the image copy's wait (from the copy's start until it
-returns) and the rest (present, diagnostics). The traced loop's ms a frame
+between scopes, a copy after the last scope (`image_copy`: none since the
+frame presents its image on the device) and the rest (present,
+diagnostics). The traced loop's ms a frame
 is printed beside the untraced one: the difference is the profiler's cost.
 
 Checks: the buckets add up to the loop's host time, and the spans to the

@@ -12,8 +12,8 @@ address, shape, strides, dtype and device). A caller whose step should
 replay passes the same buffers every call and writes each call's values
 into them in place (the renderer's constants buffer, its models region,
 its TAA history, previous depth and shadow map); a tensor in other memory
-makes a new key. On a CUDA device, once asked (`enabled`, which
-Renderer.set_cuda_graphs sets):
+makes a new key. On a CUDA device, unless turned off (`enabled`, true by
+default, which Renderer.set_cuda_graphs(False) clears):
 
 - the key's first call runs the step eagerly: it loads the kernels'
   libraries, fills the shared device constants (device.constant) and warms
@@ -29,11 +29,11 @@ memory cloned out, so a frame's outputs stay valid after the next replay;
 an argument the step returns comes back as itself. A capture that fails
 raises; nothing runs eagerly in its place.
 
-Graphs are off unless asked, because the benchmark (benchmark/run.py)
-cannot read a graphed frame yet: its peak memory is
-`max_memory_allocated`, which leaves out a graph's private pool, and its
-pass breakdown and raster bound come from the eager frame's `pass_*`
-scopes and kernel observers, which a replay does not enter (ROADMAP D19).
+Graphs are on by default, as the reference always runs its compiled frame
+and shadow pass. A profile that reads the eager frame's `pass_*` scopes or
+its kernel observers, which a replay does not enter, runs the frame inside
+`eager(...)` (the benchmark's traces, benchmark/trace.py, read a replay's
+kernels by name instead).
 
 The kernels' launch counters (ops/raster_cuda.rasterize.launches and the
 `launches` dicts of the other ops/*_cuda.py modules) count their wrappers'
@@ -43,7 +43,7 @@ trace by kernel name (chip_smoke.py phase 15).
 
 Eager calls are counted by reason in `stats`: "first" (a key's warm-up),
 "cpu" (a CPU frame: the step runs directly each frame, on the same static
-buffers the card captures), "graphs off" (not asked), "observers" (a
+buffers the card captures), "graphs off" (turned off), "observers" (a
 kernel observer is registered: it is handed every launch's tensors, which
 a replay makes no call to hand), and whatever a caller names with
 `eager(...)` (the chunked frame, the bands and farms of parallel/, the
@@ -148,7 +148,7 @@ class Graphed:
 
     def __init__(self, name: str):
         self.name = name
-        self.enabled = False
+        self.enabled = True
         self.reset()
 
     def reset(self) -> None:

@@ -25,9 +25,14 @@ Present modes, as the swapchain's:
 - ``"fifo"``: every frame is encoded in order, and `present` blocks while
   `max_frames_in_flight` encodes are outstanding.
 
-Frames arrive as host numpy arrays (the renderer copies each frame off the
-device once). If the encoder fails, the next `present` or `close` raises
-its error.
+Frames arrive as the renderer holds them, (H, W, 4) uint8 tensors on its
+device (or host numpy arrays). `present` enqueues the frame's copy into a
+reused pinned host buffer on the render thread's current stream and
+records an event (render/host_copy.py); the encoder thread waits on that
+event and reads the host buffer only, so no thread but the render thread
+touches a device tensor. A frame that mailbox mode drops gives its buffer
+back. If the encoder fails, the next `present` or `close` raises its
+error.
 """
 
 from __future__ import annotations
@@ -40,6 +45,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Tuple
 
 import numpy as np
+
+from .host_copy import HostFrames, Slot
 
 _PAGE = """<!doctype html><html><head><title>ash_tpu_torch live view</title>
 <style>body{margin:0;background:#111;color:#ddd;font:13px monospace}
@@ -107,12 +114,15 @@ class LiveViewSurface:
         self._depth = max(int(max_frames_in_flight), 1)
 
         self._lock = threading.Condition()
-        self._pending = []  # fifo: frames awaiting encode; mailbox: [newest]
+        self._pending = []  # fifo: slots awaiting encode; mailbox: [newest]
+        # At most `depth` slots pending, one encoding, the last frame's, and
+        # the one a present fills.
+        self._slots = HostFrames(self._depth + 3)
         self._encoded: Optional[bytes] = None  # latest encoded frame
         self._encoded_seq = 0  # bumps per encode; stream waiters watch it
         self._closing = False
         self._error: Optional[BaseException] = None
-        self._last: Optional[np.ndarray] = None
+        self._last: Optional[Slot] = None  # held for read_back
         self.presented_frames = 0
         self.encoded_frames = 0
         self.dropped_frames = 0
@@ -140,32 +150,49 @@ class LiveViewSurface:
         return self._size
 
     def resize(self, width: int, height: int) -> None:
-        self._size = (int(width), int(height))
+        with self._lock:
+            self._size = (int(width), int(height))
+            self._slots.reset()
 
-    def present(self, frame: np.ndarray) -> None:
-        """Accept a finished (H, W, 4) uint8 frame on the host.
+    def present(self, frame) -> None:
+        """Accept a finished (H, W, 4) uint8 frame (a tensor on the
+        renderer's device, or a host numpy array).
 
-        Mailbox: replace the pending slot, never block. Fifo: append; block
+        Mailbox: replace the pending frame, never block. Fifo: append; block
         while `max_frames_in_flight` frames are already awaiting encode."""
         with self._lock:
             self._raise_encoder_error()
-            self.presented_frames += 1
-            self._last = frame
-            if self._mode == "mailbox":
-                if self._pending:
-                    self._pending[0] = frame
-                    self.dropped_frames += 1
-                else:
-                    self._pending.append(frame)
-            else:
+            if self._mode == "fifo":
                 while len(self._pending) >= self._depth and not self._closing:
                     self._lock.wait(0.1)
                 self._raise_encoder_error()
-                self._pending.append(frame)
+            slot = self._slots.copy(frame)
+            self.presented_frames += 1
+            if self._last is not None:
+                self._slots.release(self._last)
+            self._last = self._slots.retain(slot)
+            if self._mode == "mailbox" and self._pending:
+                self._slots.release(self._pending[0])
+                self._pending[0] = slot
+                self.dropped_frames += 1
+            else:
+                self._pending.append(slot)
             self._lock.notify_all()
 
     def read_back(self) -> Optional[np.ndarray]:
-        return self._last
+        """A host copy of the last presented frame (it waits for the
+        frame's copy)."""
+        with self._lock:
+            slot = self._last
+            if slot is None:
+                return None
+            self._slots.retain(slot)
+        try:
+            slot.wait()
+            return slot.pixels().copy()
+        finally:
+            with self._lock:
+                self._slots.release(slot)
 
     def _raise_encoder_error(self) -> None:
         if self._error is not None:
@@ -181,10 +208,12 @@ class LiveViewSurface:
                         self._lock.wait(0.25)
                     if self._closing and not self._pending:
                         return
-                    frame = self._pending.pop(0)
+                    slot = self._pending.pop(0)
                     self._lock.notify_all()  # unblock fifo present()
-                data = _encode(frame, self._fmt, self._quality)
+                slot.wait()
+                data = _encode(slot.pixels(), self._fmt, self._quality)
                 with self._lock:
+                    self._slots.release(slot)
                     self._encoded = data
                     self._encoded_seq += 1
                     self.encoded_frames += 1
@@ -195,6 +224,8 @@ class LiveViewSurface:
             with self._lock:
                 self._error = e
                 self._closing = True
+                for slot in self._pending:
+                    self._slots.release(slot)
                 self._pending.clear()
                 self._lock.notify_all()
 

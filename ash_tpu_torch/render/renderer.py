@@ -30,10 +30,19 @@ Each frame's device work runs as steps over the renderer's own buffers: the
 frame's constants ride in one static buffer (`_upload_frame`), the models
 in its last region, and last frame's models, the history, the depth and the
 shadow map lie in buffers that the steps write in place and the next frame
-reads. With set_cuda_graphs(True) the frame, the shadow pass and the TRS
-composition run as CUDA graphs on the card (render/compiled.py), keyed on
-what shapes their work (`_frame_key`, `_external_shadow`); otherwise, and
-on the CPU, the same steps run directly. The chunked frame runs eagerly.
+reads. On the card the frame, the shadow pass and the TRS composition run
+as CUDA graphs (render/compiled.py), keyed on what shapes their work
+(`_frame_key`, `_external_shadow`), unless set_cuda_graphs(False) turns
+them off; then, and on the CPU, the same steps run directly. The chunked
+frame runs eagerly.
+
+As in the reference, a frame is asynchronous: `render_frame` enqueues the
+frame's device work and presents the image as a device tensor, waiting for
+nothing; the constants go up from reused pinned buffers (`_upload_frame`),
+and a surface that reads frames copies them into pinned buffers of its own.
+`read_back` is the fence: a blocking copy of the last image to the host.
+Diagnostics' console mode is the one other host sync of a steady frame: it
+reads a frame's overflow scalars 60 frames later (`_probe_overflow`).
 
 Every reference option, method and feature runs (UNPORTED_METHODS here
 and render/__init__.py's UNPORTED_NAMES are empty). The reference's
@@ -77,6 +86,7 @@ from .features import (
     ShadowFeature,
     SpotLight,
 )
+from .host_copy import Staging
 from .frame import (
     FrameConfig,
     FrameOutputs,
@@ -101,6 +111,9 @@ from .temporal_aa import TaaConfig, TemporalAA
 FRAME_LIGHT_DIR = np.array([-0.35, -1.0, -0.25], np.float32)
 FRAME_LIGHT_COLOR = np.full(3, 1.5, np.float32)
 FRAME_AMBIENT = np.full(3, 0.35, np.float32)
+# Pinned buffers the frame's constants go up from, used in turn: the host
+# runs at most this many frames ahead of the device.
+UPLOAD_BUFFERS = 3
 
 
 # The reference's XLA compilation, tunnel and debugging knobs: accepted,
@@ -336,14 +349,16 @@ class Renderer:
         self._ibl_epoch = 0
         # The frame's constants on the device (_upload_frame): one static
         # buffer, [uniforms | TRS | models], whose layout is
-        # _consts_layout; _models views its models region.
+        # _consts_layout; _models views its models region. They go up from
+        # the pinned buffers of _staging.
         self._consts: Optional[torch.Tensor] = None
         self._consts_layout: Optional[tuple] = None
+        self._staging = Staging(UPLOAD_BUFFERS)
         # The shadow pass's (map, overflow), which the frame reads in place
         # (_external_shadow).
         self._shadow_bufs: Optional[tuple] = None
         # The frame, the shadow pass and the TRS composition, as CUDA
-        # graphs on the card once set_cuda_graphs(True) asks
+        # graphs on the card unless set_cuda_graphs(False) turns them off
         # (render/compiled.py); run directly otherwise.
         self._graphs = {"frame": compiled.Graphed("frame"),
                         "shadow": compiled.Graphed("shadow"),
@@ -394,7 +409,12 @@ class Renderer:
         # are unchanged.
         self._shadow_cache: Optional[tuple] = None
         self._last_outputs: Optional[FrameOutputs] = None
+        # The last image on the host, copied by the first read_back after
+        # its frame.
         self._last_image: Optional[np.ndarray] = None
+        # An event after the last chunked frame, which the next one waits
+        # on (_render_frame_chunked).
+        self._chunk_fence: Optional[torch.cuda.Event] = None
         self.frame_count = 0
         # An extent asked for by request_swapchain_resize, adopted on the
         # next frame.
@@ -860,9 +880,9 @@ class Renderer:
     def set_cuda_graphs(self, enabled: bool) -> None:
         """On a CUDA device, run the frame, the shadow pass and the TRS
         composition as CUDA graphs (render/compiled.py): a key's first frame
-        eagerly, its second captured, every later one replayed. Off by
-        default until the benchmark reads a graphed frame's pools and
-        kernels (ROADMAP D19); off frees the graphs. The CPU runs the same
+        eagerly, its second captured, every later one replayed. On by
+        default, as the reference always runs its compiled frame; off frees
+        the graphs and runs every frame eagerly. The CPU runs the same
         steps eagerly either way."""
         for g in self._graphs.values():
             g.enabled = bool(enabled)
@@ -1372,7 +1392,10 @@ class Renderer:
         while its layout does, so a captured frame reads the same memory
         every frame; _models views its models region, which keeps the last
         models uploaded or composed. A prepare_frame's views are overwritten
-        by the next one's copy."""
+        by the next one's copy. On the card the copy is non-blocking, from
+        the next of UPLOAD_BUFFERS pinned buffers (host_copy.Staging), and
+        it is enqueued on the stream before the steps that read the
+        buffer."""
         arrays = {k: np.asarray(v, np.float32) for k, v in parts.items()}
         n_uni = sum(a.size for a in arrays.values())
         layout = (tuple((k, a.shape) for k, a in arrays.items()), d_pad)
@@ -1392,8 +1415,7 @@ class Renderer:
         elif models is not None:
             host += [np.zeros(10 * d_pad, np.float32),
                      np.asarray(models, np.float32).ravel()]
-        flat = np.concatenate(host)
-        self._consts[:flat.size].copy_(torch.from_numpy(flat))
+        self._staging.upload(self._consts, host)
         out, start = {}, 0
         for name, a in arrays.items():
             out[name] = self._consts[start:start + a.size].view(a.shape)
@@ -1509,12 +1531,14 @@ class Renderer:
         not used for it. With occlusion culling the first frame tests
         against a far-plane depth (nothing is known occluded yet) and every
         frame keeps its depth for the next. In an overlay diagnostics mode
-        the stats text is blended onto the image on the device before its
-        copy to the host. With set_cuda_graphs(True) the frame replays its
-        CUDA graph (render/compiled.py) from the second frame of a key on.
-        The shadow map, the TAA history and the previous depth go in
-        through the renderer's own buffers, which the frame reads in place
-        and the steps write; every tensor a frame returns is its own."""
+        the stats text is blended onto the image on the device before it is
+        presented. On the card the frame replays its CUDA graph
+        (render/compiled.py) from the second frame of a key on, unless
+        set_cuda_graphs(False) turned graphs off. The shadow map, the TAA
+        history and the previous depth go in through the renderer's own
+        buffers, which the frame reads in place and the steps write; every
+        tensor a frame returns is its own. It returns without waiting for
+        the device: read_back() is the fence."""
         start = time.perf_counter()
         if self._chunked():
             compiled.count_eager("chunked")
@@ -1563,14 +1587,14 @@ class Renderer:
             prev.copy_(self._models)
 
     def _present(self, outputs: FrameOutputs, start: float) -> FrameOutputs:
-        """Composite the overlay, copy the image to the host (a blocking
-        copy: the frame has ended on the device when it returns), present
-        it and update the diagnostics."""
+        """Composite the overlay, present the image as the device tensor it
+        is (the frame may still be running on the device) and update the
+        diagnostics."""
         if self.diagnostics_state.mode.overlay_enabled:
             self.overlay.composite(outputs.image,
                                    self.diagnostics_state.overlay_lines())
-        self._last_image = outputs.image.cpu().numpy()
-        self.surface.present(self._last_image)
+        self._last_image = None
+        self.surface.present(outputs.image)
         self._last_outputs = outputs
         self.frame_count += 1
         # A frame without a draw list draws the single mesh.
@@ -1761,9 +1785,11 @@ class Renderer:
         winner the unchunked depth test picks), their shadow maps
         min-merged and cached under the unchunked key, and the post chain
         once on the merged frame. It bounds the frame's transient memory by
-        a chunk's triangles. The reference fences each chunked frame before
-        the next; here the frame already ends in a blocking copy of its
-        image (_present), so nothing else waits."""
+        a chunk's triangles. As the reference does, it first waits for the
+        last chunked frame to end on the device, so that no more than one
+        holds every chunk's outputs at once."""
+        if self._chunk_fence is not None:
+            self._chunk_fence.synchronize()
         chunks = self.prepare_chunked_frame(view, proj, camera_pos)
         first = chunks[0]
         cfg, taa_params = first.config, first.taa_params
@@ -1800,6 +1826,10 @@ class Renderer:
             self._history_buf = None  # no longer holds it
         self._prev_view_proj = self._unjittered_view_proj
         self._prev_chunk_models = list(self._chunk_models)
+        if outputs.image.is_cuda:
+            self._chunk_fence = torch.cuda.Event()
+            self._chunk_fence.record(
+                torch.cuda.current_stream(outputs.image.device))
         return self._present(outputs, start)
 
     # ------------------------------------------------------------------
@@ -1810,6 +1840,12 @@ class Renderer:
         return self._last_outputs
 
     def read_back(self) -> Optional[np.ndarray]:
-        """The last frame's (H, W, 4) uint8 image on the host."""
+        """The last frame's (H, W, 4) uint8 image on the host: the fence. A
+        blocking copy (it waits for the frame's device work), made at most
+        once a frame."""
+        if self._last_outputs is None:
+            return None
+        if self._last_image is None:
+            self._last_image = self._last_outputs.image.cpu().numpy()
         return self._last_image
 

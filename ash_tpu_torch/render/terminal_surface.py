@@ -12,8 +12,13 @@ presented frame with, in order of fidelity:
 protocol="auto" reads $TERM and $KITTY_WINDOW_ID and falls back to "ansi".
 Present modes are the swapchain's, as in LiveViewSurface: "mailbox" (the
 default) never blocks and draws the newest frame, "fifo" draws every frame
-with bounded back-pressure. Frames arrive as host numpy arrays and are
-downscaled on the host to the terminal grid by area averaging. The three
+with bounded back-pressure. Frames arrive as the renderer holds them,
+(H, W, 4) uint8 tensors on its device (or host numpy arrays): `present`
+enqueues each frame's copy into a reused pinned host buffer and records an
+event (render/host_copy.py), and the drawing thread waits on that event
+and reads the host buffer only; a frame that mailbox mode drops gives its
+buffer back. Frames are downscaled on the host to the terminal grid by
+area averaging. The three
 encoders write bytes and escape codes directly, with no third-party
 library. If drawing fails, the next `present` or `close` raises its error.
 """
@@ -28,6 +33,8 @@ import threading
 from typing import Optional, Tuple
 
 import numpy as np
+
+from .host_copy import HostFrames
 
 
 def detect_protocol() -> str:
@@ -201,7 +208,10 @@ class TerminalSurface:
         self._depth = max(int(max_frames_in_flight), 1)
 
         self._lock = threading.Condition()
-        self._pending = []
+        self._pending = []  # slots awaiting drawing
+        # At most `depth` slots pending, one drawn and the one a present
+        # fills.
+        self._slots = HostFrames(self._depth + 2)
         self._closing = False
         self._error: Optional[BaseException] = None
         self.presented_frames = 0
@@ -219,24 +229,29 @@ class TerminalSurface:
         return self._size
 
     def resize(self, width: int, height: int) -> None:
-        self._size = (int(width), int(height))
+        with self._lock:
+            self._size = (int(width), int(height))
+            self._slots.reset()
 
-    def present(self, frame: np.ndarray) -> None:
+    def present(self, frame) -> None:
         with self._lock:
             self._raise_encoder_error()
             if self._closing:
                 return
-            self.presented_frames += 1
-            if self._mode == "mailbox":
-                if self._pending:
-                    self.dropped_frames += len(self._pending)
-                self._pending = [frame]
-            else:
+            if self._mode == "fifo":
                 while (
                     len(self._pending) >= self._depth and not self._closing
                 ):
                     self._lock.wait(0.1)
-                self._pending.append(frame)
+            slot = self._slots.copy(frame)
+            self.presented_frames += 1
+            if self._mode == "mailbox":
+                self.dropped_frames += len(self._pending)
+                for old in self._pending:
+                    self._slots.release(old)
+                self._pending = [slot]
+            else:
+                self._pending.append(slot)
             self._lock.notify_all()
 
     # --- encode/draw loop ---------------------------------------------
@@ -275,9 +290,12 @@ class TerminalSurface:
                         self._lock.wait(0.25)
                     if self._closing and not self._pending:
                         return
-                    frame = self._pending.pop(0)
+                    slot = self._pending.pop(0)
                     self._lock.notify_all()
-                text = self._frame_text(frame)
+                slot.wait()
+                text = self._frame_text(slot.pixels())
+                with self._lock:
+                    self._slots.release(slot)
                 if not self._wrote_setup:
                     self._out.write("\x1b[?25l")  # hide cursor
                     self._wrote_setup = True
@@ -291,6 +309,8 @@ class TerminalSurface:
             with self._lock:
                 self._error = e
                 self._closing = True
+                for slot in self._pending:
+                    self._slots.release(slot)
                 self._pending.clear()
                 self._lock.notify_all()
 

@@ -311,7 +311,7 @@ fails. Phases, one stdout line each:
    as well.
 15. the graphed frame (render/compiled.py): the benchmark's six cells
    (benchmark/scenes.py at 1920x1080), each through two fresh renderers,
-   one eager (graphs off, as a renderer is by default), one graphed
+   one eager (set_cuda_graphs(False)), one graphed
    (set_cuda_graphs(True)). Frames 0-3 of both, their camera turned about
    the origin by 0.05 rad a frame on top of the cell's own pose so that
    every frame's inputs differ from the last: equal bit for bit in every
@@ -321,8 +321,9 @@ fails. Phases, one stdout line each:
    1 on free of host syncs (sync debug mode "error"), the graphed renderer
    capturing at least once and replaying every frame it did not run
    eagerly. Then 30 frames a timed window in turns (eager, graphed,
-   graphed, eager): p50 and p90 frame ms, render_frame's host ms up to the
-   image copy, peak memory allocated and reserved. Then 3 frames of each
+   graphed, eager), each frame waited for on the host (torch.cuda.
+   synchronize): p50 and p90 frame ms, render_frame's host ms up to the
+   present, peak memory allocated and reserved. Then 3 frames of each
    under torch.profiler, after a warm-up frame it keeps nothing of, the
    graphed ones all replays: each hand kernel of csrc/ launched as often by
    name as in the eager frames, which shows that the replays ran each
@@ -334,18 +335,42 @@ fails. Phases, one stdout line each:
    events), the image copy's time alone (freed at once, the previous copy
    held as render_frame holds it, into a pinned buffer) and the graphs'
    private pools. Each line carries the card's name and power limit.
+16. the asynchronous frame loop: each of the six cells, built as phase 15
+   builds them, through renderers built with default settings (no
+   set_cuda_graphs call), against a renderer with graphs off whose images
+   are copied to the host after each frame with `.cpu()`, as render_frame
+   did before it presented the tensor. (a) The default renderer's graphs
+   are on, its frame step replays from frame 2 on (frame 0 eager, frame 1
+   captured; under TAA from frame 3, the key warming up twice) and every
+   step from frame 3 on (animated's TRS composition first runs in frame
+   1). (b) From frame 3 on, render_frame (and in animated
+   update_transforms_trs) runs under torch.cuda.set_sync_debug_mode(
+   "error"), and frames 10-29 run so with no readback at all. (c)
+   read_back() of frames 0-9, the camera turning 0.05 rad a frame, and of
+   frame 29 equal the blocking path's images bit for bit; the wrappers the
+   graphed frames called (frame 0 and the captures) are those the eager
+   frames called. (d) A FileStreamSurface raw stream of 20 frames at
+   max_frames_in_flight 1, 2 and 3 is byte for byte the blocking path's
+   frames, each written max_frames_in_flight - 1 presents later. (e) In
+   turns in one process, 30 frames a window: render_frame's return on the
+   host and the frame's completion by CUDA events with the end event waited
+   for (as the benchmark's clock), and the loop's ms a frame with no
+   readback, with a FileStreamSurface at depth 2 (to os.devnull) and with
+   a read_back() every frame; then the image's pinned copy's device ms.
+   Each line carries the card's name and power limit.
 
-Phases 3-14 run their frames eagerly, as a renderer does unless asked for
-graphs: they patch plain versions into the entries, record the entries'
-calls through observers and read the eager frame's `pass_*` scopes, none
-of which a replay re-enters.
+Phases 3-14 run their frames eagerly (graphs_off: set_cuda_graphs(False)
+on every renderer they build): they count the wrappers' launches frame by
+frame, patch plain versions into the entries, record the entries' calls
+through observers and read the eager frame's `pass_*` scopes, none of
+which a replay re-enters.
 
-Then one JSON line of phase 15's rows, one on the kernels and, last, the
-device JSON line.
+Then one JSON line of phase 15's rows, one of phase 16's, one on the
+kernels and, last, the device JSON line.
 
 `python3 chip_smoke.py --graphs FRAMES` runs phases 1, 2 and 15 only, with
 FRAMES frames a timed window, then phase 15's JSON line and the device
-line.
+line; `--present FRAMES` does so for phase 16.
 
 `python3 chip_smoke.py --parent DIR [--variant LABEL=DIR ...]` runs phase 1
 and then, instead of the phases above, ab_phase: another checkout's light,
@@ -4050,6 +4075,7 @@ def graph_phase(card, frames):
                 del marks[:]
                 t0 = time.perf_counter()
                 scenes.apply_pose(r, pose)
+                torch.cuda.synchronize()
                 walls.append((time.perf_counter() - t0) * 1e3)
                 hosts.append((marks[0] - t0) * 1e3)
             torch.cuda.synchronize()
@@ -4067,7 +4093,7 @@ def graph_phase(card, frames):
             print(f"phase15 graphs {name} window {w} {mode} ({frames} "
                   f"frames): p50 {row['p50_ms']:.3f} ms, p90 "
                   f"{row['p90_ms']:.3f} ms, render_frame host ms to the "
-                  f"image copy p50 {row['host_ms_p50']:.3f}, peak allocated "
+                  f"present p50 {row['host_ms_p50']:.3f}, peak allocated "
                   f"{row['peak_allocated_mib']:.1f} MiB, reserved "
                   f"{row['peak_reserved_mib']:.1f} MiB | {card}", flush=True)
         # The replays launched each hand kernel the eager frames did, as
@@ -4171,6 +4197,317 @@ def graph_phase(card, frames):
     return rows
 
 
+def graphs_off():
+    """A patcher (start() / stop(), or a context) under which every
+    Renderer built runs eager frames: set_cuda_graphs(False) right after
+    its construction. Phases 3-14 and ab_phase count the wrappers' launches
+    frame by frame, patch plain versions into the entries and read the
+    eager frame's `pass_*` scopes, none of which a replay re-enters; a
+    renderer that asks for graphs itself (the benchmark's) still gets
+    them."""
+    from ash_tpu_torch.render.renderer import Renderer
+
+    init = Renderer.__init__
+
+    @functools.wraps(init)
+    def eager_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        self.set_cuda_graphs(False)
+
+    return mock.patch.object(Renderer, "__init__", eager_init)
+
+
+# Phase 16: the asynchronous frame loop on renderers built with default
+# settings. Frames 0..PRESENT_CHECK_FRAMES-1 read by read_back() (the
+# frame step replays from frame 2 on, every step from PRESENT_SYNC_FROM on,
+# and those frames make no host sync); then PRESENT_STEADY_FRAMES more with
+# no readback, all under
+# the sync debug mode's "error"; PRESENT_STREAM_FRAMES through a
+# FileStreamSurface at each of PRESENT_DEPTHS; the timed loops in turns.
+PRESENT_CHECK_FRAMES = 10
+PRESENT_SYNC_FROM = 3
+PRESENT_STEADY_FRAMES = 20
+PRESENT_STREAM_FRAMES = 20
+PRESENT_DEPTHS = (1, 2, 3)
+# "clock": each frame between CUDA events and waited for on its end event,
+# as the benchmark's Clock times it; "none", "stream" (FileStreamSurface at
+# depth 2, to os.devnull) and "read_back" (a read_back() after each frame):
+# the loop's wall over its frames, synchronized once at its end.
+PRESENT_TURNS = ("clock", "none", "stream", "read_back",
+                 "read_back", "stream", "none", "clock")
+
+
+@contextlib.contextmanager
+def sync_error():
+    """Any host sync that PyTorch's sync debug mode sees raises inside."""
+    import torch
+
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+def step_calls():
+    """{step: (eager calls, captures, replays)} of render/compiled.py."""
+    from ash_tpu_torch.render import compiled
+
+    return {k: (sum(v["eager"].values()), v["captures"], v["replays"])
+            for k, v in compiled.stats.items()}
+
+
+def present_phase(card, frames):
+    """Phase 16 (the module's docstring): each of the benchmark's cells at
+    1920x1080 through renderers built with default settings, against a
+    renderer with graphs off whose images are copied as render_frame used
+    to copy them (`outputs.image.cpu()` after each frame); `frames` frames
+    a timed window. -> {cell: row}."""
+    import gc
+    import types
+
+    import torch
+    import ash_tpu_torch as att
+    from benchmark import scenes
+    from benchmark.run import percentile
+    from ash_tpu_torch.render import compiled
+
+    api = scenes.port_api("cuda")
+
+    def default_api(surface=None):
+        """scenes' API, its renderers built with default settings (no
+        set_cuda_graphs call) on `surface(w, h)` or a HeadlessSurface."""
+        return types.SimpleNamespace(**{
+            **vars(api),
+            "renderer": lambda s, cfg: att.Renderer(s, cfg, device="cuda"),
+            "HeadlessSurface": surface or api.HeadlessSurface})
+
+    def build(cell, surface=None):
+        data = scenes.scene_data(cell, api, 0)
+        return scenes.build_renderer(cell, data, default_api(surface)), data
+
+    def named(counts):
+        return {f"{m}.{k}": v for (m, k), v in counts.items()}
+
+    tmp = pathlib.Path(os.path.dirname(os.path.abspath(__file__))) / "build"
+    tmp.mkdir(exist_ok=True)
+    rows = {}
+    n_all = PRESENT_CHECK_FRAMES + PRESENT_STEADY_FRAMES
+    for name in scenes.CELL_NAMES:
+        t_cell = time.perf_counter()
+        cell = scenes.load_cell(name)
+        h, w = cell["height"], cell["width"]
+        # The blocking path: graphs off, each image copied to the host
+        # after its frame.
+        r_old, data = build(cell)
+        r_old.set_cuda_graphs(False)
+        before = compiled.counters()
+        old = []
+        for i in range(n_all):
+            o = scenes.apply_pose(r_old, moving_pose(cell, data, i))
+            old.append(o.image.cpu().numpy())
+            if i == PRESENT_CHECK_FRAMES - 1:
+                eager_counts = compiled.counter_delta(compiled.counters(),
+                                                      before)
+        still = [i for i in range(1, n_all)
+                 if np.array_equal(old[i], old[i - 1])]
+        check(not still, f"phase16 {name}: blocking frames {still} equal the "
+              "frame before: the check frames' inputs did not move")
+        del r_old, o
+
+        # (a)-(c): a renderer with default settings.
+        r, data = build(cell)
+        check(all(g.enabled for g in r._graphs.values()),
+              f"phase16 {name}: a default renderer's graphs are off")
+        compiled.reset_stats()
+        before = compiled.counters()
+        calls, differ = [], []
+        for i in range(PRESENT_CHECK_FRAMES):
+            was = step_calls()
+            with (sync_error() if i >= PRESENT_SYNC_FROM
+                  else contextlib.nullcontext()):
+                scenes.apply_pose(r, moving_pose(cell, data, i))
+            calls.append({k: tuple(a - b for a, b in
+                                   zip(v, was.get(k, (0, 0, 0))))
+                          for k, v in step_calls().items()})
+            if not np.array_equal(r.read_back(), old[i]):
+                differ.append(i)
+        counts = compiled.counter_delta(compiled.counters(), before)
+        # The frame step replays from frame 2 on; under TAA its key warms up
+        # twice (frame 1 reads last frame's models, a buffer of their own),
+        # and animated's TRS composition runs first in frame 1, so every
+        # step replays from frame 3.
+        first = PRESENT_SYNC_FROM if cell.get("hdr_taa") else 2
+        replayed = (all(c["frame"] == (0, 0, 1) for c in calls[first:])
+                    and all(v[:2] == (0, 0) for c in calls[PRESENT_SYNC_FROM:]
+                            for v in c.values()))
+        check(replayed, f"phase16 {name}: steps (eager, captures, replays) "
+              f"by frame {calls}, want the frame step's replays only from "
+              f"frame {first}, every step's from frame {PRESENT_SYNC_FROM}")
+        check(not differ, f"phase16 {name}: read_back() of frames {differ} "
+              "differs from the blocking path's image")
+        check(counts and set(counts) == set(eager_counts),
+              f"phase16 {name}: the wrappers called in frames 0-"
+              f"{PRESENT_CHECK_FRAMES - 1}, graphed {counts} against eager "
+              f"{eager_counts}")
+        was = step_calls()
+        with sync_error():
+            for i in range(PRESENT_CHECK_FRAMES, n_all):
+                scenes.apply_pose(r, moving_pose(cell, data, i))
+        steady = {k: tuple(a - b for a, b in zip(v, was.get(k, (0, 0, 0))))
+                  for k, v in step_calls().items()}
+        check(steady["frame"] == (0, 0, PRESENT_STEADY_FRAMES)
+              and all(v[:2] == (0, 0) for v in steady.values()),
+              f"phase16 {name}: steady frames' steps {steady}")
+        check(np.array_equal(r.read_back(), old[-1]),
+              f"phase16 {name}: read_back() after {PRESENT_STEADY_FRAMES} "
+              "frames with no readback differs from the blocking path's")
+        print(f"phase16 present {name}: a renderer with default settings "
+              f"replayed the frame step from frame {first} on and every "
+              f"step from frame {PRESENT_SYNC_FROM} on (steps (eager, "
+              f"captures, replays) by frame {calls}); frames "
+              f"{PRESENT_SYNC_FROM}-{n_all - 1} (render_frame"
+              + (", update_transforms_trs" if cell["sequence"]["motion"]
+                 != "none" else "")
+              + f") made no host sync under sync debug mode \"error\"; "
+              f"read_back() of frames 0-{PRESENT_CHECK_FRAMES - 1} and of "
+              f"frame {n_all - 1} after {PRESENT_STEADY_FRAMES} frames with "
+              f"no readback == the graphs-off frames copied with .cpu() bit "
+              f"for bit; the wrappers' calls, frames 0-"
+              f"{PRESENT_CHECK_FRAMES - 1} graphed (frame 0 and the "
+              f"captures) {named(counts)}, eager {named(eager_counts)} | "
+              f"{card}", flush=True)
+
+        # (d): FileStreamSurface raw streams at each depth.
+        streams = {}
+        for depth in PRESENT_DEPTHS:
+            path = tmp / f"present-{name}-{depth}.rgba"
+            surf = []
+
+            def stream(sw, sh, depth=depth, path=path, surf=surf):
+                surf.append(att.FileStreamSurface(
+                    sw, sh, str(path), max_frames_in_flight=depth))
+                return surf[-1]
+
+            rs, sdata = build(cell, stream)
+            written = []
+            for i in range(PRESENT_STREAM_FRAMES):
+                scenes.apply_pose(rs, moving_pose(cell, sdata, i))
+                written.append(surf[0].written_frames)
+            surf[0].close()
+            raw = np.fromfile(path, np.uint8)
+            path.unlink()
+            n = raw.size // (h * w * 4)
+            bad = [i for i in range(min(n, PRESENT_STREAM_FRAMES))
+                   if not np.array_equal(raw[i * h * w * 4:
+                                             (i + 1) * h * w * 4]
+                                         .reshape(h, w, 4), old[i])]
+            check(raw.size == PRESENT_STREAM_FRAMES * h * w * 4 and not bad,
+                  f"phase16 {name}: FileStreamSurface depth {depth}: "
+                  f"{raw.size} bytes, frames {bad} differ from the blocking "
+                  "path's")
+            check(written == [max(0, i + 2 - depth)
+                              for i in range(PRESENT_STREAM_FRAMES)],
+                  f"phase16 {name}: FileStreamSurface depth {depth} wrote "
+                  f"{written} frames after each present")
+            streams[depth] = raw.size
+            del rs, raw
+        print(f"phase16 present {name}: FileStreamSurface raw streams of "
+              f"{PRESENT_STREAM_FRAMES} frames at max_frames_in_flight "
+              f"{', '.join(map(str, PRESENT_DEPTHS))} ({streams} bytes) == "
+              "the blocking path's frames byte for byte, each frame written "
+              f"max_frames_in_flight - 1 presents later | {card}", flush=True)
+        del old
+
+        # (e): the times, in turns.
+        r_fs, fdata = build(cell, lambda sw, sh: att.FileStreamSurface(
+            sw, sh, os.devnull, max_frames_in_flight=2))
+        idx = {id(r): PRESENT_CHECK_FRAMES + PRESENT_STEADY_FRAMES,
+               id(r_fs): 0}
+        for _ in range(3):  # warm-up: eager, captured, replayed
+            scenes.render(cell, fdata, r_fs, idx[id(r_fs)])
+            idx[id(r_fs)] += 1
+        times = collections.defaultdict(list)
+        windows = []
+        for mode in PRESENT_TURNS:
+            rr, rdata = (r_fs, fdata) if mode == "stream" else (r, data)
+            compiled.reset_stats()
+            torch.cuda.synchronize()
+            evs = []
+            t0 = time.perf_counter()
+            for _ in range(frames):
+                pose = scenes.frame_pose(cell, rdata, idx[id(rr)])
+                idx[id(rr)] += 1
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                h0 = time.perf_counter()
+                scenes.apply_pose(rr, pose)
+                times[mode, "host"].append((time.perf_counter() - h0) * 1e3)
+                e1.record()
+                evs.append((e0, e1))
+                if mode == "clock":
+                    e1.synchronize()
+                elif mode == "read_back":
+                    rr.read_back()
+            if mode == "stream":
+                rr.surface.flush()
+            torch.cuda.synchronize()
+            loop_ms = (time.perf_counter() - t0) * 1e3 / frames
+            times[mode, "events"] += [a.elapsed_time(b) for a, b in evs]
+            times[mode, "loop"].append(loop_ms)
+            st = compiled.stats.get("frame", {})
+            check(st.get("replays") == frames and not st.get("eager")
+                  and not st.get("captures"),
+                  f"phase16 {name} {mode} window: frame steps {st}")
+            windows.append({"mode": mode, "loop_ms": loop_ms})
+        image = r.last_outputs().image
+        pinned = torch.empty(image.shape, dtype=image.dtype, pin_memory=True)
+        copies = []
+        for _ in range(20):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            pinned.copy_(image, non_blocking=True)
+            e1.record()
+            e1.synchronize()
+            copies.append(e0.elapsed_time(e1))
+        row = {
+            "render_frame_host_ms_p50": percentile(times["clock", "host"], 50),
+            "frame_ms_p50_by_events": percentile(times["clock", "events"],
+                                                 50),
+            "frame_ms_p90_by_events": percentile(times["clock", "events"],
+                                                 90),
+            "loop_ms": {m: statistics.mean(times[m, "loop"])
+                        for m in ("none", "stream", "read_back")},
+            "loop_host_ms_p50": {m: percentile(times[m, "host"], 50)
+                                 for m in ("none", "stream", "read_back")},
+            "loop_events_ms_p50": {m: percentile(times[m, "events"], 50)
+                                   for m in ("none", "stream", "read_back")},
+            "pinned_copy_device_ms": statistics.median(copies),
+            "windows": windows, "frames": frames,
+            "seconds": time.perf_counter() - t_cell,
+        }
+        rows[name] = row
+        print(f"phase16 present {name}: timed in turns {PRESENT_TURNS}, "
+              f"{frames} frames a window: render_frame returns on the host "
+              f"in p50 {row['render_frame_host_ms_p50']:.3f} ms; the frame "
+              f"completes by events (the benchmark's clock) in p50 "
+              f"{row['frame_ms_p50_by_events']:.3f}, p90 "
+              f"{row['frame_ms_p90_by_events']:.3f} ms; the loop's ms a frame "
+              f"with no readback {row['loop_ms']['none']:.3f}, with a "
+              f"FileStreamSurface at depth 2 {row['loop_ms']['stream']:.3f}, "
+              f"with a read_back() every frame "
+              f"{row['loop_ms']['read_back']:.3f}; the image's pinned copy "
+              f"{row['pinned_copy_device_ms']:.3f} device ms (median of 20) "
+              f"| {card}", flush=True)
+        del r, r_fs, image, pinned
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(
         description="Drive the port on one CUDA card (see the module's "
@@ -4185,6 +4522,9 @@ def main() -> int:
                     "timed between the turns")
     ap.add_argument("--graphs", type=int, default=None, metavar="FRAMES",
                     help="run phases 1, 2 and 15 only, FRAMES frames a "
+                    "timed window (the default run times 30)")
+    ap.add_argument("--present", type=int, default=None, metavar="FRAMES",
+                    help="run phases 1, 2 and 16 only, FRAMES frames a "
                     "timed window (the default run times 30)")
     args = ap.parse_args()
     trees = {}
@@ -4236,9 +4576,10 @@ def main() -> int:
           f"cuda {torch.version.cuda} | {kind}", flush=True)
     if trees:
         cam = build_bench_renderer(1920, 1080, 1000, "cuda")[2]
-        print(json.dumps({"ab": ab_phase(
-            card, cam.view_matrix(), cam.projection_matrix(), cam.position,
-            trees)}, default=str))
+        with graphs_off():
+            ab = ab_phase(card, cam.view_matrix(), cam.projection_matrix(),
+                          cam.position, trees)
+        print(json.dumps({"ab": ab}, default=str))
         return 0
 
     # 2. Build: one nvcc per source, started together.
@@ -4288,16 +4629,22 @@ def main() -> int:
                       for k, (r, sp) in sorted(usage.items())), flush=True)
     spills = {k: sp for k, (_, sp) in usage.items() if sp}
     check(not spills, f"instantiations spill: {spills}")
-    if args.graphs is not None:
-        rows = graph_phase(card, args.graphs)
+    if args.graphs is not None or args.present is not None:
+        if args.graphs is not None:
+            rows = {"graphs": graph_phase(card, args.graphs)}
+        else:
+            rows = {"present": present_phase(card, args.present)}
         foreign = sorted(m for m in sys.modules if m in ("jax", "ash_tpu")
                          or m.startswith(("jax.", "ash_tpu.")))
         check(not foreign, f"the port loaded jax or ash_tpu: {foreign[:5]}")
-        print(json.dumps({"graphs": rows, "card": card}))
+        print(json.dumps({**rows, "card": card}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}))
         return 0
+    # Phases 3-14 run every renderer's frames eagerly.
+    eager_phases = graphs_off()
+    eager_phases.start()
     # 3. Kernel against plain at the main path's shapes.
     r, _, cam, _ = build_bench_renderer(1920, 1080, 1000, "cuda")
     view, proj, pos = cam.view_matrix(), cam.projection_matrix(), cam.position
@@ -5723,9 +6070,13 @@ def main() -> int:
     shade_rows, shade_err = shade_phase(card, view, proj, pos,
                                         shade_launches, usage, shade_cases)
     del shade_cases
+    eager_phases.stop()
     # 15. The benchmark's six cells graphed against eager.
     graph_rows = graph_phase(card, 30)
     print(json.dumps({"graphs": graph_rows, "card": card}))
+    # 16. The asynchronous frame loop on renderers with default settings.
+    present_rows = present_phase(card, 30)
+    print(json.dumps({"present": present_rows, "card": card}))
 
     foreign = sorted(m for m in sys.modules if m in ("jax", "ash_tpu")
                      or m.startswith(("jax.", "ash_tpu.")))
