@@ -28,12 +28,17 @@ def grid_shape(height: int, width: int, tile_h: int, tile_w: int):
 def _keep_rank(keep_score: torch.Tensor):
     """(rank, rank_to_id): a HIGHER rank is kept longer; equal scores give
     the lower triangle id the higher rank (the reference's lexsort on
-    (score, -id), done as two stable sorts)."""
+    (score, -id), done as two stable sorts). As the reference's sort and
+    the CPU's, -0.0 ranks equal to +0.0 and every NaN equal, above +inf:
+    the scores are made so first, since the card's radix sort orders
+    zeros and NaNs by their bits."""
     t = keep_score.shape[0]
+    score = torch.where(keep_score == 0, 0.0, keep_score)
+    score = torch.where(torch.isnan(score), float("nan"), score)
     ids = torch.arange(t, device=keep_score.device)
     by_id_desc = ids.flip(0)  # secondary key first: -id ascending
     order = by_id_desc[
-        torch.argsort(keep_score[by_id_desc], stable=True)
+        torch.argsort(score[by_id_desc], stable=True)
     ]  # tri id at each rank
     rank = torch.empty(t, dtype=torch.int32, device=keep_score.device)
     rank[order] = ids.to(torch.int32)

@@ -15,8 +15,9 @@ their `TileBins` (int32 contiguous (tiles, max_per_tile) ids, ascending and
   first use) or raise; nothing falls back.
 - CPU tensors run the plain version (ops/binning.py) unchanged;
   `check_inputs` says what the card takes and runs on CPU tensors too.
-- A keep score ("nearest") goes through the plain `_keep_rank` (a stable
-  argsort, PyTorch's on either device); the kernels take its ranks.
+- A keep score ("nearest") goes to the kernels as it is: they rank by a
+  64-bit key of the score and the id, in `_keep_rank`'s order (a stable
+  argsort, which the plain binner takes on either device), with no sort.
 - No host sync: every output and scratch buffer is sized from Python ints,
   and the overflow is zeroed on the stream, so a frame can be captured.
 
@@ -42,8 +43,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 launches = {"dense": 0, "two_level": 0}
 observers = []
 
-# Items a chunk of the count and write kernels (csrc/binning.cu kThreads).
+# Items a chunk of the count and write kernels (csrc/binning.cu kMaxChunk),
+# halved down to MIN_CHUNK while a level has fewer than two blocks an SM.
 CHUNK = 256
+MIN_CHUNK = 64
+# The most tiles a side of a dense level's grid (the kernels keep a tile
+# range in 16 bits a bound).
+MAX_GRID_SIDE = 65535
 # The largest value of a 32-bit index or count.
 _INT_MAX = 2**31 - 1
 
@@ -52,8 +58,8 @@ _INT_MAX = 2**31 - 1
 def _library() -> ctypes.CDLL:
     lib = _build.load("binning")
     lib.ash_bin_level.argtypes = (
-        [_I, _I, _P, _P, _P, _I, _I, _I] + [_F] * 5 + [_P, _P] + [_I] * 10
-        + [_P] * 5 + [_P])
+        [_I, _I, _P, _P, _P, _I, _I, _I] + [_F] * 5 + [_P, _P] + [_I] * 11
+        + [_P] * 6 + [_P])
     lib.ash_bin_level.restype = _I
     return lib
 
@@ -81,8 +87,10 @@ def check_inputs(bbox, valid, height, width, tile_h, tile_w, max_per_tile,
     `keep_score` None or a contiguous f32 (T,); ints `height`, `width`,
     `tile_h`, `tile_w`, `max_per_tile` above 0 and `y0`; for the two-level
     binner (`coarse_tiles` given) two ints above 0 and `coarse_cap` above
-    0; every list, count and index within 32 bits. Both devices check, so
-    a CPU run shows what the card would refuse."""
+    0; every list, count and index within 32 bits; a dense grid (the
+    dense binner's, or the two-level binner's coarse one) of at most
+    MAX_GRID_SIDE tiles a side. Both devices check, so a CPU run shows what
+    the card would refuse."""
     if not isinstance(bbox, torch.Tensor) or bbox.dim() != 2:
         raise ValueError("binning kernel: bbox must be a (T, 4) tensor")
     device = bbox.device
@@ -126,6 +134,11 @@ def check_inputs(bbox, valid, height, width, tile_h, tile_w, max_per_tile,
             or any(max(tiles * chunks, pixels) > _INT_MAX
                    for tiles, chunks, pixels in levels)):
         raise ValueError("binning kernel: 32-bit index range exceeded")
+    dense = (ty, tx) if coarse_tiles is None else (ty_p // cy_f, tx_p // cx_f)
+    if max(dense) > MAX_GRID_SIDE:
+        raise ValueError(f"binning kernel: a dense grid of {dense[0]} x "
+                         f"{dense[1]} tiles; the kernels take at most "
+                         f"{MAX_GRID_SIDE} a side")
 
 
 def _f32(x) -> float:
@@ -148,19 +161,38 @@ def _int32(n, device):
     return torch.empty(n, dtype=torch.int32, device=device)
 
 
-def _dense_args(bbox, valid, rank, height, width, tile_h, tile_w, K, y0,
+@functools.lru_cache(maxsize=None)
+def _fill_blocks(index) -> int:
+    """Two blocks an SM of CUDA device `index`."""
+    return 2 * torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def chunk_size(groups: int, items: int, fill: int) -> int:
+    """Items a chunk of a level with `groups` groups of `items` items:
+    CHUNK, halved down to MIN_CHUNK while the level has fewer than `fill`
+    chunks."""
+    chunk = CHUNK
+    while chunk > MIN_CHUNK and groups * -(-items // chunk) < fill:
+        chunk //= 2
+    return chunk
+
+
+def _dense_args(bbox, valid, score, height, width, tile_h, tile_w, K, y0,
                 zero_overflow, ids, counts, overflow):
     """ash_bin_level's arguments for a dense level, with its scratch."""
     t = int(bbox.shape[0])
     ty, tx = grid_shape(height, width, tile_h, tile_w)
-    chunks = -(-t // CHUNK)
+    chunk = chunk_size(1, t, _fill_blocks(bbox.device.index))
+    chunks = -(-t // chunk)
     cnt = _int32(ty * tx * chunks, bbox.device)
     total = _int32(ty * tx, bbox.device)
-    return (0, zero_overflow, bbox.data_ptr(), valid.data_ptr(), _ptr(rank),
+    memo = _int32(2 * t, bbox.device)  # each triangle's tile range
+    return (0, zero_overflow, bbox.data_ptr(), valid.data_ptr(), _ptr(score),
             t, ty, tx, _reciprocal(tile_h), _reciprocal(tile_w), _f32(y0),
             _f32(y0 + height), _f32(width), None, None, 0, 1, 1, 1, 1, 1, 1,
-            0, K, chunks, cnt.data_ptr(), total.data_ptr(), ids.data_ptr(),
-            counts.data_ptr(), overflow.data_ptr()), (cnt, total)
+            0, K, chunk, chunks, cnt.data_ptr(), total.data_ptr(),
+            memo.data_ptr(), ids.data_ptr(), counts.data_ptr(),
+            overflow.data_ptr()), (cnt, total, memo)
 
 
 def launcher(bbox, valid, height, width, tile_h, tile_w, max_per_tile, y0=0,
@@ -168,9 +200,8 @@ def launcher(bbox, valid, height, width, tile_h, tile_w, max_per_tile, y0=0,
     """Check a binner's inputs on a CUDA device and return (launch,
     TileBins): `launch()` runs the dense binner (`coarse_tiles` None) or
     the two-level one once on the current stream, writing the TileBins'
-    tensors, and counts nothing; a keep score's ranks are taken here, once.
-    The entry points count; this split lets a timing loop replay the bare
-    launches."""
+    tensors, and counts nothing. The entry points count; this split lets a
+    timing loop replay the bare launches."""
     check_inputs(bbox, valid, height, width, tile_h, tile_w, max_per_tile,
                  y0, keep_score, coarse_tiles, coarse_cap)
     device = bbox.device
@@ -178,7 +209,6 @@ def launcher(bbox, valid, height, width, tile_h, tile_w, max_per_tile, y0=0,
         raise ValueError(f"binning kernel: unsupported device {device}")
     height, width, tile_h, tile_w, K, y0 = map(
         int, (height, width, tile_h, tile_w, max_per_tile, y0))
-    rank = None if keep_score is None else binning._keep_rank(keep_score)[0]
     t = int(bbox.shape[0])
     ty, tx = grid_shape(height, width, tile_h, tile_w)
     ids = _int32((ty * tx, K), device)
@@ -186,8 +216,9 @@ def launcher(bbox, valid, height, width, tile_h, tile_w, max_per_tile, y0=0,
     overflow = _int32((), device)
     entry = _library().ash_bin_level
     if coarse_tiles is None:
-        args, scratch = _dense_args(bbox, valid, rank, height, width, tile_h,
-                                    tile_w, K, y0, 1, ids, counts, overflow)
+        args, scratch = _dense_args(bbox, valid, keep_score, height, width,
+                                    tile_h, tile_w, K, y0, 1, ids, counts,
+                                    overflow)
         levels = [args]
     else:
         cy_f, cx_f = map(int, coarse_tiles)
@@ -197,20 +228,23 @@ def launcher(bbox, valid, height, width, tile_h, tile_w, max_per_tile, y0=0,
         cand = _int32((cy * cx, kc), device)
         ccount = _int32(cy * cx, device)
         coarse, scratch = _dense_args(
-            bbox, valid, rank, ty_p * tile_h, tx_p * tile_w, tile_h * cy_f,
-            tile_w * cx_f, kc, y0, 1, cand, ccount, overflow)
-        chunks = -(-kc // CHUNK)
-        cnt = _int32(cy * cx * cy_f * cx_f * chunks, device)
+            bbox, valid, keep_score, ty_p * tile_h, tx_p * tile_w,
+            tile_h * cy_f, tile_w * cx_f, kc, y0, 1, cand, ccount, overflow)
+        chunk = chunk_size(cy * cx, kc, _fill_blocks(device.index))
+        chunks = -(-kc // chunk)
+        cnt = _int32(cy * cx * chunks * cy_f * cx_f, device)
         total = _int32(cy * cx * cy_f * cx_f, device)
-        fine = (1, 0, bbox.data_ptr(), None, _ptr(rank), t, cy, cx, 0.0, 0.0,
-                0.0, 0.0, 0.0, cand.data_ptr(), ccount.data_ptr(), kc, cy_f,
-                cx_f, ty, tx, tile_h, tile_w, y0, K, chunks, cnt.data_ptr(),
-                total.data_ptr(), ids.data_ptr(), counts.data_ptr(),
-                overflow.data_ptr())
+        # Each warp's hit mask a fine tile.
+        memo = _int32(cy * cx * chunks * cy_f * cx_f * (chunk // 32), device)
+        fine = (1, 0, bbox.data_ptr(), None, _ptr(keep_score), t, cy, cx,
+                0.0, 0.0, 0.0, 0.0, 0.0, cand.data_ptr(), ccount.data_ptr(),
+                kc, cy_f, cx_f, ty, tx, tile_h, tile_w, y0, K, chunk, chunks,
+                cnt.data_ptr(), total.data_ptr(), memo.data_ptr(),
+                ids.data_ptr(), counts.data_ptr(), overflow.data_ptr())
         levels = [coarse, fine]
-        scratch += (cand, ccount, cnt, total)
+        scratch += (cand, ccount, cnt, total, memo)
     launch = functools.partial(_launch, device, entry, levels,
-                               scratch + (bbox, valid, rank))
+                               scratch + (bbox, valid, keep_score))
     return launch, TileBins(tri_ids=ids, counts=counts, overflow=overflow)
 
 

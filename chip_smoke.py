@@ -365,22 +365,25 @@ fails. Phases, one stdout line each:
    textured and mega (drop-free caps, two levels, "nearest") frames' own
    binner calls (frame 1, recorded from ops/binning_cuda's entries), and
    seeded cases (1,002,528 triangles overflowing both levels at the base
-   caps, under both policies with tied scores; boxes whose edges lie at
-   48k - ulp, where the card's floor(y / 48) rounds up, at 48-row tiles and
-   coarse tiles) through the kernels and the plain binner: ids, counts and
-   overflow equal array for array. Each frame call's device time (50 bare
-   launches between CUDA events, and in a CUDA graph), the entry's and the
-   plain binner's, in turns, beside its bound (binning_work), and each
-   kernel's device ms under torch.profiler as phase 15 reads it
-   (binning_by_kernel: each kernel once a level, their sum near the
-   graph's time); frames 2 and 3 of standard, animated and mega with the
-   kernels (counted from 0, the plain binner never called) against the
-   same frames with the plain binner patched in (u8, colour and scalars);
-   then the mega frame's eager
-   pass_binning device span and its graphed replay's device ms and private
-   pools, kernels against plain. Phase 4 counts the binning calls of the
-   standard, glass, lit, rich and mega frames from 0 as well (one a raster
-   launch; glass bins once a frame for its peels).
+   caps and the dense level at 64x128 tiles, under both policies with tied
+   scores, and under "nearest" once more with +-0.0, +-inf and NaNs of
+   either sign among the scores; boxes whose edges lie at 48k - ulp, where
+   the card's floor(y / 48) rounds up, at 48-row tiles and coarse tiles)
+   through the kernels and the plain binner: ids, counts and overflow
+   equal array for array. Each frame call's device time (50 bare launches
+   between CUDA events, and in a CUDA graph), the entry's and the plain
+   binner's, in turns, beside its bound (binning_work) and, for a dense
+   call, beside three empty launches in a CUDA graph (the floor under its
+   three kernels), and each kernel's device ms under torch.profiler as
+   phase 15 reads it (binning_by_kernel: each kernel once a level, their
+   sum near the graph's time); frames 2 and 3 of standard, animated and
+   mega with the kernels (counted from 0, the plain binner never called)
+   against the same frames with the plain binner patched in (u8, colour
+   and scalars); then the mega frame's eager pass_binning device span and
+   its graphed replay's device ms and private pools, kernels against
+   plain. Phase 4 counts the binning calls of the standard, glass, lit,
+   rich and mega frames from 0 as well (one a raster launch; glass bins
+   once a frame for its peels).
 
 Phases 3-14 run their frames eagerly (graphs_off: set_cuda_graphs(False)
 on every renderer they build): they count the wrappers' launches frame by
@@ -396,12 +399,13 @@ FRAMES frames a timed window, then phase 15's JSON line and the device
 line; `--present FRAMES` does so for phase 16.
 
 `python3 chip_smoke.py --parent DIR [--variant LABEL=DIR ...]` runs phase 1
-and then, instead of the phases above, ab_phase: another checkout's light,
-bloom and shadow kernels (DIR, for example the parent commit unpacked with
-`git archive`) against this tree's, in turns in one process, at phases
-10-12's inputs and in the rich and glass frames, DIR's shadow entry
-against this tree's on the host, and prints one JSON line of what it
-measured.
+and then, instead of the phases above, ab_phase: another checkout's
+binning (DIR's entry on DIR's csrc/binning.cu, at phase 17's frame calls),
+light, bloom and shadow kernels (DIR, for example the parent commit
+unpacked with `git archive`) against this tree's, in turns in one process,
+at phases 10-12's inputs and in the rich and glass frames, DIR's shadow
+and binning entries against this tree's on the host, and prints one JSON
+line of what it measured.
 """
 
 import argparse
@@ -3586,20 +3590,24 @@ def out_of_reach(lo, mask, world, normal, view_dir, base_color, metallic,
 
 
 def ab_builds(trees):
-    """Build each tree's ash_tpu_torch/csrc/bloom.cu, lights.cu and
-    shadow.cu, where it has them, with ops/_build.py's flags, one nvcc a
-    source, all started together, into build/ash_tpu_torch/ab/; bind each
-    library with this tree's C signatures (the C entries are the same) ->
+    """Build each tree's ash_tpu_torch/csrc/bloom.cu, lights.cu, shadow.cu
+    and binning.cu, where it has them, with ops/_build.py's flags, one nvcc
+    a source, all started together, into build/ash_tpu_torch/ab/; bind each
+    library with this tree's C signatures (the C entries are the same),
+    but the parent's binning library, whose ash_bin_level takes other
+    arguments: its own ops/binning_cuda.py binds it (ab_phase) ->
     {(kind, label): (library, ptxas_usage)}; this tree's own libraries
     under "change"."""
     import ctypes
 
-    from ash_tpu_torch.ops import _build, bloom_cuda, lights_cuda, shadow_cuda
+    from ash_tpu_torch.ops import (_build, binning_cuda, bloom_cuda,
+                                   lights_cuda, shadow_cuda)
 
     own = {"bloom": (bloom_cuda._library(),
                      ("ash_bloom_down", "ash_bloom_up")),
            "lights": (lights_cuda._library(), ("ash_light_loop",)),
-           "shadow": (shadow_cuda._library(), ("ash_shadow_pcf16",))}
+           "shadow": (shadow_cuda._library(), ("ash_shadow_pcf16",)),
+           "binning": (binning_cuda._library(), ("ash_bin_level",))}
     libs = {(kind, "change"): (lib, ptxas_usage(
         _build.library_path(kind).with_suffix(".log").read_text()))
         for kind, (lib, _) in own.items()}
@@ -3622,7 +3630,7 @@ def ab_builds(trees):
         check(proc.returncode == 0, f"ab: nvcc failed for {key}:\n{log}")
         lib = ctypes.CDLL(str(jobs[key][0]))
         this, entries = own[key[0]]
-        for entry in entries:
+        for entry in entries if key != ("binning", "parent") else ():
             getattr(lib, entry).argtypes = getattr(this, entry).argtypes
             getattr(lib, entry).restype = getattr(this, entry).restype
         libs[key] = (lib, ptxas_usage(log))
@@ -3645,10 +3653,109 @@ def tree_module(tree, name):
     return module
 
 
+# The mega frame's drop-free caps (benchmark/cells/mega-1m-tris-1080p.json),
+# at which ab_binning records its binner calls.
+MEGA_DROP_FREE_CAPS = dict(max_tris_per_tile=32768,
+                           shadow_max_tris_per_tile=32768,
+                           binning_coarse_cap=65536)
+
+
+def ab_binning(card, view, proj, pos, parent, libs, labels, held):
+    """ab_phase's binner: DIR's entry (its ops/binning_cuda.py, bound to its
+    own csrc/binning.cu's ash_bin_level) against this tree's, and each
+    variant's binning.cu under this tree's entry, at phase 17's frame calls
+    (frame 1 of BINNING_CALL_FRAMES, mega at its drop-free caps). Each is
+    held to the plain binner (bins_equal) and timed in turns (`labels`):
+    50 bare launches between CUDA events and a CUDA graph of them, beside
+    binning_work's bound; at mega main the entries too (20 calls between
+    events), DIR's with its keep rank's argsort. -> {"binning <call>":
+    numbers}."""
+    import torch
+
+    from ash_tpu_torch.ops import _build, binning, binning_cuda
+
+    module = tree_module(parent, "binning_cuda")
+    if module is None or ("binning", "parent") not in libs:
+        print("ab binning: DIR has no binning kernels", flush=True)
+        return {}
+    with mock.patch.object(_build, "load",
+                           lambda name: libs["binning", "parent"][0]):
+        module._library.cache_clear()
+        module._library()  # DIR's argument types on DIR's library
+
+    def entry_of(label):
+        if label == "parent":
+            return module, contextlib.nullcontext()
+        return binning_cuda, mock.patch.object(
+            binning_cuda, "_library", lambda: libs["binning", label][0])
+
+    cases = {}
+    for name, kw in BINNING_CALL_FRAMES:
+        rend, step = binning_frame(name, kw, view, proj, pos,
+                                   MEGA_DROP_FREE_CAPS)
+        for fname, args, ckw in binner_calls(lambda: step(0)):
+            label = f"{name} {'main' if args[3] == 1920 else 'shadow'}"
+            while label in cases:
+                label += "'"
+            cases[label] = (fname, args, ckw)
+        del rend, step
+    results = {}
+    for call, (fname, args, kw) in cases.items():
+        want = getattr(binning, fname)(*args, **kw)
+        launches, equal = {}, {}
+        for label in dict.fromkeys(labels):
+            mod, ctx = entry_of(label)
+            with ctx:
+                launch, bins = mod.launcher(*args,
+                                            **binning_kwargs(fname, kw))
+            launch()
+            torch.cuda.synchronize()
+            equal[label] = held(label, bins_equal(bins, want),
+                                f"binning kernels at the {call} call")
+            launches[label] = (launch, bins)
+        events, graphed = {}, {}
+        for label in labels:
+            events.setdefault(label, []).append(
+                cuda_ms(launches[label][0], 50))
+            graphed.setdefault(label, []).append(
+                graph_ms(launches[label][0]))
+        bound = binning_work(fname, args, kw)[0]
+        mean = {k: statistics.mean(v) for k, v in graphed.items()}
+        row = dict(device_ms=events, graph_ms=graphed, equal=equal,
+                   bound_ms=bound,
+                   graph_speedup=mean["parent"] / mean["change"])
+        line = (f"ab binning kernels, {call} call ({fname}, "
+                f"{args[3]}x{args[2]}, tiles {args[4]}x{args[5]}, "
+                f"K={args[6]}, {int(args[0].shape[0])} triangles, nearest "
+                f"{kw.get('keep_score') is not None}): device ms (mean of 50 "
+                "bare launches; in a CUDA graph; in turns) " + "; ".join(
+                    f"{k} {v}; {graphed[k]} -> {mean[k]:.4f} "
+                    f"({100 * bound / mean[k]:.1f}% of the bound; equal to "
+                    f"the plain binner {equal[k]})"
+                    for k, v in events.items())
+                + f"; bound {bound:.5f} ms; parent / change in a graph "
+                f"{row['graph_speedup']:.2f}")
+        if call == "mega main":
+            entry = {}
+            for label in ("parent", "change", "change", "parent"):
+                mod, ctx = entry_of(label)
+                with ctx:
+                    entry.setdefault(label, []).append(cuda_ms(
+                        lambda: getattr(mod, fname)(*args, **kw), 20))
+            row["entry_ms"] = entry
+            line += (f"; the entries (20 calls between events, in turns) "
+                     f"parent {entry['parent']}, change {entry['change']}")
+        results[f"binning {call}"] = row
+        print(f"{line} ({card})", flush=True)
+        del launches, want
+    return results
+
+
 def ab_phase(card, view, proj, pos, trees):
-    """--parent DIR [--variant LABEL=DIR ...]: this tree's light, bloom and
-    shadow kernels against DIR's, built from DIR's csrc/ and bound to this
-    tree's entry points, in one process. Both are held to the plain
+    """--parent DIR [--variant LABEL=DIR ...]: this tree's binning kernels
+    against DIR's (ab_binning, first), then its light, bloom and shadow
+    kernels against DIR's, built from DIR's csrc/ and bound to this tree's
+    entry points, in one process. Both are held to the plain
     versions at phases 10-12's inputs as those phases hold them
     (torch.equal; the light kernel on covered elements, the others
     untouched; the shadow kernel by shadow_same) and timed there in turns
@@ -3696,6 +3803,9 @@ def ab_phase(card, view, proj, pos, trees):
         if label in ("parent", "change"):
             check(equal, f"ab: {label}'s {what} != the plain version")
         return equal
+
+    results.update(ab_binning(card, view, proj, pos, trees["parent"], libs,
+                              order("binning"), held))
 
     # The light kernel at the rich, lit and lit bf16 shade calls.
     for name, kw in LIGHT_FRAMES:
@@ -4725,13 +4835,34 @@ def mega_binning_boxes(seed, crowd):
             torch.from_numpy(score).cuda())
 
 
+# Keep scores that rank by more than their value: +-0.0, +-inf and NaNs of
+# either sign (bits; a negated NaN has its sign set).
+ODD_SCORE_BITS = (0x00000000, 0x80000000, 0x7F800000, 0xFF800000,
+                  0x7FC00000, 0xFFC00000, 0x7FFFFFFF, 0xFFFFFFFF)
+
+
+def odd_scores(score, seed, share=0.3):
+    """A copy of the keep scores `score` (f32 on the card) with `share` of
+    them, seeded, replaced by ODD_SCORE_BITS' values."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    out = score.cpu().numpy().copy()
+    pick = rng.random(len(out)) < share
+    odd = np.array(ODD_SCORE_BITS, np.uint32).view(np.float32)
+    out[pick] = odd[rng.integers(0, len(odd), int(pick.sum()))]
+    return torch.from_numpy(out).to(score.device)
+
+
 def binning_seeded_cases():
     """{label: (entry name, args, kwargs)}: mega_binning_boxes with a crowd
     of 200,000, which overflows both levels at 32x128 tiles and the base
-    caps (8192, coarse 16384); and boxes whose edges lie at 48k - ulp,
-    where the card's floor(y / 48) (the product with the f32 reciprocal)
-    rounds up, binned densely at 48-row tiles and in two levels over
-    coarse tiles of 3 x 2 fine tiles of 16x32."""
+    caps (8192, coarse 16384), and the dense level at 64x128 tiles and
+    K=256; and boxes whose edges lie at 48k - ulp, where the card's floor(y
+    / 48) (the product with the f32 reciprocal) rounds up, binned densely
+    at 48-row tiles and in two levels over coarse tiles of 3 x 2 fine tiles
+    of 16x32. Under "nearest" the scores are tied, and once more with a
+    third of them +-0.0, +-inf or NaN of either sign (odd_scores)."""
     import torch
 
     bbox, valid, score = mega_binning_boxes(11, 200_000)
@@ -4748,8 +4879,10 @@ def binning_seeded_cases():
     pscore = torch.from_numpy(
         rng.integers(0, 7, len(rows)).astype(np.float32)).cuda()
     cases = {}
-    for policy, keep, pkeep in (("draw order", None, None),
-                                ("nearest", score, pscore)):
+    for policy, keep, pkeep in (
+            ("draw order", None, None), ("nearest", score, pscore),
+            ("nearest, +-0, +-inf and NaN scores", odd_scores(score, 13),
+             odd_scores(pscore, 14))):
         cases[f"seeded 1M two-level base caps, {policy}"] = (
             "bin_triangles_two_level", (*big, 1080, 1920, 32, 128, 8192),
             dict(coarse_cap=16384, keep_score=keep))
@@ -4759,6 +4892,10 @@ def binning_seeded_cases():
         cases[f"48k - ulp edges, 48-row coarse tiles, {policy}"] = (
             "bin_triangles_two_level", (*probe, 160, 208, 16, 32, 8),
             dict(coarse_tiles=(3, 2), coarse_cap=40, keep_score=pkeep))
+        if keep is not None:
+            cases[f"seeded 1M dense 64x128 tiles K=256, {policy}"] = (
+                "bin_triangles", (*big, 1080, 1920, 64, 128, 256),
+                dict(keep_score=keep))
     return cases
 
 
@@ -4863,6 +5000,14 @@ def binning_phase(card, view, proj, pos, binning_launches, usage, mega_caps):
           and cases["mega main"][2].get("keep_score") is not None,
           "phase17: the mega frame does not bin in two levels, nearest")
 
+    # The floor under a dense call's three launches at 1000 cubes: three
+    # empty launches (torch.cuda._sleep(0)) in a CUDA graph.
+    floor = [graph_ms(lambda: [torch.cuda._sleep(0) for _ in range(3)])
+             for _ in range(2)]
+    rows["three empty launches"] = {"graph_ms": floor}
+    print(f"phase17 three empty launches in a CUDA graph: {floor} ms (the "
+          f"floor under a dense call's three kernels) ({card})", flush=True)
+
     # Every recorded call and seeded case, array for array; the frames'
     # calls timed.
     for label, (fname, args, kw) in {**cases,
@@ -4920,7 +5065,9 @@ def binning_phase(card, view, proj, pos, binning_launches, usage, mega_caps):
                  f"{row['by_kernel']['try']}) "
                  + ", ".join(f"{k} {v:.4f}"
                              for k, v in row["by_kernel"]["ms"].items())
-                 + f", sum {sum(row['by_kernel']['ms'].values()):.4f}")
+                 + f", sum {sum(row['by_kernel']['ms'].values()):.4f}"
+                 + ("" if fname != "bin_triangles" else
+                    f"; three empty launches {min(floor):.4f} ms"))
         print(f"phase17 binning kernels, {label} ({row['entry']}, "
               f"{row['size']}, tiles {row['tiles']}, K={row['K']}, "
               f"{row['triangles']} triangles, nearest {row['nearest']}, y0 "
@@ -5017,8 +5164,8 @@ def binning_phase(card, view, proj, pos, binning_launches, usage, mega_caps):
 def main() -> int:
     ap = argparse.ArgumentParser(
         description="Drive the port on one CUDA card (see the module's "
-        "docstring); with --parent, time another tree's light, bloom and "
-        "shadow kernels against this tree's instead (ab_phase).")
+        "docstring); with --parent, time another tree's binning, light, "
+        "bloom and shadow kernels against this tree's instead (ab_phase).")
     ap.add_argument("--parent", type=pathlib.Path, metavar="DIR",
                     help="another checkout of the repository, for example "
                     "the parent commit unpacked with git archive")

@@ -364,6 +364,98 @@ def test_check_inputs_refuses_what_the_kernels_do_not_take():
         binning_cuda.launcher(bbox, valid, *args)
 
 
+def test_check_inputs_refuses_a_dense_grid_past_16_bits():
+    """The kernels keep a dense-level tile range in 16 bits a bound."""
+    bbox = torch.zeros(10, 4)
+    valid = torch.ones(10, dtype=torch.bool)
+    side = binning_cuda.MAX_GRID_SIDE
+    binning_cuda.check_inputs(bbox, valid, 8, side, 8, 1, 4)
+    _refused("dense grid", bbox, valid, 8, side + 1, 8, 1, 4)
+    _refused("dense grid", bbox, valid, side + 1, 8, 1, 8, 4)
+    # The two-level binner's fine grid may be wider; its coarse one not.
+    binning_cuda.check_inputs(bbox, valid, 8, side + 1, 8, 1, 4,
+                              coarse_tiles=(1, 2), coarse_cap=4)
+    _refused("dense grid", bbox, valid, 8, 2 * side + 2, 8, 1, 4,
+             coarse_tiles=(1, 2), coarse_cap=4)
+
+
+def test_chunk_halves_to_fill_the_card():
+    """256 items a chunk, halved down to 64 while a level has fewer chunks
+    than two blocks an SM (264 on a 132-SM card)."""
+    assert binning_cuda.chunk_size(1, 1_002_528, 264) == 256
+    assert binning_cuda.chunk_size(72, 65536, 264) == 256
+    assert binning_cuda.chunk_size(1, 16384, 264) == 64
+    assert binning_cuda.chunk_size(1, 40000, 264) == 128
+    assert binning_cuda.chunk_size(1, 10, 264) == 64
+    assert binning_cuda.chunk_size(6, 600, 264) == 64
+
+
+def _bits(x):
+    return np.array([x], np.uint32).view(np.float32)[0]
+
+
+def _odd_scores(t, seed, denormals=True):
+    """Seeded scores of few distinct values (ties) with +-0.0, NaNs of
+    either sign and +-inf among them, and the smallest denormals."""
+    rng = np.random.default_rng(seed)
+    score = rng.integers(-3, 4, t).astype(np.float32) * np.float32(0.5)
+    special = [0.0, -0.0, np.inf, -np.inf, np.nan, _bits(0xFFC00000),
+               _bits(0x7F800001), _bits(0xFFFFFFFF)]
+    if denormals:
+        special += [np.float32(1e-45), -np.float32(1e-45)]
+    special = np.array(special, np.float32)
+    pick = rng.random(t) < 0.3
+    score[pick] = special[rng.integers(0, len(special), int(pick.sum()))]
+    return score
+
+
+def _keep_key(score):
+    """csrc/binning.cu's "nearest" key of each triangle, as its source
+    note states it: the high word NaN -> 0xFFFFFFFF, +-0.0 -> 0x80000000,
+    else ~u with the sign set and u | 0x80000000 without (u the score's
+    bits); the low word ~id. uint64."""
+    u = score.view(np.uint32).astype(np.uint64)
+    hi = np.where(u & 0x80000000, ~u & 0xFFFFFFFF, u | 0x80000000)
+    hi = np.where(score == 0, 0x80000000, hi)
+    hi = np.where(np.isnan(score), 0xFFFFFFFF, hi)
+    ids = np.arange(len(score), dtype=np.uint64)
+    return (hi << np.uint64(32)) | (~ids & np.uint64(0xFFFFFFFF))
+
+
+def _rank_of_keys(key):
+    rank = np.empty(len(key), np.int64)
+    rank[np.argsort(key, kind="stable")] = np.arange(len(key))
+    return rank
+
+
+@pytest.mark.parametrize("t,seed", [(7, 0), (300, 1), (5000, 2),
+                                    (40000, 3)])
+def test_keep_key_orders_as_keep_rank(t, seed):
+    """The kernels' 64-bit key sorts the triangles as ops/binning.py's
+    _keep_rank ranks them (a stable argsort: ties to the lower id, -0.0
+    equal to +0.0, every NaN above +inf), so "nearest" needs no sort."""
+    score = _odd_scores(t, seed)
+    key = _keep_key(score)
+    assert len(np.unique(key)) == t
+    rank = binning._keep_rank(torch.from_numpy(score))[0].numpy()
+    np.testing.assert_array_equal(_rank_of_keys(key), rank)
+
+
+@pytest.mark.parametrize("t,seed", [(300, 1), (40000, 3)])
+def test_keep_rank_of_odd_scores_matches_reference(t, seed):
+    """With +-0.0, NaNs of either sign and +-inf among the scores, the
+    port's _keep_rank ranks as ash_tpu's lexsort on JAX's CPU backend (no
+    denormals: XLA's CPU backend flushes them to zero, PyTorch does not)."""
+    import jax.numpy as jnp
+    from ash_tpu.ops import binning as ref_binning
+
+    score = _odd_scores(t, seed, denormals=False)
+    rank, order = binning._keep_rank(torch.from_numpy(score))
+    want_rank, want_order = ref_binning._keep_rank(jnp.asarray(score))
+    np.testing.assert_array_equal(rank.numpy(), np.asarray(want_rank))
+    np.testing.assert_array_equal(order.numpy(), np.asarray(want_order))
+
+
 def test_cost_analysis_observes_the_entry():
     with cost_analysis.FrameCost() as cost:
         assert cost._kernel_launch in binning_cuda.observers
@@ -510,3 +602,214 @@ def test_cuda_frame_calls_go_through_the_kernels():
         torch.cuda.synchronize()
         assert binning_cuda.launches[kind] - before == 2  # main and shadow
         assert int(out.covered_pixels) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [300, 5000, 1_002_528])
+def test_cuda_keep_key_orders_as_argsort_on_the_card(t):
+    """_keep_rank on the card (PyTorch's stable argsort there) ranks the
+    odd scores (+-0.0, NaNs of either sign, +-inf, ties) as the kernels'
+    key orders them."""
+    _need_card()
+    score = _odd_scores(t, 5)
+    rank = binning._keep_rank(torch.from_numpy(score).cuda())[0].cpu()
+    np.testing.assert_array_equal(_rank_of_keys(_keep_key(score)),
+                                  rank.numpy())
+
+
+def _coarse_counts_case(counts, filler):
+    """Boxes inside coarse tiles of 4x2 fine tiles of 16x32 (64x64 pixels)
+    in a 3 x 3 grid (192x192): coarse tile g holds counts[g] of them, then
+    `filler` invalid triangles."""
+    rng = np.random.default_rng(len(counts) + filler)
+    rows = []
+    for g, n in enumerate(counts):
+        x, y = (g % 3) * 64, (g // 3) * 64
+        x0 = x + rng.random(n) * 50
+        y0 = y + rng.random(n) * 50
+        rows.append(np.stack([x0, y0, x0 + rng.random(n) * 12,
+                              y0 + rng.random(n) * 12], 1))
+    bbox = np.concatenate(rows + [np.zeros((filler, 4))]).astype(np.float32)
+    valid = np.arange(len(bbox)) < len(bbox) - filler
+    return bbox, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("cap,coarse_cap,filler", [
+    (600, 8000, 6526),  # 256 items a chunk: kc = 8000
+    (600, 1000, 0),     # 64 items a chunk: kc = 1474
+    (100, 8000, 6526),  # the fine tiles overflow
+    (100, 256, 0),      # both levels overflow
+])
+def test_cuda_coarse_counts_at_chunk_edges(policy, cap, coarse_cap, filler):
+    """Coarse lists of 0, 1, 63, 64, 65, 255, 256, 257 and 513 candidates:
+    the fine blocks past a list's count return at once and its select
+    block scans only its own chunks."""
+    _need_card()
+    counts = (0, 1, 63, 64, 65, 255, 256, 257, 513)
+    bbox, valid = _coarse_counts_case(counts, filler)
+    keep = (torch.from_numpy(_odd_scores(len(bbox), 6)).cuda()
+            if policy == "nearest" else None)
+    b, v = torch.from_numpy(bbox).cuda(), torch.from_numpy(valid).cuda()
+    coarse = binning.bin_triangles(b, v, 192, 192, 64, 64, min(coarse_cap,
+                                                               len(bbox)),
+                                   keep_score=keep)
+    assert sorted(coarse.counts.tolist()) == sorted(
+        min(n, coarse_cap) for n in counts)
+    _kernel_matches_plain(
+        binning_cuda.bin_triangles_two_level, binning.bin_triangles_two_level,
+        b, v, 192, 192, 16, 32, cap, coarse_tiles=(4, 2),
+        coarse_cap=coarse_cap, keep_score=keep,
+        what=f"coarse counts {cap} {coarse_cap} {policy}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("cap", [1, 3, 7, 13, 257])
+def test_cuda_rows_of_any_length(policy, cap):
+    """K not a multiple of 4: the padding's 16-byte stores start at each
+    row's own boundary and end in a scalar tail; dense and two levels."""
+    _need_card()
+    bbox, valid, score, args, kw = CASES["random cap 16 coarse 100 y0=0"]
+    keep = (torch.from_numpy(score).cuda() if policy == "nearest" else None)
+    b, v = torch.from_numpy(bbox).cuda(), torch.from_numpy(valid).cuda()
+    dims = args[:4]
+    _kernel_matches_plain(binning_cuda.bin_triangles, binning.bin_triangles,
+                          b, v, *dims, cap, keep_score=keep,
+                          what=f"dense K={cap} {policy}")
+    _kernel_matches_plain(
+        binning_cuda.bin_triangles_two_level, binning.bin_triangles_two_level,
+        b, v, *dims, cap, coarse_tiles=(4, 2), coarse_cap=301,
+        keep_score=keep, what=f"two-level K={cap} {policy}")
+
+
+def _standard_boxes(seed, t=16384, live=12000):
+    """A 1000-cube frame's setup at 1920x1080 as the dense binner sees it:
+    `live` small boxes (cube faces), some crossing the screen's edges, then
+    padding triangles that are invalid."""
+    rng = np.random.default_rng(seed)
+    x0 = rng.random(t) * 2000 - 40
+    y0 = rng.random(t) * 1160 - 40
+    size = rng.exponential(25.0, (t, 2))
+    bbox = np.stack([x0, y0, x0 + size[:, 0], y0 + size[:, 1]], 1)
+    valid = (np.arange(t) < live) & (rng.random(t) > 0.05)
+    return bbox.astype(np.float32), valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("cap", [256, 8])
+def test_cuda_dense_16384_at_standard_tiles(policy, cap):
+    """16,384 padded triangles at the standard frame's 64x128 tiles (255
+    tiles), in chunks of 64: array for array, with and without drops."""
+    _need_card()
+    bbox, valid = _standard_boxes(13)
+    keep = (torch.from_numpy(_odd_scores(len(bbox), 7)).cuda()
+            if policy == "nearest" else None)
+    got = _kernel_matches_plain(
+        binning_cuda.bin_triangles, binning.bin_triangles,
+        torch.from_numpy(bbox).cuda(), torch.from_numpy(valid).cuda(), 1080,
+        1920, 64, 128, cap, keep_score=keep, what=f"standard {cap} {policy}")
+    assert (int(got.overflow) > 0) == (cap == 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two", [False, True])
+def test_cuda_nearest_odd_scores_overflow(two):
+    """"nearest" with +-0.0, NaNs of either sign, +-inf and ties, where the
+    tiles overflow (both levels of the two-level binner): the radix select
+    over the 64-bit key keeps what the plain binner's argsort keeps."""
+    _need_card()
+    bbox, valid, _, args, kw = CASES["random cap 16 coarse 100 y0=0"]
+    if not two:
+        kw = dict(y0=kw["y0"])
+    b, v = torch.from_numpy(bbox).cuda(), torch.from_numpy(valid).cuda()
+    for seed in range(3):
+        keep = torch.from_numpy(_odd_scores(len(bbox), 10 + seed)).cuda()
+        got = _kernel_matches_plain(
+            _entry(two), _plain(two), b, v, *args, **kw, keep_score=keep,
+            what=f"odd scores two-level={two} seed {seed}")
+        assert int(got.overflow) > 0
+    if two:
+        coarse = binning.bin_triangles(b, v, 128, 320, 32, 64, 100)
+        assert int(coarse.overflow) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two", [False, True])
+def test_cuda_graph_replay_with_odd_scores(two):
+    """The entry captured in a CUDAGraph at 16,384 triangles (dense, or two
+    levels over coarse tiles of 4x2 fine tiles) and replayed on new boxes
+    and odd scores written in place: equal to the eager call."""
+    _need_card()
+    bbox, valid = _standard_boxes(21)
+    kw = dict(coarse_tiles=(4, 2), coarse_cap=4096) if two else {}
+    args = (1080, 1920, 64, 128, 64)
+    b = torch.from_numpy(bbox).cuda()
+    v = torch.from_numpy(valid).cuda()
+    s = torch.from_numpy(_odd_scores(len(bbox), 8)).cuda()
+    fn = _entry(two)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(b, v, *args, **kw, keep_score=s)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(b, v, *args, **kw, keep_score=s)
+    for seed in range(3):
+        nb, nv = _standard_boxes(30 + seed)
+        b.copy_(torch.from_numpy(nb))
+        v.copy_(torch.from_numpy(nv))
+        s.copy_(torch.from_numpy(_odd_scores(len(bbox), 40 + seed)))
+        graph.replay()
+        _assert_same(out, _plain(two)(b, v, *args, **kw, keep_score=s),
+                     f"replay two-level={two} seed {seed}")
+
+
+def _device_kernels(fn, tries=3, want=None):
+    """The CUDA kernel names torch.profiler records for one fn() (warmed
+    up), taken again up to `tries` times until `want(names)` holds (a
+    trace of a short call can lose records)."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if want is None or want(names):
+            break
+    return names
+
+
+@pytest.mark.cuda
+def test_cuda_nearest_entry_launches_no_sort():
+    """The mega main call's entry with "nearest" (1,002,528 triangles,
+    32x128 tiles, caps 32768 / 65536) launches the three binning kernels a
+    level and no sort: the kernels rank by the key. The plain binner's
+    trace of the same call shows its argsort, so the trace would."""
+    import re
+
+    import chip_smoke
+
+    _need_card()
+    bbox, valid, score = chip_smoke.mega_binning_boxes(11, 0)
+    args = (bbox, valid, 1080, 1920, 32, 128, 32768)
+    kw = dict(coarse_tiles=(4, 2), coarse_cap=65536, keep_score=score)
+
+    def sorts(names):
+        return [n for n in names if re.search("sort", n, re.I)]
+
+    plain = _device_kernels(
+        lambda: binning.bin_triangles_two_level(*args, **kw), want=sorts)
+    assert sorts(plain)
+    names = _device_kernels(
+        lambda: binning_cuda.bin_triangles_two_level(*args, **kw),
+        want=lambda n: sum("bin_" in k for k in n) == 6)
+    assert sum("bin_" in k for k in names) == 6, names
+    assert not sorts(names), sorts(names)
